@@ -11,15 +11,26 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
 
 1. environment: versions, the card's name and power limit, nvcc, build time;
 2. each kernel against its plain PyTorch version on the card
-   (``tile_spgemm``, both block shapes: max|d|/max|ref| <= 1e-5;
-   ``esc_stream_mul`` bitwise; ``esc_stream_red``: <= 1e-6);
-3. ``cari`` through the port's CLI, equal to scipy (rtol 1e-4, atol 1e-3);
+   (``tile_spgemm``, both block shapes, and ``tile_stream`` with ogroup 1
+   and 8, ``tile_panel`` with f32 and bf16 output, ``tile_grid``:
+   max|d|/max|ref| <= 1e-5, the bf16 output its own f32 output rounded
+   once and within one bf16 ulp plus 1e-5 of max|ref| of the plain value,
+   empty runs exact zeros; ``esc_stream_mul`` bitwise; ``esc_stream_red``: <= 1e-6);
+3. ``cari`` through the port's CLI, equal to scipy (rtol 1e-4, atol 1e-3),
+   once on the auto engine (``tile_spgemm``) and once under each
+   ``--engine streaming | panel | pallas_grid``, each launching its kernel
+   and not ``tile_spgemm``;
 4. the NN pair (16384^2 block-sparse weight x 16384x4096 ReLU activations,
    f32): dispatched to the tile kernel, gated against scipy/numpy on its
    first 2048 rows (max|d|/max|ref| < 1e-4), kernel and plain version timed
    on the launches the run made;
 5. the localized power-law pair (65536^2, degree 32): dispatched to the
-   element kernels, gated against scipy on 2048 rows (< 1e-3), timed.
+   element kernels, gated against scipy on 2048 rows (< 1e-3), timed;
+6. the engine override at full width: phase 4's plan of the NN pair run
+   again through ``spgemm(..., plan=)`` under each ``engine`` streaming,
+   panel and pallas_grid, gated against scipy/numpy (< 1e-4) and against
+   phase 4's ``tile_spgemm`` result (<= 1e-5), each kernel timed beside its
+   plain version on the launches the run made.
 
 Every kernel wrapper counts its launches; the counts are cleared right
 before each main-path run and read right after it.  The script prints one
@@ -151,6 +162,8 @@ def check_kernels(dev, errs: dict) -> None:
                 errs["tile_spgemm"] = max(errs["tile_spgemm"],
                                           float(np.abs(g - r).max()))
 
+    check_engine_kernels(dev, errs, rng)
+
     a = torch.from_numpy(rng.standard_normal((64, 1024), np.float32)).to(dev)
     b = torch.from_numpy(rng.standard_normal((64, 1024), np.float32)).to(dev)
     got, ref = esc_stream_mul(a, b), esc_stream_mul_reference(a, b)
@@ -170,27 +183,123 @@ def check_kernels(dev, errs: dict) -> None:
                                      float((got - ref).abs().max()))
 
 
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at each value of ``x`` (bf16 values in a
+    float32 tensor); 0 where ``x`` is 0."""
+    import torch
+
+    e = torch.floor(torch.log2(x.abs().clamp_min(1e-38)))
+    return torch.where(x == 0, torch.zeros_like(x), torch.exp2(e - 7))
+
+
+def check_engine_kernels(dev, errs: dict, rng) -> None:
+    """tile_stream, tile_panel and tile_grid against their plain versions
+    on random worklists with empty runs, and for ogroup 8 a whole group
+    with no items (C tiles 8-15) and a last group of two C tiles."""
+    import torch
+
+    from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
+    from spada_tpu_torch.ops import engine as E
+
+    runs = np.array([3, 0, 1, 4, 2, 0, 0, 0] + [0] * 8 + [2, 1])
+    n_c, w = len(runs), int(runs.sum())
+    o_np = np.repeat(np.arange(n_c), runs).astype(np.int32)
+    empty = torch.from_numpy(runs == 0).to(dev)
+
+    def ids(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+
+    o, tp = ids(o_np), ids(tile_ptr_of(o_np, n_c))
+    for tk in (128, 512):
+        for tm in (8, 32, 64, 128, 512):
+            for dtype in (torch.float32, torch.bfloat16):
+                a = torch.from_numpy(rng.standard_normal(
+                    (5, tm, tk), np.float32)).to(dev, dtype)
+                b = torch.from_numpy(rng.standard_normal(
+                    (4, tk, tk), np.float32)).to(dev, dtype)
+                ai, bi = ids(rng.integers(0, 5, w)), ids(rng.integers(0, 4, w))
+                a_t = a.transpose(1, 2).contiguous()
+                cases = []
+                for og in (1, 8):
+                    args = (a, b, ai, bi, o, ids(item_ptr_of(o_np, n_c, og)),
+                            n_c, og)
+                    cases.append((f"tile_stream og={og}", "tile_stream",
+                                  E.tile_stream(*args),
+                                  E.tile_stream_reference(*args)))
+                args = (a_t, b, ai, bi, tp, torch.float32)
+                cases.append(("tile_panel", "tile_panel", E.tile_panel(*args),
+                              E.tile_panel_reference(*args)))
+                args = (a, b, ai, bi, o, n_c)
+                cases.append(("tile_grid", "tile_grid", E.tile_grid(*args),
+                              E.tile_grid_reference(*args)))
+                args = (a_t, b, ai, bi, tp, torch.bfloat16)
+                p16 = E.tile_panel(*args)
+                r16 = E.tile_panel_reference(*args).float()
+                torch.cuda.synchronize()
+                require(torch.equal(p16, cases[-2][2].to(torch.bfloat16)),
+                        "tile_panel: the bf16 output is not its f32 output "
+                        "rounded once")
+                p16 = p16.float()
+                line = []
+                for label, name, got, ref in cases:
+                    err = relerr(got.cpu().numpy(), ref.cpu().numpy())
+                    line.append(f"{label} {err:.1e}")
+                    require(err <= 1e-5, f"{label} tm={tm} tk={tk} {dtype}: "
+                            f"relerr {err:.3e} > 1e-5")
+                    require(bool((got[empty] == 0).all()),
+                            f"{label}: an empty run gave a nonzero tile")
+                    errs[name] = max(errs[name],
+                                     float((got - ref).abs().max()))
+                # one bf16 ulp, plus the f32 bar: the two f32 sums differ
+                # in order, and near a cancellation a bf16 ulp is smaller
+                # than their gap
+                gap = (p16 - r16).abs()
+                bar = bf16_ulp(r16) + 1e-5 * float(r16.abs().max())
+                ulps = float((gap / bf16_ulp(r16).clamp_min(1e-38)).max())
+                require(bool((gap <= bar).all()),
+                        f"tile_panel bf16 out tm={tm} tk={tk} {dtype}: "
+                        f"{float((gap / bar).max()):.2f} x the bar")
+                require(bool((p16[empty] == 0).all()),
+                        "tile_panel bf16 out: an empty run gave a nonzero "
+                        "tile")
+                log(f"  tm={tm:3d} tk=tn={tk} {str(dtype)[6:]:8s} "
+                    f"max|d|/max|ref|: {', '.join(line)}; tile_panel bf16 "
+                    f"out: max {ulps:.2f} ulp of the plain value, "
+                    f"{int((gap > bf16_ulp(r16)).sum())} values over 1 ulp")
+
+
 # --------------------------------------------------------------------------
 # phase 3: cari through the CLI
 # --------------------------------------------------------------------------
 
-def run_cari(dev, totals: dict) -> None:
+#: the kernel each --engine override runs
+ENGINE_KERNEL = {"streaming": "tile_stream", "panel": "tile_panel",
+                 "pallas_grid": "tile_grid"}
+
+
+def run_cari(dev, totals: dict, engine=None) -> None:
     import scipy.io
 
     from spada_tpu_torch import cli
 
+    argv = ["run", "spada", "SS", "cari", "config/default.json",
+            "--device", str(dev), "--no-result"]
+    if engine:
+        argv += ["--engine", engine]
+    kernel = ENGINE_KERNEL.get(engine, "tile_spgemm")
     with main_path(totals) as counts:
-        c = cli.execute(["run", "spada", "SS", "cari", "config/default.json",
-                         "--device", str(dev), "--no-result"])
+        c = cli.execute(argv)
     a = scipy.io.mmread(os.path.join(ROOT, "matrices", "cari.mtx")).tocsr()
     b = a if a.shape[0] == a.shape[1] else a.T.tocsr()
     ref = (a @ b).toarray()
     ok = np.allclose(c.todense(), ref, rtol=1e-4, atol=1e-3)
-    log(f"  cari launches {counts}; C vs scipy: allclose(rtol=1e-4, "
-        f"atol=1e-3) = {ok}, max|d|/max|ref| = {relerr(c.todense(), ref):.2e}")
-    require(ok, "cari result differs from scipy")
-    require(counts.get("tile_spgemm", 0) > 0,
-            "cari did not launch tile_spgemm")
+    log(f"  engine {engine or 'auto'}: launches {counts}; C vs scipy: "
+        f"allclose(rtol=1e-4, atol=1e-3) = {ok}, max|d|/max|ref| = "
+        f"{relerr(c.todense(), ref):.2e}")
+    require(ok, f"cari under engine {engine} differs from scipy")
+    require(counts.get(kernel, 0) > 0, f"cari did not launch {kernel}")
+    require(engine is None or counts.get("tile_spgemm", 0) == 0,
+            f"cari under --engine {engine} launched tile_spgemm")
 
 
 # --------------------------------------------------------------------------
@@ -198,7 +307,9 @@ def run_cari(dev, totals: dict) -> None:
 # --------------------------------------------------------------------------
 
 def run_nn(dev, cfg, totals: dict, errs: dict, times: dict,
-           m: int = 16384, n: int = 4096) -> None:
+           m: int = 16384, n: int = 4096):
+    """Returns the run, its dense C and the f64 reference of C's first
+    rows, for phase 6."""
     import torch
 
     from spada_tpu_torch.cli import run_spada
@@ -228,7 +339,6 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict,
     log(f"  gate vs scipy/numpy f64, rows [0, {rows}): "
         f"max|d|/max|ref| = {err:.2e} (limit 1e-4)")
     require(err < 1e-4, f"nn gate failed: relerr {err:.3e}")
-    del got, ref
 
     t_kernel = t_plain = 0.0
     tk, tn = run.result.host_state["tk"], run.result.host_state["tn"]
@@ -261,6 +371,7 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict,
         del a_t, b_t, dwl
     times["tile_spgemm"] = (t_kernel, t_plain)
     torch.cuda.empty_cache()
+    return run, run.result.todense(), ref
 
 
 # --------------------------------------------------------------------------
@@ -342,6 +453,94 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict,
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 6: the engine override at full width
+# --------------------------------------------------------------------------
+
+def engine_pair(engine: str, a_t, b_t, wl, dev):
+    """(kernel, plain) calls for one segment, with the arguments the
+    engine's run_worklist_* passes its wrapper (ogroup 8, nbuf 8)."""
+    import torch
+
+    from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
+    from spada_tpu_torch.ops import engine as E
+
+    def ids(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+
+    ai, bi, oi, n_c = ids(wl.a_tid), ids(wl.b_tid), ids(wl.o_tid), wl.n_c_tiles
+    if engine == "streaming":
+        args = (a_t, b_t, ai, bi, oi, ids(item_ptr_of(wl.o_tid, n_c, 8)),
+                n_c, 8, 8)
+        kernel, plain = E.tile_stream, E.tile_stream_reference
+    elif engine == "panel":
+        args = (a_t.transpose(1, 2).contiguous(), b_t, ai, bi,
+                ids(tile_ptr_of(wl.o_tid, n_c)))
+        kernel, plain = E.tile_panel, E.tile_panel_reference
+    else:
+        args = (a_t, b_t, ai, bi, oi, n_c)
+        kernel, plain = E.tile_grid, E.tile_grid_reference
+    return (lambda: kernel(*args)), (lambda: plain(*args))
+
+
+def run_engines(dev, run, c_tile, ref_rows, totals: dict, errs: dict,
+                times: dict) -> None:
+    import dataclasses
+
+    import torch
+
+    from spada_tpu_torch.ops.spgemm import spgemm
+
+    rows = ref_rows.shape[0]
+    for engine, kernel in ENGINE_KERNEL.items():
+        cfg = dataclasses.replace(run.config, engine=engine)
+        t0 = time.perf_counter()
+        with main_path(totals) as counts:
+            res = spgemm(run.a, run.b, cfg, dataflow="spada", plan=run.plan,
+                         device=dev)
+        log(f"  engine {engine}: spgemm(plan=) {time.perf_counter() - t0:.1f}"
+            f" s host+device, launches {counts}")
+        require(counts.get(kernel, 0) > 0, f"nn under engine {engine} did "
+                f"not launch {kernel}")
+        require(counts.get("tile_spgemm", 0) == 0,
+                f"nn under engine {engine} launched tile_spgemm")
+        got = res.todense()
+        e_ref = relerr(got[:rows], ref_rows)
+        e_tile = relerr(got, c_tile)
+        log(f"  gate vs scipy/numpy f64, rows [0, {rows}): max|d|/max|ref| = "
+            f"{e_ref:.2e} (limit 1e-4); vs tile_spgemm's C: {e_tile:.2e} "
+            f"(limit 1e-5)")
+        require(e_ref < 1e-4, f"nn under engine {engine}: gate {e_ref:.3e}")
+        require(e_tile <= 1e-5,
+                f"nn under engine {engine}: vs tile_spgemm {e_tile:.3e}")
+        del got
+
+        t_kernel = t_plain = 0.0
+        tk, tn = res.host_state["tk"], res.host_state["tn"]
+        for wl, a_np, b_np, tm in res.host_state["segments"]:
+            a_t = torch.from_numpy(a_np).to(dev)
+            b_t = torch.from_numpy(b_np).to(dev)
+            kernel_fn, plain_fn = engine_pair(engine, a_t, b_t, wl, dev)
+            g, r = kernel_fn(), plain_fn()
+            e = relerr(g.cpu().numpy(), r.cpu().numpy())
+            require(e <= 1e-5, f"{kernel} nn segment tm={tm}: kernel vs "
+                    f"plain {e:.3e}")
+            errs[kernel] = max(errs[kernel], float((g - r).abs().max()))
+            del g, r
+            tk_s, tp_s = time_pair(kernel_fn, plain_fn)
+            flops = 2 * wl.n_items * tm * tk * tn
+            log(f"  {kernel} segment tm={tm} tk=tn={tk}: W={wl.n_items} "
+                f"nC={wl.n_c_tiles}  kernel {tk_s * 1e3:.3f} ms "
+                f"({flops / tk_s / 1e12:.2f} TFLOP/s)  plain "
+                f"{tp_s * 1e3:.3f} ms ({flops / tp_s / 1e12:.2f} TFLOP/s)  "
+                f"kernel vs plain max|d|/max|ref| {e:.2e}")
+            t_kernel += tk_s
+            t_plain += tp_s
+            del a_t, b_t, kernel_fn, plain_fn
+        times[kernel] = (t_kernel, t_plain)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -373,24 +572,36 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("    " + line.strip())
 
-    errs = {"tile_spgemm": 0.0, "esc_stream_mul": 0.0, "esc_stream_red": 0.0}
+    errs = dict.fromkeys(("tile_spgemm", "tile_stream", "tile_panel",
+                          "tile_grid", "esc_stream_mul", "esc_stream_red"),
+                         0.0)
     totals: dict = {}
     times: dict = {}
     log("== phase 2: kernels vs plain PyTorch versions (TF32 off)")
     check_kernels(dev, errs)
     log("== phase 3: cari through the port's CLI")
-    run_cari(dev, totals)
+    for engine in (None, *ENGINE_KERNEL):
+        run_cari(dev, totals, engine)
     cfg = h100_config(kind)
     log(f"== phase 4: nn pair, tile side (roofline profile: "
         f"{cfg.hbm_bytes_per_s / 1e12:.2f} TB/s, "
         f"{cfg.peak_flops_f32 / 1e12:.0f} TFLOP/s f32, datasheet)")
-    run_nn(dev, cfg, totals, errs, times)
+    nn_run, nn_c, nn_ref = run_nn(dev, cfg, totals, errs, times)
     log("== phase 5: locpl pair, element side")
     run_locpl(dev, cfg, totals, errs, times)
+    log("== phase 6: nn pair under each engine override, phase 4's plan")
+    run_engines(dev, nn_run, nn_c, nn_ref, totals, errs, times)
+    del nn_run, nn_c, nn_ref
 
     require("jax" not in sys.modules, "JAX was imported")
     sources = {"tile_spgemm": ("spada_tpu_torch/csrc/tile_spgemm.cu",
                                "spada_tpu/ops/engine.py:726"),
+               "tile_stream": ("spada_tpu_torch/csrc/tile_stream.cu",
+                               "spada_tpu/ops/engine.py:363"),
+               "tile_panel": ("spada_tpu_torch/csrc/tile_panel.cu",
+                              "spada_tpu/ops/engine.py:1275"),
+               "tile_grid": ("spada_tpu_torch/csrc/tile_grid.cu",
+                             "spada_tpu/ops/engine.py:199"),
                "esc_stream_mul": ("spada_tpu_torch/csrc/esc_stream.cu",
                                   "spada_tpu/ops/element_stream.py:168"),
                "esc_stream_red": ("spada_tpu_torch/csrc/esc_stream.cu",

@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, ``_build/libspada_kernels.so``, at first
-use; it is loaded with :mod:`ctypes`.  Rebuilt when a source is newer than
-the library.  A failed build raises with nvcc's output: no caller falls back
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``, all
+at once, and the objects link into one shared library with a plain C
+interface, ``_build/libspada_kernels.so``, at first use; it is loaded with
+:mod:`ctypes`.  Rebuilt when a source or header is newer than the library.  A failed build raises with nvcc's output: no caller falls back
 to another engine.
 
 Each kernel wrapper adds one to :data:`launches` under its kernel's name
@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libspada_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel name -> number of launches since the last ``launches.clear()``
 launches: collections.Counter = collections.Counter()
@@ -39,6 +39,7 @@ _lib: Optional[ctypes.CDLL] = None
 build_log: Optional[str] = None
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
     # a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c, tm, tk, tn, stream
     "tile_spgemm_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
@@ -49,6 +50,18 @@ _SIGNATURES = {
     "esc_stream_mul": [_P, _P, _P, ctypes.c_longlong, _P],
     # a, b, out, L, n_pad, stream
     "esc_stream_red": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    # a_tiles, b_tiles, a_tid, b_tid, o_tid, item_ptr, c_tiles, n_c, ogroup,
+    # tm, tk, tn, nbuf, stream
+    "tile_stream_f32": [_P] * 7 + [_I] * 6 + [_P],
+    "tile_stream_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    # a_tiles_t, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c, tm, tk, tn,
+    # out_bf16, stream
+    "tile_panel_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "tile_panel_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # a_tiles, b_tiles, a_tid, b_tid, o_tid, c_tiles, n_items, tm, tk, tn,
+    # stream
+    "tile_grid_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "tile_grid_bf16": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 
@@ -63,29 +76,50 @@ def find_nvcc() -> str:
                        "build only where the CUDA toolkit is installed")
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def _sources(pattern: str = "*.cu"):
+    return sorted(glob.glob(os.path.join(CSRC_DIR, pattern)))
 
 
 def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in _sources())
+    return any(os.path.getmtime(s) > built
+               for s in _sources() + _sources("*.cuh"))
+
+
+def _run_all(cmds) -> str:
+    """Run the commands at once; wait for all, raise if any failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    failed = [f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}"
+              for cmd, out, rc in outs if rc]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(out for _, out, _ in outs)
 
 
 def _build() -> None:
     global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    tmp = f"{LIB_PATH}.{tag}"
+    srcs = _sources()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+    try:
+        log = _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                       for src, obj in zip(srcs, objs))
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)
-    build_log = proc.stdout + proc.stderr
+    build_log = log
 
 
 def load() -> ctypes.CDLL:

@@ -56,6 +56,19 @@ def tile_ptr_of(o_tid: np.ndarray, n_c_tiles: int) -> np.ndarray:
                            np.arange(n_c_tiles + 1)).astype(np.int32)
 
 
+def item_ptr_of(o_tid: np.ndarray, n_c_tiles: int, ogroup: int
+                ) -> np.ndarray:
+    """int32 [ceil(n_c_tiles / ogroup) + 1]: each group of ``ogroup``
+    consecutive C tiles' item range in an o-sorted worklist
+    (``spada_tpu/ops/engine.py:427-430``); a group with no items gives
+    lo == hi."""
+    if ogroup < 1:
+        raise ValueError(f"ogroup must be >= 1, got {ogroup}")
+    n_groups = -(-n_c_tiles // ogroup)
+    return np.searchsorted(np.asarray(o_tid),
+                           np.arange(n_groups + 1) * ogroup).astype(np.int32)
+
+
 def worklist_to_torch(wl, device) -> DeviceWorkList:
     """Either package's ``WorkList`` -> :class:`DeviceWorkList` on
     ``device``."""

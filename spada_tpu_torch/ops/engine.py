@@ -1,86 +1,196 @@
 """Numeric phase: the block-sparse tile-product engines.
 
-Two engines compute C tiles from a :class:`~spada_tpu_torch.ops.worklist.WorkList`:
+Five engines compute C tiles from a
+:class:`~spada_tpu_torch.ops.worklist.WorkList`; their names are the
+reference's (``SpadaConfig.engine``).  Four are hand-written CUDA kernels
+for ``sm_90a``, each with its plain PyTorch version beside it:
 
-- ``'cached'`` — :func:`tile_spgemm`, the hand-written CUDA kernel of
-  ``csrc/tile_spgemm.cu`` that replaces the Pallas cached kernel of
-  :func:`spada_tpu.ops.engine.run_worklist_cached`.  It needs a row-major
-  (o-sorted) worklist: each C tile's items are one consecutive run.  The
-  name keeps the reference's engine vocabulary (``SpadaConfig.engine``);
-  the kernel has no slot cache, L2 serves tile reuse.
+- ``'cached'`` — :func:`tile_spgemm` (``csrc/tile_spgemm.cu``), replaces the
+  Pallas kernel of :func:`spada_tpu.ops.engine.run_worklist_cached`, and is
+  the auto choice for o-sorted worklists.  The kernel has no slot cache: L2
+  serves tile reuse.
+- ``'streaming'`` — :func:`tile_stream` (``csrc/tile_stream.cu``), replaces
+  the kernel of ``run_worklist_streaming``: a block walks a group of
+  ``ogroup`` C tiles through a ring of ``nbuf`` ``cp.async`` stages that
+  runs on across C-tile boundaries.
+- ``'panel'`` — :func:`tile_panel` (``csrc/tile_panel.cu``), replaces the
+  kernel of ``run_worklist_panel``: each C tile's run is one contraction
+  over k-transposed A, written as f32 or rounded once to bf16.
+- ``'pallas_grid'`` — :func:`tile_grid` (``csrc/tile_grid.cu``), replaces
+  the kernel of ``run_worklist_pallas`` (also ``SpadaConfig.use_pallas``):
+  one block per item, added into a zeroed C with f32 atomics.
 - ``'xla'`` — :func:`run_worklist_reference`, plain PyTorch (chunked
   gather -> ``bmm`` -> ``index_add_``), the port of the reference's XLA
-  engine.  Order-independent, so it also runs k-major (``op``) schedules.
+  engine.  Order-independent, so it also runs k-major (``op``) schedules;
+  the four kernels need a row-major (o-sorted) worklist and raise on
+  another.
 
-Both compute in f32: bf16 tiles are widened, products and sums are FP32
+All compute in f32: bf16 tiles are widened, products and sums are FP32
 (TF32 is never enabled), so ``precision`` 'highest' and 'default' run the
 same arithmetic here; the tile dtype (``SpadaConfig.engine_dtype``) is what
-selects bf16.  The reference's streaming, panel and pallas_grid engines are
-not ported yet and raise.
+selects bf16.  On a CUDA device an engine runs its kernel or raises: none
+falls back to another engine or to the CPU.  The reference's TPU reroutes
+(``precision='highest'`` to XLA, large ids to streaming) and its item
+splits are not copied.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from spada_tpu_torch import _build
-from spada_tpu_torch.convert import DeviceWorkList, worklist_to_torch
+from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
 
 _PRECISIONS = ("highest", "default")
-_NOT_PORTED = ("streaming", "panel", "pallas_grid")
+_ENGINES = ("cached", "streaming", "panel", "pallas_grid", "xla")
 _TILE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _kernel_takes(tm: int, tk: int, tn: int) -> bool:
-    """The tile shapes one of the kernel's block shapes covers
-    (``csrc/tile_spgemm.cu``: wide 128 x 128 blocks, narrow BM x 64)."""
+    """The tile shapes one of the kernels' block shapes covers
+    (``csrc/tile_pipe.cuh``: wide 128 x 128 blocks, narrow BM x 64)."""
     if tm % 128 == 0 and tn % 128 == 0 and tk % 8 == 0:
         return True
     return ((tm in (8, 16, 32) or tm % 64 == 0) and tm > 0
             and tn % 64 == 0 and tk % 16 == 0)
 
 
-def select_engine(order: str = "row") -> str:
+def select_engine(order: str = "row", use_pallas: Optional[bool] = None
+                  ) -> str:
     """Auto engine: the CUDA tile kernel for o-sorted worklists, the plain
-    scatter-add engine for k-major ones (which the kernel cannot run)."""
-    return "cached" if order == "row" else "xla"
+    scatter-add engine for k-major ones (which the kernels cannot run);
+    ``use_pallas=True`` forces the item-per-block ``'pallas_grid'`` kernel
+    and ``use_pallas=False`` the plain engine, as in the reference."""
+    if use_pallas:
+        return "pallas_grid"
+    return "cached" if order == "row" and use_pallas is None else "xla"
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in _PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
 
 
 def run_worklist(wl, a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                  precision: str = "highest",
                  engine: Optional[str] = None) -> torch.Tensor:
-    """C tiles [n_c_tiles, tm, tn] f32 for a worklist, on the tiles' device.
-
-    ``wl``: either package's ``WorkList`` (host) or a
-    :class:`~spada_tpu_torch.convert.DeviceWorkList` on the tiles' device.
-    """
-    if precision not in _PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
+    """C tiles [n_c_tiles, tm, tn] f32 for either package's host
+    ``WorkList``, on the tiles' device."""
+    _check_precision(precision)
     eng = select_engine(wl.order) if engine in (None, "auto") else engine
-    if eng in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {eng!r} is not ported to spada_tpu_torch yet")
-    if eng not in ("cached", "xla"):
+    if eng not in _ENGINES:
         raise ValueError(f"unknown engine {eng!r}")
-    if isinstance(wl, DeviceWorkList):
-        dwl = wl
-    else:
-        # the kernel reads tiles by id unchecked: bound the ids on the host
-        if wl.n_items and (int(wl.a_tid.max()) >= a_tiles.shape[0]
-                           or int(wl.b_tid.max()) >= b_tiles.shape[0]):
-            raise ValueError("worklist tile ids exceed the tile arrays")
-        dwl = worklist_to_torch(wl, a_tiles.device)
+    if eng != "xla" and wl.order != "row":
+        raise ValueError(f"engine {eng!r} needs a row-major (o-sorted) "
+                         f"worklist")
+    args = (a_tiles, b_tiles, wl.a_tid, wl.b_tid, wl.o_tid)
+    n_c = int(wl.n_c_tiles)
+    if eng == "streaming":
+        return run_worklist_streaming(*args, n_c, precision=precision)
+    if eng == "panel":
+        return run_worklist_panel(*args, n_c, precision=precision)[0]
+    if eng == "pallas_grid":
+        return run_worklist_pallas(*args, wl.first, n_c, precision=precision)
+    a, b, o = _host_ids(*args, n_c, row_major=eng == "cached")
+    dev = a_tiles.device
     if eng == "cached":
-        if dwl.order != "row":
-            raise ValueError("the tile kernel needs a row-major (o-sorted) "
-                             "worklist")
-        return tile_spgemm(a_tiles, b_tiles, dwl.a_tid, dwl.b_tid,
-                           dwl.tile_ptr)
-    return run_worklist_reference(a_tiles, b_tiles, dwl.a_tid, dwl.b_tid,
-                                  dwl.o_tid, dwl.n_c_tiles)
+        return tile_spgemm(a_tiles, b_tiles,
+                           *_on(dev, a, b, tile_ptr_of(o, n_c)))
+    return run_worklist_reference(a_tiles, b_tiles, *_on(dev, a, b, o), n_c)
 
+
+def run_worklist_streaming(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
+                           a_ids, b_ids, o_ids, n_c_tiles: int,
+                           nbuf: int = 8, ogroup: int = 8,
+                           precision: str = "default") -> torch.Tensor:
+    """Streaming engine: C tiles [n_c_tiles, tm, tn] f32 of a row-major
+    worklist given as host id arrays (the port of the reference's function
+    of the same name).  ``ogroup`` C tiles per block, ``nbuf`` stages in the
+    kernel's shared-memory ring (:func:`tile_stream`)."""
+    _check_precision(precision)
+    a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
+    ptr = item_ptr_of(o, n_c_tiles, ogroup)
+    return tile_stream(a_tiles, b_tiles, *_on(a_tiles.device, a, b, o, ptr),
+                       n_c_tiles, ogroup, nbuf)
+
+
+def run_worklist_panel(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
+                       a_ids, b_ids, o_ids, n_c_tiles: int,
+                       precision: str = "default",
+                       out_dtype: torch.dtype = torch.float32,
+                       a_tiles_t: Optional[torch.Tensor] = None,
+                       run_order: Optional[str] = None):
+    """Panel engine; returns ``(c_tiles, None, None, None)``, the
+    reference's ``(c_tiles, a_plan, b_plan, run_perm)``: its two slot plans
+    are VMEM machinery with no counterpart here, and C tiles stay in row
+    order.  ``a_tiles_t`` [nA, tk, tm] passes A k-transposed already;
+    otherwise ``a_tiles`` is transposed once on its device.  ``out_dtype``
+    float32 or bfloat16 (one rounding of the f32 sum).  A ``run_order``
+    other than None / 'row' needs the reference's panel planner
+    (``spada_tpu/ops/panelplan.py``), not ported yet."""
+    if run_order not in (None, "row"):
+        raise NotImplementedError(
+            f"run_order {run_order!r} is not ported to spada_tpu_torch yet")
+    _check_precision(precision)
+    a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
+    if a_tiles_t is None:
+        a_tiles_t = a_tiles.transpose(1, 2).contiguous()
+    c = tile_panel(a_tiles_t, b_tiles,
+                   *_on(b_tiles.device, a, b, tile_ptr_of(o, n_c_tiles)),
+                   out_dtype)
+    return c, None, None, None
+
+
+def run_worklist_pallas(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
+                        a_ids, b_ids, o_ids, first, n_c_tiles: int,
+                        precision: str = "highest") -> torch.Tensor:
+    """Item-per-block engine (``engine='pallas_grid'``): C tiles
+    [n_c_tiles, tm, tn] f32 of a row-major worklist given as host arrays.
+    ``first`` must be 1 exactly where an ``o_ids`` run starts, as
+    ``build_worklist`` makes it; the kernel itself does not read it."""
+    _check_precision(precision)
+    a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
+    starts = np.r_[True, o[1:] != o[:-1]] if len(o) else np.zeros(0, bool)
+    if np.shape(first) != o.shape or not np.array_equal(
+            np.asarray(first) != 0, starts):
+        raise ValueError("first must be 1 exactly at the starts of o_ids's "
+                         "runs")
+    return tile_grid(a_tiles, b_tiles, *_on(a_tiles.device, a, b, o),
+                     n_c_tiles)
+
+
+def _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles: int,
+              row_major: bool = True):
+    """A worklist's ids as int32 host arrays, checked.  The kernels read
+    tiles and C by id unchecked (a device check would wait for the device),
+    so the ids are bounded here."""
+    a, b, o = (np.ascontiguousarray(x, np.int32)
+               for x in (a_ids, b_ids, o_ids))
+    if a.ndim != 1 or not a.shape == b.shape == o.shape:
+        raise ValueError("a_ids, b_ids and o_ids must be 1-D and of one "
+                         "length")
+    if len(a) and (min(a.min(), b.min()) < 0
+                   or int(a.max()) >= a_tiles.shape[0]
+                   or int(b.max()) >= b_tiles.shape[0]):
+        raise ValueError("worklist tile ids exceed the tile arrays")
+    if len(o) and (o.min() < 0 or int(o.max()) >= n_c_tiles):
+        raise ValueError("worklist C tile ids exceed n_c_tiles")
+    if row_major and np.any(o[1:] < o[:-1]):
+        raise ValueError("the tile kernels need a row-major (o-sorted) "
+                         "worklist: o_ids must be nondecreasing")
+    return a, b, o
+
+
+def _on(dev: torch.device, *arrays):
+    return tuple(torch.from_numpy(x).to(dev) for x in arrays)
+
+
+# --------------------------------------------------------------------------
+# Plain versions
+# --------------------------------------------------------------------------
 
 def run_worklist_reference(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                            a_ids: torch.Tensor, b_ids: torch.Tensor,
@@ -92,7 +202,7 @@ def run_worklist_reference(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     Order-independent, so it runs any worklist.  Chunks hold at most
     ``chunk_bytes`` of gathered f32 operands.  bf16 tiles are widened to f32
     before the product, so products are exact and only the summation order
-    differs from the kernel.
+    differs from the kernels.
     """
     tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
     c = torch.zeros((n_c_tiles, tm, tn), dtype=torch.float32,
@@ -110,6 +220,49 @@ def run_worklist_reference(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     return c
 
 
+def _run_o_ids(tile_ptr: torch.Tensor, n_items: int) -> torch.Tensor:
+    """The C tile of every item of an o-sorted worklist, from its
+    ``tile_ptr`` (no device wait: the length is given)."""
+    n_c = int(tile_ptr.shape[0]) - 1
+    return torch.repeat_interleave(
+        torch.arange(n_c, device=tile_ptr.device), torch.diff(tile_ptr.long()),
+        output_size=n_items)
+
+
+def tile_stream_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid, item_ptr,
+                          n_c_tiles: int, ogroup: int, nbuf: int = 8
+                          ) -> torch.Tensor:
+    """Plain version of :func:`tile_stream`: the grouping changes no
+    value of C."""
+    return run_worklist_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
+                                  n_c_tiles)
+
+
+def tile_panel_reference(a_tiles_t, b_tiles, a_tid, b_tid, tile_ptr,
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Plain version of :func:`tile_panel`: A un-transposed, the f32 sum
+    rounded once to ``out_dtype``."""
+    n_c = int(tile_ptr.shape[0]) - 1
+    c = run_worklist_reference(a_tiles_t.transpose(1, 2), b_tiles, a_tid,
+                               b_tid, _run_o_ids(tile_ptr, a_tid.shape[0]),
+                               n_c)
+    return c.to(out_dtype)
+
+
+def tile_grid_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
+                        n_c_tiles: int) -> torch.Tensor:
+    """Plain version of :func:`tile_grid`."""
+    return run_worklist_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
+                                  n_c_tiles)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers: CUDA tensors launch the kernel, CPU tensors take the
+# plain version.  Ids are not bounds-checked on the device (that would wait
+# for it): the run_worklist* functions check them on the host.
+# --------------------------------------------------------------------------
+
 def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                 a_tid: torch.Tensor, b_tid: torch.Tensor,
                 tile_ptr: torch.Tensor) -> torch.Tensor:
@@ -118,68 +271,185 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     ``a_tiles`` [nA, tm, tk] and ``b_tiles`` [nB, tk, tn] (f32 or bf16),
     ``a_tid``/``b_tid`` int32 [W], ``tile_ptr`` int32 [nC + 1] (C tile c's
     items are ``tile_ptr[c]:tile_ptr[c+1]``; an empty run gives a zero
-    tile).  CUDA tensors run ``csrc/tile_spgemm.cu``; CPU tensors the plain
-    version.  The ids and ``tile_ptr`` are not bounds-checked on the device
-    (that would wait for it): :func:`run_worklist` checks them on the host.
+    tile).  CUDA tensors run ``csrc/tile_spgemm.cu``.
     """
-    _check_tile_args(a_tiles, b_tiles, a_tid, b_tid, tile_ptr)
+    _check_tile_args("tile_spgemm", a_tiles, b_tiles, 2, a_tid=a_tid,
+                     b_tid=b_tid, tile_ptr=tile_ptr)
     tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
     n_c = int(tile_ptr.shape[0]) - 1
     if a_tiles.device.type == "cpu":
-        o_ids = torch.repeat_interleave(
-            torch.arange(n_c), torch.diff(tile_ptr.long()))
-        return run_worklist_reference(a_tiles, b_tiles, a_tid, b_tid, o_ids,
-                                      n_c)
-    if n_c == 0 or a_tid.shape[0] == 0 or 0 in (tm, tk, tn):
-        # an empty grid is a launch error; no items means zero tiles
-        return torch.zeros((n_c, tm, tn), dtype=torch.float32,
-                           device=a_tiles.device)
-    if not _kernel_takes(tm, tk, tn):
-        raise ValueError(
-            f"tile_spgemm takes tm, tn multiples of 128 and tk of 8, or tm "
-            f"in {{8, 16, 32}} or a multiple of 64, tn a multiple of 64 and "
-            f"tk of 16; got tm={tm} tk={tk} tn={tn}")
+        return run_worklist_reference(
+            a_tiles, b_tiles, a_tid, b_tid,
+            _run_o_ids(tile_ptr, a_tid.shape[0]), n_c)
     c = torch.empty((n_c, tm, tn), dtype=torch.float32,
                     device=a_tiles.device)
+    if not _has_work("tile_spgemm", n_c, a_tid.shape[0], tm, tk, tn):
+        return c.zero_()
     lib = _build.load()
     fn = (lib.tile_spgemm_f32 if a_tiles.dtype == torch.float32
           else lib.tile_spgemm_bf16)
-    status = fn(a_tiles.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
-                b_tid.data_ptr(), tile_ptr.data_ptr(), c.data_ptr(), n_c, tm,
-                tk, tn, _build.current_stream(a_tiles))
-    _build.check(status, "tile_spgemm")
-    _build.launches["tile_spgemm"] += 1
+    _launched("tile_spgemm", fn(
+        a_tiles.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
+        b_tid.data_ptr(), tile_ptr.data_ptr(), c.data_ptr(), n_c, tm, tk, tn,
+        _build.current_stream(a_tiles)))
     return c
 
 
-def _check_tile_args(a_tiles, b_tiles, a_tid, b_tid, tile_ptr) -> None:
+def tile_stream(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
+                a_tid: torch.Tensor, b_tid: torch.Tensor,
+                o_tid: torch.Tensor, item_ptr: torch.Tensor,
+                n_c_tiles: int, ogroup: int, nbuf: int = 8) -> torch.Tensor:
+    """C tiles [n_c_tiles, tm, tn] f32 of an o-sorted worklist, walked in
+    groups of ``ogroup`` C tiles.
+
+    ``a_tid``/``b_tid``/``o_tid`` int32 [W] (``o_tid`` nondecreasing),
+    ``item_ptr`` int32 [ceil(n_c_tiles / ogroup) + 1]: group g's items are
+    ``item_ptr[g]:item_ptr[g+1]`` (:func:`~spada_tpu_torch.convert.item_ptr_of`).
+    ``nbuf`` (2..16) is the depth of the kernel's shared-memory ring.  A C
+    tile with no items is a zero tile.  CUDA tensors run
+    ``csrc/tile_stream.cu``.
+    """
+    _check_tile_args("tile_stream", a_tiles, b_tiles, 2, a_tid=a_tid,
+                     b_tid=b_tid, o_tid=o_tid, item_ptr=item_ptr)
+    if ogroup < 1 or item_ptr.shape[0] != -(-n_c_tiles // ogroup) + 1:
+        raise ValueError("tile_stream: item_ptr needs ceil(n_c_tiles / "
+                         "ogroup) + 1 entries, ogroup >= 1")
+    if not 2 <= nbuf <= 16:
+        raise ValueError(f"tile_stream: nbuf must be in 2..16, got {nbuf}")
+    tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
+    if a_tiles.device.type == "cpu":
+        return tile_stream_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
+                                     item_ptr, n_c_tiles, ogroup, nbuf)
+    c = torch.empty((n_c_tiles, tm, tn), dtype=torch.float32,
+                    device=a_tiles.device)
+    if not _has_work("tile_stream", n_c_tiles, a_tid.shape[0], tm, tk, tn):
+        return c.zero_()
+    lib = _build.load()
+    fn = (lib.tile_stream_f32 if a_tiles.dtype == torch.float32
+          else lib.tile_stream_bf16)
+    _launched("tile_stream", fn(
+        a_tiles.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
+        b_tid.data_ptr(), o_tid.data_ptr(), item_ptr.data_ptr(), c.data_ptr(),
+        n_c_tiles, ogroup, tm, tk, tn, nbuf, _build.current_stream(a_tiles)))
+    return c
+
+
+def tile_panel(a_tiles_t: torch.Tensor, b_tiles: torch.Tensor,
+               a_tid: torch.Tensor, b_tid: torch.Tensor,
+               tile_ptr: torch.Tensor,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """C tiles [nC, tm, tn] of an o-sorted worklist, each run one
+    contraction over its k-concatenated tiles.
+
+    ``a_tiles_t`` [nA, tk, tm] is A k-transposed, ``b_tiles`` [nB, tk, tn]
+    (f32 or bf16), ``tile_ptr`` int32 [nC + 1] as for :func:`tile_spgemm`.
+    The f32 sum is written as ``out_dtype`` (float32, or bfloat16 rounded
+    once, to nearest even).  An empty run gives a zero tile.  CUDA tensors
+    run ``csrc/tile_panel.cu``.
+    """
+    _check_tile_args("tile_panel", a_tiles_t, b_tiles, 1, a_tid=a_tid,
+                     b_tid=b_tid, tile_ptr=tile_ptr)
+    if out_dtype not in _TILE_DTYPES:
+        raise TypeError(f"tile_panel: out_dtype must be float32 or "
+                        f"bfloat16, got {out_dtype}")
+    tk, tm, tn = a_tiles_t.shape[1], a_tiles_t.shape[2], b_tiles.shape[2]
+    n_c = int(tile_ptr.shape[0]) - 1
+    if a_tiles_t.device.type == "cpu":
+        return tile_panel_reference(a_tiles_t, b_tiles, a_tid, b_tid,
+                                    tile_ptr, out_dtype)
+    c = torch.empty((n_c, tm, tn), dtype=out_dtype, device=b_tiles.device)
+    if not _has_work("tile_panel", n_c, a_tid.shape[0], tm, tk, tn):
+        return c.zero_()
+    lib = _build.load()
+    fn = (lib.tile_panel_f32 if a_tiles_t.dtype == torch.float32
+          else lib.tile_panel_bf16)
+    _launched("tile_panel", fn(
+        a_tiles_t.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
+        b_tid.data_ptr(), tile_ptr.data_ptr(), c.data_ptr(), n_c, tm, tk, tn,
+        int(out_dtype == torch.bfloat16), _build.current_stream(b_tiles)))
+    return c
+
+
+def tile_grid(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
+              a_tid: torch.Tensor, b_tid: torch.Tensor, o_tid: torch.Tensor,
+              n_c_tiles: int) -> torch.Tensor:
+    """C tiles [n_c_tiles, tm, tn] f32: every item's product added into
+    ``C[o_tid[w]]``, one block per item and piece, in any item order.  C
+    starts zeroed, so a tile with no items is a zero tile.  The adds are
+    f32 atomics whose order changes from run to run.  CUDA tensors run
+    ``csrc/tile_grid.cu``.
+    """
+    _check_tile_args("tile_grid", a_tiles, b_tiles, 2, a_tid=a_tid,
+                     b_tid=b_tid, o_tid=o_tid)
+    tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
+    if a_tiles.device.type == "cpu":
+        return tile_grid_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
+                                   n_c_tiles)
+    c = torch.zeros((n_c_tiles, tm, tn), dtype=torch.float32,
+                    device=a_tiles.device)
+    n_items = int(a_tid.shape[0])
+    if not _has_work("tile_grid", n_c_tiles, n_items, tm, tk, tn):
+        return c
+    lib = _build.load()
+    fn = (lib.tile_grid_f32 if a_tiles.dtype == torch.float32
+          else lib.tile_grid_bf16)
+    _launched("tile_grid", fn(
+        a_tiles.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
+        b_tid.data_ptr(), o_tid.data_ptr(), c.data_ptr(), n_items, tm, tk, tn,
+        _build.current_stream(a_tiles)))
+    return c
+
+
+def _has_work(kernel: str, n_c: int, n_items: int, tm: int, tk: int,
+              tn: int) -> bool:
+    """Whether a launch is needed; raises for tiles no block shape takes.
+    An empty grid is a launch error, and no items means zero tiles."""
+    if n_c == 0 or n_items == 0 or 0 in (tm, tk, tn):
+        return False
+    if not _kernel_takes(tm, tk, tn):
+        raise ValueError(
+            f"{kernel} takes tm, tn multiples of 128 and tk of 8, or tm in "
+            f"{{8, 16, 32}} or a multiple of 64, tn a multiple of 64 and tk "
+            f"of 16; got tm={tm} tk={tk} tn={tn}")
+    return True
+
+
+def _launched(kernel: str, status: int) -> None:
+    _build.check(status, kernel)
+    _build.launches[kernel] += 1
+
+
+def _check_tile_args(kernel: str, a_tiles, b_tiles, a_k_dim: int,
+                     **ids) -> None:
+    """``a_k_dim``: the dimension of ``a_tiles`` that holds k (2 natural,
+    1 k-transposed)."""
     if a_tiles.dim() != 3 or b_tiles.dim() != 3:
-        raise ValueError("tile_spgemm: tiles must be [n, rows, cols]")
-    if a_tiles.shape[2] != b_tiles.shape[1]:
-        raise ValueError(f"tile_spgemm: tk mismatch {tuple(a_tiles.shape)} "
+        raise ValueError(f"{kernel}: tiles must be [n, rows, cols]")
+    if a_tiles.shape[a_k_dim] != b_tiles.shape[1]:
+        raise ValueError(f"{kernel}: tk mismatch {tuple(a_tiles.shape)} "
                          f"@ {tuple(b_tiles.shape)}")
     if a_tiles.dtype not in _TILE_DTYPES or b_tiles.dtype != a_tiles.dtype:
-        raise TypeError(f"tile_spgemm: tiles must both be float32 or both "
+        raise TypeError(f"{kernel}: tiles must both be float32 or both "
                         f"bfloat16, got {a_tiles.dtype} and {b_tiles.dtype}")
-    for name, t in (("a_tid", a_tid), ("b_tid", b_tid),
-                    ("tile_ptr", tile_ptr)):
+    for name, t in ids.items():
         if t.dtype != torch.int32 or t.dim() != 1:
-            raise TypeError(f"tile_spgemm: {name} must be 1-D int32")
-    if a_tid.shape != b_tid.shape:
-        raise ValueError("tile_spgemm: a_tid and b_tid differ in length")
-    devs = {t.device for t in (a_tiles, b_tiles, a_tid, b_tid, tile_ptr)}
+            raise TypeError(f"{kernel}: {name} must be 1-D int32")
+    if len({t.shape[0] for name, t in ids.items()
+            if name.endswith("_tid")}) > 1:
+        raise ValueError(f"{kernel}: the id arrays differ in length")
+    for name in ("tile_ptr", "item_ptr"):
+        if name in ids and ids[name].shape[0] < 1:
+            raise ValueError(f"{kernel}: {name} needs at least one entry")
+    tensors = (a_tiles, b_tiles, *ids.values())
+    devs = {t.device for t in tensors}
     if len(devs) != 1:
-        raise ValueError(f"tile_spgemm: arguments on several devices {devs}")
+        raise ValueError(f"{kernel}: arguments on several devices {devs}")
     dev = a_tiles.device
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"tile_spgemm: unsupported device {dev}")
-    if dev.type == "cuda" and not all(
-            t.is_contiguous()
-            for t in (a_tiles, b_tiles, a_tid, b_tid, tile_ptr)):
-        raise ValueError("tile_spgemm: arguments must be contiguous")
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{kernel}: arguments must be contiguous")
     if dev.type == "cuda" and (a_tiles.data_ptr() % 16
                                or b_tiles.data_ptr() % 16):
-        # the kernel reads tiles with 16-byte (f32) or 8-byte (bf16) loads
-        raise ValueError("tile_spgemm: tiles must start 16-byte aligned")
-    if tile_ptr.shape[0] < 1:
-        raise ValueError("tile_spgemm: tile_ptr needs n_c_tiles + 1 entries")
+        # the kernels read tiles in 16-byte (or 8-byte bf16) pieces
+        raise ValueError(f"{kernel}: tiles must start 16-byte aligned")

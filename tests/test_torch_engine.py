@@ -121,10 +121,17 @@ def test_k_major_worklist_uses_plain_engine():
 
 @pytest.mark.parametrize("engine", ["streaming", "panel", "pallas_grid"])
 def test_unported_engines_raise(engine):
+    """The streaming, panel and pallas_grid engines run (their plain
+    versions on the CPU) and equal the cached engine; a k-major worklist,
+    which they cannot take, raises."""
     ab, bb, wl = _case(8)
-    with pytest.raises(NotImplementedError):
-        run_worklist(wl, bsr_to_torch(ab, "cpu"), bsr_to_torch(bb, "cpu"),
-                     engine=engine)
+    a_t, b_t = bsr_to_torch(ab, "cpu"), bsr_to_torch(bb, "cpu")
+    got = c_tiles_to_numpy(run_worklist(wl, a_t, b_t, engine=engine))
+    ref = c_tiles_to_numpy(run_worklist(wl, a_t, b_t, engine="cached"))
+    assert _relerr(got, ref) <= 1e-5
+    wl_k = build_worklist(ab, bb, order="k")
+    with pytest.raises(ValueError, match="row-major"):
+        run_worklist(wl_k, a_t, b_t, engine=engine)
 
 
 def test_tile_wrapper_checks_arguments():
