@@ -30,14 +30,34 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    again through ``spgemm(..., plan=)`` under each ``engine`` streaming,
    panel and pallas_grid, gated against scipy/numpy (< 1e-4) and against
    phase 4's ``tile_spgemm`` result (<= 1e-5), each kernel timed beside its
-   plain version on the launches the run made.
+   plain version on the launches the run made;
+7. the probes (``spada_tpu_torch.tools``) at their tools' sizes: every mode
+   of ``tile_probe`` on the banded 65536^2 / T=256 / bf16 workload of
+   ``probe_kernel`` and ``probe_manual`` (full and flat bitwise equal to
+   ``tile_spgemm``, modes that write zeros or nothing bitwise equal to their
+   plain versions, the rest within 1e-5 of max|C|), ``probe_panel3d``
+   (``tile_spgemm`` and ``tile_panel`` on runs of two slot tiles, 1e-5) and
+   ``probe_pallas_stream`` (the stream kernels as the main path launches
+   them and, through their probe-only entry points, at the TPU's block
+   sizes: mul bitwise, red 1e-6), each mode timed beside its bound.
+
+Beside each kernel's time the script computes its bound, the larger of two
+times on the datasheet placeholders of ``config.h100_config``: the useful
+operations (the scalar products of the CSR pair, not the zeros inside a
+tile) over the peak for the operand type (67 TFLOP/s f32, 989 TFLOP/s
+bf16), and the bytes it must move (inputs read once, output written once)
+over 3.35 TB/s.  It also times one PyTorch call that computes the same
+function: ``torch.matmul`` of the dense operands for the tile kernels
+(cuBLAS; f32 with TF32 off for nn, bf16 in and f32 out for the probe's
+banded pair), ``torch.mul`` and ``torch.linalg.vecdot`` for the stream
+kernels.
 
 Every kernel wrapper counts its launches; the counts are cleared right
 before each main-path run and read right after it.  The script prints one
 JSON line with each kernel's numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is not 0 and no result line is printed; so does a machine without a
-CUDA device.
+CUDA device, and a run that loaded JAX or any module of ``spada_tpu``.
 """
 
 from __future__ import annotations
@@ -101,6 +121,41 @@ def time_pair(kernel_fn, plain_fn):
     _, ks2 = cuda_time(kernel_fn, warmup=0, reps=5)
     _, ps2 = cuda_time(plain_fn, warmup=0, reps=5)
     return float(np.median(ks1 + ks2)), float(np.median(ps1 + ps2))
+
+
+def dense_of(m, dev, dtype):
+    """The host CSR matrix ``m`` (``indptr``/``indices``/``data``) as a
+    dense tensor on the device, built there."""
+    import torch
+
+    indptr = torch.from_numpy(np.asarray(m.indptr, np.int64)).to(dev)
+    rows = torch.repeat_interleave(
+        torch.arange(m.shape[0], device=dev), indptr.diff())
+    cols = torch.from_numpy(np.asarray(m.indices, np.int64)).to(dev)
+    d = torch.zeros(tuple(m.shape), dtype=dtype, device=dev)
+    d[rows, cols] = torch.from_numpy(np.asarray(m.data, np.float32)).to(
+        dev, dtype)
+    return d
+
+
+def library_time(fn, reps: int = 3) -> float:
+    """Median device seconds of one call of ``fn`` after a warm-up, each
+    output dropped before the next call (a dense product here takes tens
+    of GB)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        del out
+        samples.append(start.elapsed_time(end) * 1e-3)
+    return float(np.median(samples))
 
 
 def host_enqueue_s(fn, reps: int = 5) -> float:
@@ -306,17 +361,18 @@ def run_cari(dev, totals: dict, engine=None) -> None:
 # phase 4: the tile side at the bench's size
 # --------------------------------------------------------------------------
 
-def run_nn(dev, cfg, totals: dict, errs: dict, times: dict,
+def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
            m: int = 16384, n: int = 4096):
     """Returns the run, its dense C and the f64 reference of C's first
     rows, for phase 6."""
     import torch
 
     from spada_tpu_torch.cli import run_spada
+    from spada_tpu_torch.config import roofline_bound, tile_work
     from spada_tpu_torch.convert import worklist_to_torch
     from spada_tpu_torch.ops.engine import run_worklist_reference, tile_spgemm
-    from spada_tpu_torch.workloads import (block_sparse_csr,
-                                           relu_activation_csr)
+    from spada_tpu_torch.io.workloads import (block_sparse_csr,
+                                              relu_activation_csr)
 
     t0 = time.perf_counter()
     a = block_sparse_csr(m, m, 384, 0.2, seed=5, dtype=np.float32)
@@ -341,6 +397,9 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict,
     require(err < 1e-4, f"nn gate failed: relerr {err:.3e}")
 
     t_kernel = t_plain = 0.0
+    bounds = []
+    kind = torch.cuda.get_device_name(dev)
+    a_sp, b_sp = run.a.to_scipy(), run.b.to_scipy()
     tk, tn = run.result.host_state["tk"], run.result.host_state["tn"]
     for wl, a_np, b_np, tm in run.result.host_state["segments"]:
         a_t = torch.from_numpy(a_np).to(dev)
@@ -361,35 +420,61 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict,
                                   float((g - r).abs().max()))
         del g, r
         tk_s, tp_s = time_pair(kernel, plain)
-        flops = 2 * wl.n_items * tm * tk * tn
+        tile_flops = 2 * wl.n_items * tm * tk * tn
+        seg_rows = np.concatenate([np.arange(p.row_start, p.row_end)
+                                   for p in run.plan.panels if p.tm == tm])
+        flops, nbytes = tile_work(a_np, b_np, wl.n_items, wl.n_c_tiles,
+                                  a_sp[seg_rows], b_sp)
+        b_s, by = roofline_bound(flops, nbytes, kind, a_np.dtype)
+        bounds.append((b_s, by))
         log(f"  segment tm={tm} tk=tn={tk}: W={wl.n_items} nC={wl.n_c_tiles}"
-            f"  kernel {tk_s * 1e3:.3f} ms ({flops / tk_s / 1e12:.2f} TFLOP/s)"
-            f"  plain {tp_s * 1e3:.3f} ms ({flops / tp_s / 1e12:.2f} TFLOP/s)"
-            f"  kernel vs plain max|d|/max|ref| {e:.2e}")
+            f", {flops / 1e9:.1f} GFLOP of products in "
+            f"{tile_flops / 1e9:.1f} of whole tiles, {nbytes / 1e9:.3f} GB"
+            f"  kernel {tk_s * 1e3:.3f} ms ({tile_flops / tk_s / 1e12:.2f} "
+            f"tile TFLOP/s)  plain {tp_s * 1e3:.3f} ms "
+            f"({tile_flops / tp_s / 1e12:.2f})  bound {b_s * 1e3:.3f} ms "
+            f"({by})  kernel vs plain max|d|/max|ref| {e:.2e}")
         t_kernel += tk_s
         t_plain += tp_s
         del a_t, b_t, dwl
     times["tile_spgemm"] = (t_kernel, t_plain)
+    c = run.result.todense()
+    # one dense product computes the same C: cuBLAS SGEMM (TF32 off)
+    da, db = dense_of(a, dev, torch.float32), dense_of(b, dev, torch.float32)
+    t_lib = library_time(lambda: torch.matmul(da, db))
+    e_lib = relerr(torch.matmul(da, db).cpu().numpy(), c)
+    log(f"  library call torch.matmul on the dense f32 pair (cuBLAS, TF32 "
+        f"off): {t_lib * 1e3:.3f} ms; its C vs the run's max|d|/max|ref| "
+        f"{e_lib:.2e}")
+    require(e_lib < 1e-4, f"nn: the dense product differs from the run's C "
+            f"by {e_lib:.3e}")
+    del da, db
+    # the four tile kernels compute this same C from these same inputs; the
+    # bound is the sum of the segments', bound by what bounds the larger
+    extra["nn"] = {"bound": (sum(s for s, _ in bounds), max(bounds)[1]),
+                   "library": (t_lib, "torch.matmul, dense f32")}
     torch.cuda.empty_cache()
-    return run, run.result.todense(), ref
+    return run, c, ref
 
 
 # --------------------------------------------------------------------------
 # phase 5: the element side at the bench's size
 # --------------------------------------------------------------------------
 
-def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict,
+def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
               m: int = 65536, deg: float = 32.0) -> None:
     import torch
 
     from spada_tpu_torch.cli import run_spada
+    from spada_tpu_torch.config import roofline_bound, stream_work
     from spada_tpu_torch.convert import stream_operands_to_torch
     from spada_tpu_torch.ops.element_stream import (esc_stream_mul,
                                                     esc_stream_mul_reference,
                                                     esc_stream_red,
                                                     esc_stream_red_reference,
                                                     stream_operands)
-    from spada_tpu_torch.workloads import localized_powerlaw_csr
+    from spada_tpu_torch.io.workloads import localized_powerlaw_csr
+    from spada_tpu_torch.utils.timing import cuda_time
 
     t0 = time.perf_counter()
     a = localized_powerlaw_csr(m, m, deg, seed=1, dtype=np.float32)
@@ -419,12 +504,16 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict,
     require(err < 1e-3, f"locpl gate failed: relerr {err:.3e}")
 
     layout = er.layout
+    kind = torch.cuda.get_device_name(dev)
     ops = stream_operands_to_torch(stream_operands(layout, er.plan, a, b), dev)
     ones = [i for i, c in enumerate(layout.classes) if c["L"] == 1]
     reds = [i for i, c in enumerate(layout.classes) if c["L"] > 1]
-    for name, idx, kern, plain_fn in (
-            ("esc_stream_mul", ones, esc_stream_mul, esc_stream_mul_reference),
-            ("esc_stream_red", reds, esc_stream_red, esc_stream_red_reference)):
+    for name, idx, kern, plain_fn, library, lib_name in (
+            ("esc_stream_mul", ones, esc_stream_mul, esc_stream_mul_reference,
+             torch.mul, "torch.mul"),
+            ("esc_stream_red", reds, esc_stream_red, esc_stream_red_reference,
+             lambda x, y: torch.linalg.vecdot(x, y, dim=0),
+             "torch.linalg.vecdot(dim=0) per class")):
         for i in idx:
             g, r = kern(*ops[i]), plain_fn(*ops[i])
             e = float((g - r).abs().max())
@@ -432,23 +521,32 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict,
             require(rel <= (0.0 if name == "esc_stream_mul" else 1e-6),
                     f"{name} class L={layout.classes[i]['L']}: {rel:.3e}")
             errs[name] = max(errs[name], e)
-        nbytes = sum((2 * layout.classes[i]["L"] + 1)
-                     * layout.classes[i]["n_pad"] * 4 for i in idx)
+        work = [stream_work(layout.classes[i]["L"], layout.classes[i]["n_pad"])
+                for i in idx]
+        flops, nbytes = (sum(w[j] for w in work) for j in (0, 1))
+
         def kernel_all():
             return [kern(*ops[i]) for i in idx]
 
         def plain_all():
             return [plain_fn(*ops[i]) for i in idx]
 
+        def library_all():
+            return [library(*ops[i]) for i in idx]
+
         t_k, t_p = time_pair(kernel_all, plain_all)
+        t_l, _ = cuda_time(library_all, warmup=1, reps=10)
         h_k = host_enqueue_s(kernel_all) / len(idx)
         h_p = host_enqueue_s(plain_all) / len(idx)
+        b_s, by = roofline_bound(flops, nbytes, kind)
         log(f"  {name}: {len(idx)} classes, {nbytes / 1e9:.3f} GB  kernel "
             f"{t_k * 1e3:.3f} ms ({nbytes / t_k / 1e9:.0f} GB/s)  plain "
-            f"{t_p * 1e3:.3f} ms ({nbytes / t_p / 1e9:.0f} GB/s)  host "
-            f"enqueue per class: kernel {h_k * 1e6:.1f} us, plain "
+            f"{t_p * 1e3:.3f} ms ({nbytes / t_p / 1e9:.0f} GB/s)  library "
+            f"{lib_name} {t_l * 1e3:.3f} ms  bound {b_s * 1e3:.3f} ms ({by})"
+            f"  host enqueue per class: kernel {h_k * 1e6:.1f} us, plain "
             f"{h_p * 1e6:.1f} us")
         times[name] = (t_k, t_p)
+        extra[name] = {"bound": (b_s, by), "library": (t_l, lib_name)}
     del ops
     torch.cuda.empty_cache()
 
@@ -541,6 +639,98 @@ def run_engines(dev, run, c_tile, ref_rows, totals: dict, errs: dict,
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 7: the probes
+# --------------------------------------------------------------------------
+
+#: each probe mode's bar against its plain version, of max|plain|
+PROBE_TILE_TOL = 1e-5
+PROBE_STREAM_TOL = 1e-6
+
+
+def run_probes(dev, totals: dict, errs: dict, times: dict,
+               extra: dict) -> None:
+    """The four probe tools at their sizes: one workload build for
+    ``probe_kernel`` and ``probe_manual`` (the same banded pair), every TPU
+    mode name of both, then ``probe_panel3d`` and ``probe_pallas_stream``."""
+    import torch
+
+    from spada_tpu_torch.tools import (probe_kernel, probe_manual,
+                                       probe_pallas_stream, probe_panel3d)
+    from spada_tpu_torch.tools.tile_probe import probe_work, run_modes
+
+    t0 = time.perf_counter()
+    work = probe_work(65536, 384, 256, dev)
+    log(f"  banded 65536^2 band 384, T=256 bf16 tiles built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sub_log = lambda s: log("  " + s)  # noqa: E731
+    with main_path(totals) as counts:
+        log(" probe_kernel, all modes:")
+        res_k = run_modes(work, probe_kernel.ALL_MODES, log=sub_log)
+        log(" probe_manual, all modes:")
+        res_m = run_modes(work, probe_manual.ALL_MODES, log=sub_log)
+        log(" probe_panel3d:")
+        res_p = probe_panel3d.run(device=dev, log=sub_log)
+        log(" probe_pallas_stream:")
+        res_s = probe_pallas_stream.run(device=dev, log=sub_log)
+    log(f"  launches {counts}")
+    for k in ("tile_probe", "tile_spgemm", "tile_panel", "esc_stream_mul",
+              "esc_stream_red", "esc_stream_mul_blocked",
+              "esc_stream_red_blocked"):
+        require(counts.get(k, 0) > 0, f"the probes did not launch {k}")
+
+    modes = {**res_k, **res_m}
+    for mode, rec in modes.items():
+        if rec["exact"] is not None:
+            require(rec["exact"], f"tile_probe {mode}: not bitwise what it "
+                    f"must be")
+        require(rec["relerr"] <= PROBE_TILE_TOL, f"tile_probe {mode}: "
+                f"relerr {rec['relerr']:.3e} > {PROBE_TILE_TOL}")
+        errs["tile_probe"] = max(errs["tile_probe"], rec["max_abs_err"])
+    for variant, rec in res_p.items():
+        require(rec["relerr"] <= PROBE_TILE_TOL, f"panel3d {variant}: "
+                f"relerr {rec['relerr']:.3e} > {PROBE_TILE_TOL}")
+    for label, rec in res_s.items():
+        tol = (PROBE_STREAM_TOL if rec["kernel"].startswith("esc_stream_red")
+               else 0.0)
+        require(rec["relerr"] <= tol, f"stream probe {label}: relerr "
+                f"{rec['relerr']:.3e} > {tol}")
+    # the JSON rows of the probe's own launches: the TPU's first block
+    for name, label, lib in (
+            ("esc_stream_mul_blocked", "mul br=1024", "torch.mul"),
+            ("esc_stream_red_blocked", "red2 chl=1048576",
+             "torch.linalg.vecdot(dim=0)")):
+        rec = res_s[label]
+        errs[name] = max(errs[name], rec["max_abs_err"])
+        times[name] = (rec["ms"] * 1e-3, rec["plain_ms"] * 1e-3)
+        extra[name] = {"bound": (rec["bound_ms"] * 1e-3, rec["bound_by"]),
+                       "library": (rec["library_ms"] * 1e-3, lib)}
+
+    full = res_k["full"]
+    times["tile_probe"] = (full["ms"] * 1e-3, full["plain_ms"] * 1e-3)
+    kind = torch.cuda.get_device_name(dev)
+    # one dense product computes the same C: bf16 in, f32 out (the probe's
+    # C tiles are f32); a torch without out_dtype gives bf16 out
+    da = dense_of(work.a_csr, dev, torch.bfloat16)
+    db = dense_of(work.b_csr, dev, torch.bfloat16)
+    try:
+        torch.mm(da[:8, :8], db[:8, :8], out_dtype=torch.float32)
+        lib_fn, note = (lambda: torch.mm(da, db, out_dtype=torch.float32),
+                        "torch.mm, dense bf16 in, f32 out")
+    except (TypeError, RuntimeError) as err:
+        log(f"  torch.mm(out_dtype=float32) refused ({err}); bf16 out")
+        lib_fn, note = (lambda: torch.mm(da, db),
+                        "torch.mm, dense bf16 in, bf16 out")
+    lib_s = library_time(lib_fn)
+    log(f"  library call on the banded pair, {note} (cuBLAS, "
+        f"{work.n} x {work.n}): {lib_s * 1e3:.3f} ms")
+    del da, db, lib_fn
+    extra["tile_probe"] = {"bound": work.bound(kind),
+                           "library": (lib_s, note)}
+    del work
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -573,10 +763,12 @@ def main() -> int:
             log("    " + line.strip())
 
     errs = dict.fromkeys(("tile_spgemm", "tile_stream", "tile_panel",
-                          "tile_grid", "esc_stream_mul", "esc_stream_red"),
-                         0.0)
+                          "tile_grid", "esc_stream_mul", "esc_stream_red",
+                          "tile_probe", "esc_stream_mul_blocked",
+                          "esc_stream_red_blocked"), 0.0)
     totals: dict = {}
     times: dict = {}
+    extra: dict = {}
     log("== phase 2: kernels vs plain PyTorch versions (TF32 off)")
     check_kernels(dev, errs)
     log("== phase 3: cari through the port's CLI")
@@ -586,34 +778,63 @@ def main() -> int:
     log(f"== phase 4: nn pair, tile side (roofline profile: "
         f"{cfg.hbm_bytes_per_s / 1e12:.2f} TB/s, "
         f"{cfg.peak_flops_f32 / 1e12:.0f} TFLOP/s f32, datasheet)")
-    nn_run, nn_c, nn_ref = run_nn(dev, cfg, totals, errs, times)
+    nn_run, nn_c, nn_ref = run_nn(dev, cfg, totals, errs, times, extra)
     log("== phase 5: locpl pair, element side")
-    run_locpl(dev, cfg, totals, errs, times)
+    run_locpl(dev, cfg, totals, errs, times, extra)
     log("== phase 6: nn pair under each engine override, phase 4's plan")
     run_engines(dev, nn_run, nn_c, nn_ref, totals, errs, times)
     del nn_run, nn_c, nn_ref
+    log("== phase 7: the probes (spada_tpu_torch.tools)")
+    t0 = time.perf_counter()
+    run_probes(dev, totals, errs, times, extra)
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
-    require("jax" not in sys.modules, "JAX was imported")
+    require("jax" not in sys.modules and "jaxlib" not in sys.modules,
+            "JAX was imported")
+    ref_mods = sorted(m for m in sys.modules
+                      if m == "spada_tpu" or m.startswith("spada_tpu."))
+    require(not ref_mods, f"modules of the JAX package were loaded: "
+            f"{ref_mods}")
+    # kernel -> (source, the TPU kernels it carries, bound/library key)
     sources = {"tile_spgemm": ("spada_tpu_torch/csrc/tile_spgemm.cu",
-                               "spada_tpu/ops/engine.py:726"),
+                               "spada_tpu/ops/engine.py:726, "
+                               "tools/probe_panel3d.py:101", "nn"),
                "tile_stream": ("spada_tpu_torch/csrc/tile_stream.cu",
-                               "spada_tpu/ops/engine.py:363"),
+                               "spada_tpu/ops/engine.py:363", "nn"),
                "tile_panel": ("spada_tpu_torch/csrc/tile_panel.cu",
-                              "spada_tpu/ops/engine.py:1275"),
+                              "spada_tpu/ops/engine.py:1275, "
+                              "tools/probe_panel3d.py:101", "nn"),
                "tile_grid": ("spada_tpu_torch/csrc/tile_grid.cu",
-                             "spada_tpu/ops/engine.py:199"),
+                             "spada_tpu/ops/engine.py:199", "nn"),
                "esc_stream_mul": ("spada_tpu_torch/csrc/esc_stream.cu",
-                                  "spada_tpu/ops/element_stream.py:168"),
+                                  "spada_tpu/ops/element_stream.py:168",
+                                  "esc_stream_mul"),
                "esc_stream_red": ("spada_tpu_torch/csrc/esc_stream.cu",
-                                  "spada_tpu/ops/element_stream.py:184")}
+                                  "spada_tpu/ops/element_stream.py:184",
+                                  "esc_stream_red"),
+               "esc_stream_mul_blocked": (
+                   "spada_tpu_torch/csrc/esc_stream.cu",
+                   "tools/probe_pallas_stream.py:65",
+                   "esc_stream_mul_blocked"),
+               "esc_stream_red_blocked": (
+                   "spada_tpu_torch/csrc/esc_stream.cu",
+                   "tools/probe_pallas_stream.py:111",
+                   "esc_stream_red_blocked"),
+               "tile_probe": ("spada_tpu_torch/csrc/tile_probe.cu",
+                              "tools/probe_kernel.py:153, "
+                              "tools/probe_manual.py:375", "tile_probe")}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, key) in sources.items():
         require(totals.get(name, 0) > 0, f"{name} never ran on the main path")
+        (b_s, by), (lib_s, _) = extra[key]["bound"], extra[key]["library"]
+        require(lib_s is not None, f"{name}: no library time")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": totals[name],
                         "max_abs_err": errs[name],
                         "ms": times[name][0] * 1e3,
-                        "plain_ms": times[name][1] * 1e3})
+                        "plain_ms": times[name][1] * 1e3,
+                        "bound_ms": b_s * 1e3, "bound_by": by,
+                        "library_ms": lib_s * 1e3})
     log(json.dumps({"kernels": kernels}))
     log(smi_name_power())
     print(json.dumps({"ok": True, "device": {

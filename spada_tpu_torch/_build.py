@@ -50,6 +50,12 @@ _SIGNATURES = {
     "esc_stream_mul": [_P, _P, _P, ctypes.c_longlong, _P],
     # a, b, out, L, n_pad, stream
     "esc_stream_red": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    # a, b, out, n, block, stream
+    "esc_stream_mul_blocked": [_P, _P, _P, ctypes.c_longlong,
+                               ctypes.c_longlong, _P],
+    # a, b, out, L, n_pad, block, stream
+    "esc_stream_red_blocked": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                               ctypes.c_longlong, _P],
     # a_tiles, b_tiles, a_tid, b_tid, o_tid, item_ptr, c_tiles, n_c, ogroup,
     # tm, tk, tn, nbuf, stream
     "tile_stream_f32": [_P] * 7 + [_I] * 6 + [_P],
@@ -62,6 +68,10 @@ _SIGNATURES = {
     # stream
     "tile_grid_f32": [_P] * 6 + [_I] * 4 + [_P],
     "tile_grid_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    # a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c, tm, tk, tn,
+    # a_slots, b_slots, mode, stream
+    "tile_probe_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "tile_probe_bf16": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 

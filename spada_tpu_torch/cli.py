@@ -1,14 +1,19 @@
-"""Command-line driver of the port: the ``run`` mode of ``spada_tpu.cli``
-on PyTorch, with a ``--device`` flag.
+"""Command-line driver of the port: ``spada_tpu.cli`` on PyTorch, with a
+``--device`` flag.
 
     python -m spada_tpu_torch.cli run spada SS cari config/default.json
     python -m spada_tpu_torch.cli run spada SS cari config/default.json --device cpu
+    python -m spada_tpu_torch.cli traffic spada SS cari config/default.json
 
-The parser, workload loading and reports are the JAX package's own (they
-do not use JAX).  The roofline constants of the config are replaced by the
-datasheet peaks of the card (:mod:`spada_tpu_torch.config`).  The
-``traffic``, ``breuse`` and ``plan`` modes never touch a device; they
-belong to ``python -m spada_tpu.cli``.
+``build_parser``, ``load_workload``, ``_print_gemm_stats``,
+``_print_first_rows``, ``_tile_bytes``, ``cmd_traffic`` and ``cmd_breuse``
+are copies of the reference CLI's, held equal to it by
+``tests/test_torch_host.py``.  The ``run`` mode replaces the roofline
+constants of the config by the datasheet peaks of the card
+(:mod:`spada_tpu_torch.config`).  The ``traffic`` and ``breuse`` modes run
+the functional traffic model on the host, as the reference's do.  ``plan``
+is not ported yet (its ``--plan-scheme profiled`` times device engines):
+it exits 2.
 
 :func:`run_spada` is the adaptive main path, shared with ``chip_smoke.py``:
 tile/element dispatch -> tile-edge choice -> (optional densify) -> panel
@@ -17,6 +22,7 @@ plan -> execution.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import sys
 import time
@@ -25,15 +31,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from spada_tpu.cli import (_print_first_rows, _print_gemm_stats, _tile_bytes,
-                           build_parser, load_workload)
-from spada_tpu.config import SpadaConfig
-from spada_tpu.io.workloads import GemmWorkload
-from spada_tpu.plan.planner import ExecutionPlan
-from spada_tpu.sparse.csr import CsrMatrix
-from spada_tpu_torch.config import datasheet_peaks
+from spada_tpu_torch.config import SpadaConfig, datasheet_peaks
 from spada_tpu_torch.convert import check_device
+from spada_tpu_torch.io.workloads import GemmWorkload, load_pickled_gemms
 from spada_tpu_torch.ops.spgemm import dispatch_dataflow, spgemm
+from spada_tpu_torch.plan.planner import ExecutionPlan
+from spada_tpu_torch.sparse.csr import CsrMatrix
+from spada_tpu_torch.utils.metrics import PerfReport, format_report
 
 
 @dataclasses.dataclass
@@ -58,7 +62,7 @@ def run_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
     """The adaptive ``spada`` dataflow, as ``spada_tpu.cli``'s ``run`` mode
     sequences it: dispatch -> ``choose_tile_size`` -> ``plan_spgemm`` ->
     ``spgemm(plan=)``.  ``config`` is copied, not changed."""
-    from spada_tpu.plan.planner import choose_tile_size, plan_spgemm
+    from spada_tpu_torch.plan.planner import choose_tile_size, plan_spgemm
 
     config = dataclasses.replace(config)
     dev = check_device(device)
@@ -106,11 +110,90 @@ def run_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
     return SpadaRun(res, "tile", config, det, plan, a, b, row_remap)
 
 
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="spada_tpu",
+        description="TPU-native adaptive-dataflow SpGEMM (spada-sim rebuilt)",
+    )
+    p.add_argument("mode", choices=["run", "traffic", "breuse", "plan"])
+    p.add_argument("dataflow",
+                   choices=["ip", "op", "rowwise", "spada", "element"],
+                   help="dataflow / accelerator analog (element = "
+                        "ESC engine for scattered sparsity)")
+    p.add_argument("category", choices=["SS", "NN", "ss", "nn"])
+    p.add_argument("workload", help="matrix name (SS) or gemm name (NN)")
+    p.add_argument("config", nargs="?", default=None, help="config JSON path")
+    p.add_argument("-p", "--preprocess", action="store_true",
+                   help="row-nnz-ascending reorder (preprocessing.rs:76-89)")
+    p.add_argument("--no-result", action="store_true",
+                   help="skip printing the first rows of C")
+    p.add_argument("--window-k", type=int, default=None,
+                   help="traffic mode: A-scalars per window (default full-K)")
+    p.add_argument("--engine", default=None,
+                   choices=["auto", "streaming", "cached", "panel", "xla",
+                            "pallas_grid"],
+                   help="tile engine override (default: config/auto)")
+    p.add_argument("--dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="tile dtype override (bfloat16 implies fast MXU)")
+    p.add_argument("--fast", action="store_true",
+                   help="throughput profile: bf16 tiles + adaptive tile size")
+    p.add_argument("--densify", default="auto", choices=["auto", "off"],
+                   help="plan-time layout densification: k-grid anchor scan "
+                        "+ degree-clustering permutations (plan/densify.py); "
+                        "auto keeps identity when structure is already "
+                        "aligned")
+    p.add_argument("--plan-scheme", default="analytic",
+                   choices=["analytic", "profiled"],
+                   help="spada panel planner: closed-form byte model or "
+                        "measured kernel latency (rowwise_perf_adjust.rs "
+                        "scheme-3 signal)")
+    return p
+
+
+def load_workload(args, config: SpadaConfig) -> GemmWorkload:
+    if args.category.upper() == "SS":
+        w = GemmWorkload.from_suitesparse(config.ss_filepath, args.workload)
+    else:
+        import os
+
+        if not os.path.exists(config.nn_filepath):
+            # the reference ships no NN pickle (py2rust.rs:5-60 just reads
+            # one); generate the stock pruned-layer GEMMs on first use so
+            # `run spada NN <layer>` works out of the box
+            from spada_tpu_torch.models.nn_workloads import write_nn_pickle
+
+            print(f"generating NN workloads -> {config.nn_filepath}")
+            write_nn_pickle(config.nn_filepath)
+        w = load_pickled_gemms(config.nn_filepath, args.workload)
+    if args.preprocess:
+        w = w.preprocess_sorted()
+    return w
+
+
+def _print_gemm_stats(w: GemmWorkload) -> None:
+    print(f"GEMM {w.name}: A {w.a.shape} nnz {w.a.nnz}  "
+          f"B {w.b.shape} nnz {w.b.nnz}"
+          + ("  [preprocessed]" if w.row_remap is not None else ""))
+
+
+def _print_first_rows(c, w: GemmWorkload, n: int = 10) -> None:
+    """First <=10 rows of C in original row ids (main.rs:113-116)."""
+    c = w.restore_row_order(c)
+    for i in range(min(n, c.shape[0])):
+        cols, vals = c.row(i)
+        head = ", ".join(
+            f"({int(j)}: {v:.4g})" for j, v in list(zip(cols, vals))[:8]
+        )
+        more = " ..." if len(cols) > 8 else ""
+        print(f"  C[{i}] ({len(cols)} nnz): {head}{more}")
+
+
 def build_port_parser():
     p = build_parser()
     p.prog = "spada_tpu_torch"
     p.description = ("adaptive-dataflow SpGEMM on PyTorch and CUDA "
-                     "(the run mode of spada_tpu.cli)")
+                     "(spada_tpu.cli on PyTorch)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     return p
@@ -119,8 +202,7 @@ def build_port_parser():
 def cmd_run(args, config: SpadaConfig, w: GemmWorkload,
             device: torch.device) -> CsrMatrix:
     """Run one SpGEMM, print the report; returns C in the input row order."""
-    from spada_tpu.models.traffic import simulate_traffic
-    from spada_tpu.utils.metrics import PerfReport, format_report
+    from spada_tpu_torch.models.traffic import simulate_traffic
 
     if args.plan_scheme != "analytic":
         raise NotImplementedError(
@@ -140,7 +222,7 @@ def cmd_run(args, config: SpadaConfig, w: GemmWorkload,
         res = run.result
     else:
         if dataflow == "op":
-            from spada_tpu.plan.planner import plan_op_dataflow
+            from spada_tpu_torch.plan.planner import plan_op_dataflow
 
             op_tm, op_det = plan_op_dataflow(w.a, w.b, config)
             print(f"colwise plan (scheme {op_det['scheme']}): panel height "
@@ -171,19 +253,77 @@ def cmd_run(args, config: SpadaConfig, w: GemmWorkload,
     return w.restore_row_order(c)
 
 
-def execute(argv=None) -> Optional[CsrMatrix]:
-    """Parse ``argv`` and run; returns C (input row order) for ``run``,
-    None for the host-only modes."""
-    args = build_port_parser().parse_args(argv)
-    if args.mode != "run":
-        print(f"mode {args.mode!r} runs no device code: use "
-              f"`python -m spada_tpu.cli {args.mode} ...`")
-        return None
-    device = check_device(args.device)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else None)
+def _tile_bytes(res) -> int:
+    """Tile-engine HBM byte model: A+B tiles per work item, C tiles once.
+
+    Uses the actual contraction tile edge and tile dtype the engine ran with
+    (T may be re-chosen per matrix by choose_tile_size, and bf16 tiles move
+    half the bytes of f32).
+    """
+    if getattr(res, "element", None) is not None:  # ESC element path
+        el = res.element
+        return (el.plan.operand_bytes() if hasattr(el, "plan")
+                else el.operand_bytes())
+    if hasattr(res, "segments"):  # PlanResult
+        total = 0
+        for seg in res.segments:
+            r = seg.result
+            total += (r.n_work_items * (seg.tm * r.tk + r.tk * r.tn)
+                      * r.tile_itemsize)
+            total += np.asarray(r.c_tiles).shape[0] * seg.tm * r.tn * 4
+        return total
+    tiles = np.asarray(res.c_tiles)
+    return (res.n_work_items * (res.tm * res.tk + res.tk * res.tn)
+            * res.tile_itemsize
+            + tiles.shape[0] * res.tm * res.tn * 4)
+
+
+def cmd_traffic(args, config: SpadaConfig, w: GemmWorkload) -> int:
+    from spada_tpu_torch.models.traffic import simulate_traffic
+
+    res = simulate_traffic(w.a, w.b, config, window_k=args.window_k)
+    print("functional traffic model (reference counter semantics):")
+    for k, v in res.report.as_dict().items():
+        print(f"  {k}: {v}")
+    from spada_tpu_torch.ops.spgemm import _count_useful_flops
+
+    mults = _count_useful_flops(w.a, w.b) // 2
+    print(f"  estimated_cycles: "
+          f"{res.report.estimated_cycles(config, useful_mults=mults)}"
+          f"  (machine: {config.pe_num} PEs x {config.lane_num} lanes, "
+          f"{config.bandwidth_bytes_per_cycle:.0f} B/cyc)")
+    if not args.no_result:
+        _print_first_rows(res.c, w)
+    return 0
+
+
+def cmd_breuse(args, config: SpadaConfig, w: GemmWorkload) -> int:
+    from spada_tpu_torch.models.traffic import simulate_traffic
+
+    res = simulate_traffic(w.a, w.b, config, compute_values=False)
+    r = res.report
+    print(f"b_reuse: {r.b_reuse:.4f}  (touched {r.b_touched_words} / "
+          f"distinct {r.b_distinct_words} words)")
+    print(f"c_reuse: {r.c_reuse:.4f}  (touched {r.c_touched_words} / "
+          f"final {r.c_final_words} words)")
+    print(f"cache hit ratio: "
+          f"{1 - r.cache.miss_count / max(r.b_touched_words, 1):.4f}")
+    return 0
+
+
+def _execute(args):
+    """(exit code, C in input row order or None) of one parsed command."""
+    if args.mode == "plan":
+        print("mode 'plan' is not ported to spada_tpu_torch yet: use "
+              "`python -m spada_tpu.cli plan ...`")
+        return 2, None
     config = SpadaConfig.from_json(args.config) if args.config else SpadaConfig()
-    config = dataclasses.replace(config, **datasheet_peaks(name))
+    device = None
+    if args.mode == "run":
+        device = check_device(args.device)
+        name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else None)
+        config = dataclasses.replace(config, **datasheet_peaks(name))
     config.dataflow = args.dataflow
     if args.fast:
         config.engine_dtype = "bfloat16"
@@ -196,12 +336,22 @@ def execute(argv=None) -> Optional[CsrMatrix]:
             config.precision = "default"
     w = load_workload(args, config)
     _print_gemm_stats(w)
-    return cmd_run(args, config, w, device)
+    if args.mode == "traffic":
+        return cmd_traffic(args, config, w), None
+    if args.mode == "breuse":
+        return cmd_breuse(args, config, w), None
+    return 0, cmd_run(args, config, w, device)
+
+
+def execute(argv=None) -> Optional[CsrMatrix]:
+    """Parse ``argv`` and run; returns C (input row order) for ``run``,
+    None for the other modes."""
+    return _execute(build_port_parser().parse_args(argv))[1]
 
 
 def main(argv=None) -> int:
     """Exit code: 0 after a run, 2 for a mode this package does not run."""
-    return 2 if execute(argv) is None else 0
+    return _execute(build_port_parser().parse_args(argv))[0]
 
 
 if __name__ == "__main__":

@@ -1,11 +1,25 @@
-"""Hardware profile of the port: the roofline constants of an NVIDIA Hopper
-card, put into the JAX package's :class:`~spada_tpu.config.SpadaConfig`.
+"""Typed configuration for the whole framework.
+
+The reference scatters its tuning surface across a JSON file
+(``frontend.rs:8-23``, ``config/config_1mb_row1.json``) and hard-coded
+constants (``simulator.rs:449-455``, ``scheduler.rs:203``,
+``rowwise_perf_adjust.rs:125-126``, ``rowwise_adjust.rs:227-234``,
+``colwise_reg_adjust.rs:39``).  Here every one of those knobs is surfaced in a
+single dataclass, together with the TPU-native tunables that replace the
+simulated micro-architecture.
+
+Copy of :mod:`spada_tpu.config` for spada_tpu_torch, held equal to it by
+``tests/test_torch_host.py``, followed by the port's hardware profile:
+:func:`datasheet_peaks` and :func:`h100_config` put the roofline constants
+of an NVIDIA Hopper card into ``SpadaConfig``, :func:`tile_work` and
+:func:`stream_work` count the operations and bytes a kernel must do and
+move, and :func:`roofline_bound` turns them into the least time they could
+take.
 
 The planner (``choose_tile_size``), the densify scorer and the tile/element
 dispatch read ``hbm_bytes_per_s``, ``peak_flops_f32`` and
 ``peak_flops_bf16``.  The defaults of ``SpadaConfig`` describe another chip,
 so the port sets them from NVIDIA's data sheets for the SKU the card names.
-
 These are PLACEHOLDERS: published peaks (dense, without sparsity, at the
 full power limit), not rates measured on the card.  A benchmark PR is to
 measure them.  The per-item overhead terms (``engine_item_overhead_s``,
@@ -15,9 +29,149 @@ measure them.  The per-item overhead terms (``engine_item_overhead_s``,
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import json
+from typing import Optional, Tuple
 
-from spada_tpu.config import SpadaConfig
+import numpy as np
+
+
+@dataclasses.dataclass
+class SpadaConfig:
+    # ---- workload locations (reference: OmegaConfig, frontend.rs:8-23) ----
+    ss_filepath: str = "./matrices"
+    nn_filepath: str = "./matrices/nn_gemm.pkl"
+
+    # ---- simulated-machine knobs, kept for the traffic/functional model ----
+    # (reference: config_1mb_row1.json + simulator.rs:449-455)
+    pe_num: int = 2
+    at_num: int = 16
+    lane_num: int = 8
+    cache_size: int = 1_572_864          # fiber-cache bytes (1.5 MiB)
+    word_byte: int = 8
+    block_shape: Tuple[int, int] = (1, 10_000_000)
+    mem_latency: int = 30                # cycles
+    cache_latency: int = 0               # cycles
+    freq: float = 1.0                    # GHz
+    channel: int = 16
+    bandwidth_per_channel: float = 8.0   # bytes/cycle
+    # hard-wired datapath params (simulator.rs:449-455)
+    sb_size: int = 4                     # stream-buffer depth
+    pb_size: int = 8                     # psum-buffer depth
+    pop_num_per_lane: int = 2
+    sn_latency: int = 4                  # sorting-network latency
+    mt_latency: int = 4                  # merge-tree latency
+    tree_width: int = 8                  # adder-tree width
+
+    # ---- adaptive-policy knobs ----
+    # (reference: scheduler.rs:203, rowwise_*_adjust.rs, colwise_*_adjust.rs)
+    adjust_scheme: int = 3               # 0 cost / 1 colwise-reg / 2 colwise-irr / 3 latency
+    var_factor: float = 1.5              # row-group segmentation threshold
+    group_diviser: int = 128             # wide-vs-narrow group split
+    sample_num: int = 4                  # blocks sampled per candidate height
+    cost_miss_weight: int = 100          # DRAM-traffic weight in the cost metric
+    colwise_block_width: int = 8         # scheme-1 fixed block width
+
+    # ---- TPU-native execution knobs (new; replace the simulated uarch) ----
+    tile_n: int = 128                    # output-tile lane width (MXU column dim)
+    tile_k: int = 128                    # contraction-tile depth (MXU row dim)
+    tm_choices: Tuple[int, ...] = (8, 16, 32, 64, 128)  # candidate row-panel heights
+    default_tm: int = 128
+    dataflow: str = "spada"              # 'spada' | 'ip' | 'op' | 'rowwise'
+    vmem_limit_bytes: Optional[int] = None
+    engine: str = "auto"                 # 'auto' | 'streaming' | 'cached' | 'panel' | 'xla' | 'pallas_grid'
+    engine_dtype: str = "float32"        # tile dtype: 'float32' | 'bfloat16'
+    use_pallas: Optional[bool] = None    # legacy: True forces 'pallas_grid'
+    precision: str = "highest"           # 'highest' (true f32) | 'default' (bf16 MXU)
+    acc_dtype: str = "float32"
+    # memory budget for densifying C in the outer-product path (bytes)
+    dense_c_budget: int = 2 << 30
+    # element-granular (ESC) path: chunk cap and dispatch policy
+    # ('auto' = byte/overhead cost model picks tile vs element per matrix;
+    #  'never'/'always' force one side — the reference's dataflow adaptivity
+    #  lifted to the density axis)
+    element_cap: int = 512
+    element_dispatch: str = "auto"
+    # element numeric executor: 'auto' (pallas on TPU — its cross-sublane
+    # reduces beat XLA's minor-dim reduces, 1.03 vs 1.20 ms on locpl-64k;
+    # xla elsewhere, where pallas would run interpreted), 'xla' (fused
+    # elementwise/reduce ops), or 'pallas' (pipelined streaming kernels,
+    # ops/element_stream)
+    element_backend: str = "auto"
+    # plan-time layout densification inside spgemm() (C-invariant subset:
+    # k-grid anchor + k permutation; row permutations need the caller to
+    # carry an inverse, so they only apply via preprocess_densified/CLI)
+    densify: str = "auto"                # 'auto' | 'off'
+
+    # measured per-work-item non-MXU overhead by tile edge (v5e, cached
+    # engine, honest harness — tools/probe_item_overhead.py; slot configs
+    # (12,24,8,8)/(12,24,8,8)/(6,10,4,6)/(6,10,4,2)).  The T=512 value is
+    # low because ogroup=2 keeps the f32 accumulators VMEM-cheap there.
+    # The previous values (0.15/0.49/1.26/2.49 us) were fitted under the
+    # old harness, whose phantom operand pass grew with tile bytes and
+    # biased the planner toward small T.
+    engine_item_overhead_s: dict = dataclasses.field(
+        default_factory=lambda: {128: 0.18e-6, 256: 0.31e-6,
+                                 384: 0.72e-6, 512: 0.23e-6}
+    )
+    # per-item decomposition fitted to the same measurements (non-MXU part
+    # scales with the f32 accumulate footprint tm*tn; see BENCH_NOTES.md):
+    # t_item = 2*tm*tk*tn/peak + acc*tm*tn + fixed
+    engine_acc_s_per_elem: float = 4.8e-12
+    engine_item_fixed_s: float = 60e-9
+
+    # ---- HBM roofline constants of the target chip (v5e defaults) ----
+    hbm_bytes_per_s: float = 819e9
+    peak_flops_f32: float = 98e12
+    peak_flops_bf16: float = 197e12
+    # per-link one-way ICI bandwidth (v5e: 4 links / chip, 2-D torus;
+    # ~45 GB/s each way per link) — the weak-scaling projection input
+    ici_bytes_per_s: float = 45e9
+    ici_links: int = 4
+
+    @classmethod
+    def fast(cls, **overrides) -> "SpadaConfig":
+        """Throughput profile: bf16 tiles, fast MXU passes, adaptive tile
+        size (the bench configuration).  Accuracy: ~bf16 input rounding
+        (values within ~0.5% of f32); use the default profile for the
+        scipy-exact f32 path."""
+        cfg = cls(engine_dtype="bfloat16", precision="default", **overrides)
+        return cfg
+
+    @classmethod
+    def from_json(cls, path: str) -> "SpadaConfig":
+        """Load a config JSON.
+
+        Accepts both this framework's full schema and the reference's flat
+        schema (``parse_config``, frontend.rs:77-85) — unknown keys are
+        rejected, missing keys take defaults.
+        """
+        with open(path) as f:
+            raw = json.load(f)
+        field_names = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(raw) - field_names
+        if unknown:
+            raise ValueError(f"unknown config keys: {sorted(unknown)}")
+        if "block_shape" in raw:
+            raw["block_shape"] = tuple(raw["block_shape"])
+        if "tm_choices" in raw:
+            raw["tm_choices"] = tuple(raw["tm_choices"])
+        return cls(**raw)
+
+    def to_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
+
+    # ---- derived quantities ----
+    @property
+    def bandwidth_bytes_per_cycle(self) -> float:
+        return self.channel * self.bandwidth_per_channel
+
+    @property
+    def cache_words(self) -> int:
+        """Fiber-cache capacity in words (``capability``, storage.rs:498)."""
+        return self.cache_size // self.word_byte
+
 
 # (substring of the device name, HBM bytes/s, f32 FLOP/s, dense bf16 FLOP/s);
 # first match wins, the last row is the H100 SXM default.
@@ -46,3 +200,53 @@ def h100_config(device_name: Optional[str] = None,
     """``SpadaConfig`` with the card's datasheet roofline (placeholders until
     measured), then ``overrides``."""
     return SpadaConfig(**{**datasheet_peaks(device_name), **overrides})
+
+
+def roofline_bound(flops: float, nbytes: float,
+                   device_name: Optional[str] = None,
+                   dtype="float32") -> tuple:
+    """(seconds, 'operations' | 'bytes'): the least time the card named
+    ``device_name`` could take for ``flops`` operations on ``dtype``
+    operands that move ``nbytes``, on its datasheet peaks (placeholders
+    until measured).  bf16 and fp16 operands count at the dense tensor-core
+    rate (their products are exact in an f32 accumulator); other operands
+    at the FP32 rate outside the tensor cores (TF32 would round them)."""
+    peaks = datasheet_peaks(device_name)
+    half = str(dtype).rsplit(".", 1)[-1] in ("bfloat16", "float16")
+    t_op = flops / peaks["peak_flops_bf16" if half else "peak_flops_f32"]
+    t_by = nbytes / peaks["hbm_bytes_per_s"]
+    return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
+
+
+def spgemm_flops(a, b) -> int:
+    """2 x the scalar multiply-adds of C = A.B for CSR operands (anything
+    with ``indptr``, ``indices`` and ``shape``): the nonzeros of A's column
+    k times those of B's row k, summed over k.  The zeros inside a tile are
+    not counted."""
+    col = np.bincount(np.asarray(a.indices), minlength=a.shape[1])
+    row = np.diff(np.asarray(b.indptr))
+    return 2 * int(np.dot(col.astype(np.int64), row.astype(np.int64)))
+
+
+def tile_work(a_tiles, b_tiles, n_items: int, n_c: int, a=None,
+              b=None) -> tuple:
+    """(flops, bytes) a worklist tile kernel must do and move to write the
+    f32 C tiles [n_c, tm, tn] from ``a_tiles`` [*, tm, tk] and ``b_tiles``
+    [*, tk, tn] (arrays or tensors): the useful products of the CSR pair
+    ``a``, ``b`` (:func:`spgemm_flops`), or, without it, every element of
+    each item's tiles; each tile read once, two ids per item and one tile
+    pointer per C tile (int32), C written once."""
+    tm, tk = a_tiles.shape[1], a_tiles.shape[2]
+    tn = b_tiles.shape[2]
+    flops = (spgemm_flops(a, b) if a is not None
+             else 2 * n_items * tm * tk * tn)
+    nbytes = (int(a_tiles.nbytes) + int(b_tiles.nbytes)
+              + 4 * (2 * n_items + n_c + 1) + 4 * n_c * tm * tn)
+    return flops, nbytes
+
+
+def stream_work(L: int, n: int) -> tuple:
+    """(flops, bytes) of one element class: ``n`` f32 outputs, each the sum
+    of ``L`` products (L multiplies and L - 1 adds), two [L, n] inputs read
+    once and the output written once."""
+    return n * (2 * L - 1), 4 * n * (2 * L + 1)

@@ -4,7 +4,8 @@ PyTorch tensors and back.
 The host planners produce NumPy objects; the JAX package hands the same
 objects to its device functions.  These helpers give the port's functions
 the same inputs on a given device, so a test can feed one NumPy object to
-both packages.  Nothing here picks a device: every function takes one.
+both packages; :func:`from_reference` turns the JAX package's host objects
+into the port's.  Nothing here picks a device: every function takes one.
 """
 
 from __future__ import annotations
@@ -104,6 +105,34 @@ def stream_operands_to_torch(ops: Sequence[Tuple[np.ndarray, np.ndarray]],
         (torch.from_numpy(np.ascontiguousarray(av, np.float32)).to(dev),
          torch.from_numpy(np.ascontiguousarray(bv, np.float32)).to(dev))
         for av, bv in ops)
+
+
+def from_reference(obj):
+    """The port's host object equal to ``obj``, a ``CsrMatrix``,
+    ``BsrMatrix`` or ``ExecutionPlan`` (with its panels) of the JAX package.
+
+    The attributes are read as NumPy arrays and numbers, so any object of
+    those shapes converts; nothing of the JAX package is imported.  Arrays
+    are shared, not copied, where their dtype already matches."""
+    from spada_tpu_torch.plan.planner import ExecutionPlan, PanelSpec
+    from spada_tpu_torch.sparse.bsr import BsrMatrix
+    from spada_tpu_torch.sparse.csr import CsrMatrix
+
+    if hasattr(obj, "panels"):
+        return ExecutionPlan(
+            [PanelSpec(int(p.row_start), int(p.row_end), int(p.tm))
+             for p in obj.panels],
+            int(obj.tile_k), int(obj.tile_n), dict(obj.meta))
+    if hasattr(obj, "tile_rowptr"):
+        return BsrMatrix(
+            (int(obj.shape[0]), int(obj.shape[1])), int(obj.tm), int(obj.tn),
+            np.asarray(obj.tiles), np.asarray(obj.tile_col),
+            np.asarray(obj.tile_rowptr), np.asarray(obj.nnz_per_tile))
+    if hasattr(obj, "indptr"):
+        return CsrMatrix(obj.shape, np.asarray(obj.indptr),
+                         np.asarray(obj.indices), np.asarray(obj.data))
+    raise TypeError(f"from_reference: no port counterpart for "
+                    f"{type(obj).__name__}")
 
 
 def c_tiles_to_numpy(t) -> np.ndarray:

@@ -32,6 +32,13 @@
 // drifted 2e-6 of max|out| from PyTorch's own reduction on the card; the
 // compensated one stays within about one rounding of the exact sum.  The
 // extra adds are free: the kernel waits on memory.
+//
+// Block size.  esc_stream_mul_blocked / esc_stream_red_blocked take the work
+// of one CUDA block as an argument (elements for mul, chunk columns for red),
+// so that spada_tpu_torch/tools/probe_pallas_stream.py can sweep the block
+// sizes the TPU probe swept (tools/probe_pallas_stream.py: mul_kernel, and
+// red_kernel at L = 2); their threads stride through their block's share.
+// The main path's entry points launch the kernels above and take no block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,15 +50,32 @@ constexpr int kRedThreads = 256;       // blockDim.x * blockDim.y
 constexpr int kRedMaxSlices = 32;
 constexpr long long kRedTargetThreads = 1 << 20;
 
+__device__ __forceinline__ void mul4(const float4* __restrict__ a,
+                                     const float4* __restrict__ b,
+                                     float4* __restrict__ out, long long i) {
+  const float4 x = __ldg(a + i);
+  const float4 y = __ldg(b + i);
+  out[i] = make_float4(x.x * y.x, x.y * y.y, x.z * y.z, x.w * y.w);
+}
+
+// The default launch: one float4 per thread.
 __global__ void esc_stream_mul_kernel(const float4* __restrict__ a,
                                       const float4* __restrict__ b,
                                       float4* __restrict__ out, long long n4) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n4) {
-    const float4 x = __ldg(a + i);
-    const float4 y = __ldg(b + i);
-    out[i] = make_float4(x.x * y.x, x.y * y.y, x.z * y.z, x.w * y.w);
-  }
+  if (i < n4) mul4(a, b, out, i);
+}
+
+// A block of per_block float4s, its threads striding through them.
+__global__ void esc_stream_mul_blocked_kernel(const float4* __restrict__ a,
+                                              const float4* __restrict__ b,
+                                              float4* __restrict__ out,
+                                              long long n4,
+                                              long long per_block) {
+  const long long base = (long long)blockIdx.x * per_block;
+  const long long end = min(base + per_block, n4);
+  for (long long i = base + threadIdx.x; i < end; i += blockDim.x)
+    mul4(a, b, out, i);
 }
 
 // Kahan step: s + c carries the running sum, v is the next term.
@@ -62,17 +86,17 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
   s = t;
 }
 
-// Block: blockDim.x chunk columns (float4 each) x blockDim.y row slices.
-__global__ void esc_stream_red_kernel(const float4* __restrict__ a,
-                                      const float4* __restrict__ b,
-                                      float4* __restrict__ out, int L,
-                                      long long n4) {
-  __shared__ float4 part[kRedThreads];
+// The chunk columns j (< end) of one pass of a block: blockDim.x columns
+// (float4 each) x blockDim.y row slices.
+__device__ __forceinline__ void red_pass(const float4* __restrict__ a,
+                                         const float4* __restrict__ b,
+                                         float4* __restrict__ out, int L,
+                                         long long n4, long long j,
+                                         long long end, float4* part) {
   const int bx = blockDim.x, by = blockDim.y;
-  const long long j = (long long)blockIdx.x * bx + threadIdx.x;
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4 c = s;
-  if (j < n4) {
+  if (j < end) {
 #pragma unroll 4
     for (int l = threadIdx.y; l < L; l += by) {
       const float4 x = __ldg(a + (long long)l * n4 + j);
@@ -87,7 +111,7 @@ __global__ void esc_stream_red_kernel(const float4* __restrict__ a,
       make_float4(__fsub_rn(s.x, c.x), __fsub_rn(s.y, c.y),
                   __fsub_rn(s.z, c.z), __fsub_rn(s.w, c.w));
   __syncthreads();
-  if (threadIdx.y == 0 && j < n4) {
+  if (threadIdx.y == 0 && j < end) {
     float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float4 tc = t;
     for (int y = 0; y < by; ++y) {
@@ -98,6 +122,31 @@ __global__ void esc_stream_red_kernel(const float4* __restrict__ a,
       kahan_add(t.w, tc.w, p.w);
     }
     out[j] = t;
+  }
+}
+
+// The default launch: one pass of blockDim.x chunk columns per block.
+__global__ void esc_stream_red_kernel(const float4* __restrict__ a,
+                                      const float4* __restrict__ b,
+                                      float4* __restrict__ out, int L,
+                                      long long n4) {
+  __shared__ float4 part[kRedThreads];
+  red_pass(a, b, out, L, n4, (long long)blockIdx.x * blockDim.x + threadIdx.x,
+           n4, part);
+}
+
+// A block of per_block chunk columns, in passes of blockDim.x.
+__global__ void esc_stream_red_blocked_kernel(const float4* __restrict__ a,
+                                              const float4* __restrict__ b,
+                                              float4* __restrict__ out, int L,
+                                              long long n4,
+                                              long long per_block) {
+  __shared__ float4 part[kRedThreads];
+  const long long base = (long long)blockIdx.x * per_block;
+  const long long end = min(base + per_block, n4);
+  for (long long j0 = base; j0 < end; j0 += blockDim.x) {
+    red_pass(a, b, out, L, n4, j0 + threadIdx.x, end, part);
+    __syncthreads();  // part is rewritten by the next pass
   }
 }
 
@@ -117,23 +166,61 @@ extern "C" int esc_stream_mul(const void* a, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
+// The threads of a red block: chunk columns x row slices.  The rows are
+// split while the class has too few chunks to fill the card.
+static dim3 red_threads(int L, long long n4) {
+  int slices = 1;
+  while (slices < kRedMaxSlices && 2 * slices <= L &&
+         n4 * slices < kRedTargetThreads)
+    slices *= 2;
+  return dim3(kRedThreads / slices, slices);
+}
+
 // a, b: [L, n_pad] row-major; out: [n_pad]; n_pad a multiple of 4; every
 // pointer 16-byte aligned.
 extern "C" int esc_stream_red(const void* a, const void* b, void* out, int L,
                               long long n_pad, void* stream) {
   if (L <= 0 || n_pad <= 0 || n_pad % 4 != 0) return (int)cudaErrorInvalidValue;
   const long long n4 = n_pad / 4;
-  // split the rows while the class has too few chunks to fill the card
-  int slices = 1;
-  while (slices < kRedMaxSlices && 2 * slices <= L &&
-         n4 * slices < kRedTargetThreads)
-    slices *= 2;
-  const dim3 block(kRedThreads / slices, slices);
-  const long long blocks = (n4 + block.x - 1) / block.x;
+  const dim3 threads = red_threads(L, n4);
+  const long long blocks = (n4 + threads.x - 1) / threads.x;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  esc_stream_red_kernel<<<(unsigned)blocks, block, 0,
+  esc_stream_red_kernel<<<(unsigned)blocks, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(a), static_cast<const float4*>(b),
       static_cast<float4*>(out), L, n4);
+  return (int)cudaGetLastError();
+}
+
+// The probe's launches (spada_tpu_torch/tools/probe_pallas_stream.py): as
+// above, with block elements (mul) or chunk columns (red) per CUDA block, a
+// positive multiple of 4.
+extern "C" int esc_stream_mul_blocked(const void* a, const void* b, void* out,
+                                      long long n, long long block,
+                                      void* stream) {
+  if (n <= 0 || n % 4 != 0 || block <= 0 || block % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n4 = n / 4, per_block = block / 4;
+  const long long blocks = (n4 + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  esc_stream_mul_blocked_kernel<<<(unsigned)blocks, kMulThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(a), static_cast<const float4*>(b),
+      static_cast<float4*>(out), n4, per_block);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int esc_stream_red_blocked(const void* a, const void* b, void* out,
+                                      int L, long long n_pad, long long block,
+                                      void* stream) {
+  if (L <= 0 || n_pad <= 0 || n_pad % 4 != 0 || block <= 0 || block % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n4 = n_pad / 4, per_block = block / 4;
+  const long long blocks = (n4 + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  esc_stream_red_blocked_kernel<<<(unsigned)blocks, red_threads(L, n4), 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(a), static_cast<const float4*>(b),
+      static_cast<float4*>(out), L, n4, per_block);
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,8 @@
 //          per thread (two 4 x 4 quadrants 64 apart, so the shared-memory
 //          reads are conflict-free float4s), BK = 8, two shared-memory
 //          stages: the next slice is fetched into registers while the
-//          current one is multiplied.  This is the planner's usual shape.
+//          current one is multiplied.  This is the planner's usual shape;
+//          its code is tile_wide.cuh, which tile_probe.cu shares.
 //   narrow (tm in {8, 16, 32} or a multiple of 64, tn a multiple of 64, tk
 //          of 16): BM = min(tm, 64) rows x 64 columns per block, RM x 4 per
 //          thread, BK = 16, one stage.
@@ -40,16 +41,15 @@
 // Launch: tile_spgemm_f32 / tile_spgemm_bf16 (plain C interface for ctypes)
 // enqueue one kernel on the given stream and return cudaGetLastError().
 
-#include "tile_pipe.cuh"
+#include "tile_wide.cuh"
 
 namespace {
 
-using spada::load4;
 using spada::to_f32;
 
 // ---- wide: 128 x 128 of one C tile per block, 256 threads -----------------
-constexpr int kWide = 128;
-constexpr int kWideBK = 8;
+constexpr int kWide = spada::wide::kP;
+constexpr int kWideBK = spada::wide::kBK;
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -59,82 +59,11 @@ __global__ void __launch_bounds__(256)
                      const int32_t* __restrict__ b_tid,
                      const int32_t* __restrict__ tile_ptr,
                      float* __restrict__ c_tiles, int tm, int tk, int tn) {
-  constexpr int BK = kWideBK;
-  __shared__ __align__(16) float As[2][BK][kWide];  // k-major A slice
-  __shared__ __align__(16) float Bs[2][BK][kWide];
-  const int c = blockIdx.x;
-  const int row0 = blockIdx.y * kWide;
-  const int col0 = blockIdx.z * kWide;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int lo = tile_ptr[c];
-  const int k_steps = tk / BK;
-  const int steps = (tile_ptr[c + 1] - lo) * k_steps;  // (item, k slice)
-  // each thread stages four A elements (row a_r, k a_k..+3) and four B
-  // elements (k b_k, columns b_c..+3) of every slice
-  const int a_r = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5, b_c = (tid & 31) * 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  float4 ra, rb;
-  auto fetch = [&](int s) {
-    const int w = lo + s / k_steps;
-    const int k0 = (s % k_steps) * BK;
-    ra = load4(a_tiles + (size_t)a_tid[w] * tm * tk +
-               (size_t)(row0 + a_r) * tk + k0 + a_k);
-    rb = load4(b_tiles + (size_t)b_tid[w] * tk * tn +
-               (size_t)(k0 + b_k) * tn + col0 + b_c);
-  };
-  auto stash = [&](int buf) {
-    As[buf][a_k + 0][a_r] = ra.x;
-    As[buf][a_k + 1][a_r] = ra.y;
-    As[buf][a_k + 2][a_r] = ra.z;
-    As[buf][a_k + 3][a_r] = ra.w;
-    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_c]) = rb;
-  };
-
-  if (steps > 0) {
-    fetch(0);
-    stash(0);
-  }
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < steps) fetch(s + 1);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][k][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (s + 1 < steps) stash(buf ^ 1);
-    __syncthreads();
-  }
-
-  float* out = c_tiles + (size_t)c * tm * tn;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    float* p = out + (size_t)r * tn + col0;
-    *reinterpret_cast<float4*>(p + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(p + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
+  __shared__ __align__(16) float As[2][kWideBK][kWide];  // k-major A slice
+  __shared__ __align__(16) float Bs[2][kWideBK][kWide];
+  spada::wide::piece<T, spada::wide::kFull>(
+      a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, blockIdx.x,
+      blockIdx.y * kWide, blockIdx.z * kWide, 0, tm, tk, tn, 1, 1, As, Bs);
 }
 
 // ---- narrow: BM x 64 of one C tile per block ------------------------------

@@ -2,10 +2,8 @@
 
 A mirror of the plan half of :mod:`spada_tpu.ops.element`
 (``EscBucket``/``EscPlan``/``build_esc_plan``/``expansion_products``), kept
-array-for-array equal to it by ``tests/test_torch_element.py``.  It is copied
-rather than imported because importing anything under ``spada_tpu.ops``
-loads JAX.  The C++ planner (``spada_tpu.native.esc_plan``) is imported and
-shared.
+array-for-array equal to it by ``tests/test_torch_element.py``.  The C++
+planner is the port's copy, :func:`spada_tpu_torch.native.esc_plan`.
 
 The host expands every scalar product a[i,k]*b[k,j], sorts the products by
 output element and buckets the output chunks by product count L (a power
@@ -23,7 +21,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from spada_tpu.sparse.csr import CsrMatrix
+from spada_tpu_torch.sparse.csr import CsrMatrix
 
 
 @dataclasses.dataclass
@@ -73,9 +71,9 @@ def build_esc_plan(a: CsrMatrix, b: CsrMatrix, cap: int = 512,
                    backend: str = "auto") -> EscPlan:
     """Symbolic phase: expand, sort (host), and bucket the product schedule.
 
-    ``backend``: 'auto' prefers the C++ planner (``spada_tpu.native``) and
-    falls back to NumPy where it cannot build or does not apply; 'python'
-    forces the NumPy implementation.
+    ``backend``: 'auto' prefers the C++ planner
+    (``spada_tpu_torch.native``) and falls back to NumPy where it cannot
+    build or does not apply; 'python' forces the NumPy implementation.
     """
     if backend not in ("auto", "python"):
         raise ValueError(f"unknown ESC plan backend {backend!r}")
@@ -88,7 +86,7 @@ def build_esc_plan(a: CsrMatrix, b: CsrMatrix, cap: int = 512,
 
 def _build_esc_plan_native(a: CsrMatrix, b: CsrMatrix,
                            cap: int) -> Optional[EscPlan]:
-    from spada_tpu import native
+    from spada_tpu_torch import native
 
     m, n_cols = a.shape[0], b.shape[1]
     if a.shape[1] != b.shape[0]:

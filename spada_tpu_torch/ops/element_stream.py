@@ -235,7 +235,7 @@ def stream_values_host(values) -> np.ndarray:
 def stream_to_csr(layout: StreamLayout, values):
     """Extraction: combine padded chunk values into the CSR data array
     (pads add 0.0 at position 0 — exact)."""
-    from spada_tpu.sparse.csr import CsrMatrix
+    from spada_tpu_torch.sparse.csr import CsrMatrix
 
     data = np.zeros(max(layout.nnz_c, 1), np.float64)
     np.add.at(data, layout.esc_to_csr,

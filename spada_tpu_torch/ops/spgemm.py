@@ -8,8 +8,9 @@ means.  ``dataflow='spada'`` picks the engine per matrix by modeled time
 is given (:func:`spada_tpu_torch.plan.execute.execute_plan`).
 
 Every entry point takes the ``device`` it runs on; nothing picks one by
-itself.  The host planners are the JAX package's own where they can be
-imported without JAX, and mirrors of it where they cannot.
+itself.  The host planners are the port's copies of the JAX package's
+(:mod:`spada_tpu_torch.plan`, :mod:`spada_tpu_torch.ops.worklist`,
+:mod:`spada_tpu_torch.ops.element`).
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spada_tpu.config import SpadaConfig
-from spada_tpu.sparse.bsr import BsrMatrix
-from spada_tpu.sparse.csr import CsrMatrix
+from spada_tpu_torch.config import SpadaConfig
+from spada_tpu_torch.sparse.bsr import BsrMatrix
+from spada_tpu_torch.sparse.csr import CsrMatrix
 from spada_tpu_torch.convert import (bsr_to_torch, c_tiles_to_numpy,
                                      check_device, synchronize)
 from spada_tpu_torch.ops.engine import run_worklist
@@ -163,7 +164,7 @@ def dispatch_dataflow(a: CsrMatrix, b: CsrMatrix,
     goes to tile products, scattered structure to the streaming element
     path.  Returns (choice, details) with the tile model per edge and the
     chosen edge under ``'tile_T'``."""
-    from spada_tpu.plan.planner import choose_tile_size
+    from spada_tpu_torch.plan.planner import choose_tile_size
 
     t_best, t_det = choose_tile_size(a, b, config)
     t_tile = min(v["t_est"] for v in t_det.values())
@@ -234,7 +235,7 @@ def spgemm(
 
     if tm is None:
         if dataflow == "op":
-            from spada_tpu.plan.planner import plan_op_dataflow
+            from spada_tpu_torch.plan.planner import plan_op_dataflow
 
             tm, _ = plan_op_dataflow(a, b, config)
         elif dataflow == "rowwise":
@@ -246,7 +247,7 @@ def spgemm(
     if dataflow == "spada" and config.densify == "auto":
         # C-invariant layout densification (k-anchor / k-perm only:
         # C = (A Q)(Q^T B) exactly)
-        from spada_tpu.plan.densify import apply_densify, choose_densify
+        from spada_tpu_torch.plan.densify import apply_densify, choose_densify
 
         dplan = choose_densify(a, b, tm, config.tile_k, config.tile_n,
                                config, allow_row_perm=False)

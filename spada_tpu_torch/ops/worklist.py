@@ -1,9 +1,7 @@
 """Host-side symbolic phase: tile-level work-list construction.
 
 A mirror of :mod:`spada_tpu.ops.worklist`, kept array-for-array equal to it
-by ``tests/test_torch_worklist.py``.  It is copied rather than imported
-because importing anything under ``spada_tpu.ops`` loads JAX
-(``spada_tpu/ops/__init__.py`` imports the JAX engines).
+by ``tests/test_torch_worklist.py``.
 
 The whole multiply schedule is planned up front as a flat list of tile
 products, sorted so that the partial sums of one output tile are a
@@ -26,7 +24,7 @@ import dataclasses
 
 import numpy as np
 
-from spada_tpu.sparse.bsr import BsrMatrix
+from spada_tpu_torch.sparse.bsr import BsrMatrix
 
 
 @dataclasses.dataclass

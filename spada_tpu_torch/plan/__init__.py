@@ -1,1 +1,2 @@
-"""Plan execution on PyTorch (planning itself is ``spada_tpu.plan``)."""
+"""Host planning (copies of :mod:`spada_tpu.plan`) and plan execution on
+PyTorch (:mod:`spada_tpu_torch.plan.execute`)."""

@@ -1,26 +1,113 @@
 """Plan execution: one tile-engine launch per distinct panel height.
 
-The port of ``iter_plan_segments`` / ``execute_plan``
-(``spada_tpu/plan/planner.py:283-368``).  Planning itself
-(``plan_spgemm``, ``choose_tile_size``) and the result type
-(``PlanResult``) are the JAX package's own, imported: they do not use JAX.
-These two functions are mirrored because the reference's versions reach
-the JAX engines.
+The port of the execution half of :mod:`spada_tpu.plan.planner`
+(``spada_tpu/plan/planner.py:197-368``).  ``_Segment``, ``PlanResult`` and
+``_slice_rows_padded`` are copies of the reference's, held equal to it by
+``tests/test_torch_host.py``; ``iter_plan_segments`` and ``execute_plan``
+run the port's worklist builder and tile engines.  Planning itself
+(``plan_spgemm``, ``choose_tile_size``) is in
+:mod:`spada_tpu_torch.plan.planner`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
-from spada_tpu.config import SpadaConfig
-from spada_tpu.plan.planner import (ExecutionPlan, PlanResult, _Segment,
-                                    _slice_rows_padded)
-from spada_tpu.sparse.bsr import BsrMatrix
-from spada_tpu.sparse.csr import CsrMatrix
+from spada_tpu_torch.config import SpadaConfig
 from spada_tpu_torch.ops.worklist import build_worklist
+from spada_tpu_torch.plan.planner import ExecutionPlan, PanelSpec
+from spada_tpu_torch.sparse.bsr import BsrMatrix
+from spada_tpu_torch.sparse.csr import CsrMatrix
+
+
+@dataclasses.dataclass
+class _Segment:
+    tm: int
+    result: object                 # SpGemmResult
+    tile_row_to_global: np.ndarray  # int64 [n_local_tile_rows] -> global row base
+
+
+@dataclasses.dataclass
+class PlanResult:
+    """Mixed-panel-height SpGEMM result (same surface as SpGemmResult)."""
+
+    shape: tuple
+    segments: List[_Segment]
+    n_work_items: int = 0
+    mxu_flops: int = 0
+    useful_flops: int = 0
+    elapsed_s: Optional[float] = None
+    # launch state retained for measure_device_perf reuse (one plan, one
+    # BSR/worklist build per CLI run — VERDICT round-4 item 8)
+    host_state: Optional[dict] = None
+
+    def todense(self) -> np.ndarray:
+        d = np.zeros(self.shape, np.float32)
+        for seg in self.segments:
+            tiles = np.asarray(seg.result.c_tiles)
+            tn = seg.result.tn
+            for t in range(tiles.shape[0]):
+                g0 = int(seg.tile_row_to_global[seg.result.c_tile_row[t]])
+                c0 = int(seg.result.c_tile_col[t]) * tn
+                h = min(seg.tm, self.shape[0] - g0)
+                w = min(tn, self.shape[1] - c0)
+                if h > 0 and w > 0:
+                    # += not =: a panel's last tile pads past the panel end
+                    # into rows owned by another segment; padded rows are
+                    # exactly zero, so accumulation composes segments safely
+                    d[g0 : g0 + h, c0 : c0 + w] += tiles[t, :h, :w]
+        return d
+
+    def to_csr(self) -> CsrMatrix:
+        rows_all, cols_all, vals_all = [], [], []
+        for seg in self.segments:
+            tiles = np.asarray(seg.result.c_tiles)
+            t, r, c = np.nonzero(tiles)
+            rows = seg.tile_row_to_global[seg.result.c_tile_row[t]] + r
+            cols = seg.result.c_tile_col[t].astype(np.int64) * seg.result.tn + c
+            keep = (rows < self.shape[0]) & (cols < self.shape[1])
+            rows_all.append(rows[keep])
+            cols_all.append(cols[keep])
+            vals_all.append(tiles[t, r, c][keep])
+        if rows_all:
+            return CsrMatrix.from_coo(
+                self.shape,
+                np.concatenate(rows_all),
+                np.concatenate(cols_all),
+                np.concatenate(vals_all),
+            )
+        return CsrMatrix(self.shape, np.zeros(self.shape[0] + 1, np.int64), [], [])
+
+
+def _slice_rows_padded(a: CsrMatrix, panels: List[PanelSpec], tm: int):
+    """Stack the rows of all panels with this tm into one CSR, each panel
+    padded with empty rows to a multiple of tm.  Returns (csr, tile_row_base)
+    where tile_row_base[i] is the global row of local tile-row i."""
+    lens = a.row_lens()
+    seg_lens, seg_idx, bases = [], [], []
+    for p in panels:
+        n_rows = p.row_end - p.row_start
+        n_tiles = -(-n_rows // tm)
+        pad = n_tiles * tm - n_rows
+        seg_lens.append(lens[p.row_start : p.row_end])
+        if pad:
+            seg_lens.append(np.zeros(pad, np.int64))
+        seg_idx.append(
+            np.arange(a.indptr[p.row_start], a.indptr[p.row_end], dtype=np.int64)
+        )
+        bases.extend(p.row_start + tm * np.arange(n_tiles))
+    lens_local = np.concatenate(seg_lens) if seg_lens else np.zeros(0, np.int64)
+    idx = np.concatenate(seg_idx) if seg_idx else np.zeros(0, np.int64)
+    indptr = np.zeros(len(lens_local) + 1, np.int64)
+    indptr[1:] = np.cumsum(lens_local)
+    sub = CsrMatrix(
+        (len(lens_local), a.shape[1]), indptr, a.indices[idx], a.data[idx]
+    )
+    return sub, np.asarray(bases, dtype=np.int64)
 
 
 def iter_plan_segments(a: CsrMatrix, b_bsr: BsrMatrix, plan: ExecutionPlan):
@@ -49,7 +136,7 @@ def execute_plan(a: CsrMatrix, b: CsrMatrix, plan: ExecutionPlan,
     keeps each launch's host worklist and f32 tiles in ``host_state``
     (``{"segments": [(wl, a_tiles, b_tiles, tm)], "tk", "tn"}``) so a
     timing can rerun exactly these launches."""
-    from spada_tpu.utils import trace
+    from spada_tpu_torch.utils import trace
     from spada_tpu_torch.convert import bsr_to_torch, c_tiles_to_numpy, check_device
     from spada_tpu_torch.ops.engine import run_worklist
     from spada_tpu_torch.ops.spgemm import (SpGemmResult, _count_useful_flops,

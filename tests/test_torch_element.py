@@ -16,6 +16,7 @@ from spada_tpu.io.workloads import (localized_powerlaw_csr, powerlaw_csr,
                                     random_csr)
 from spada_tpu.ops import element as jax_element
 from spada_tpu.ops import element_stream as jax_stream
+from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch import _build
 from spada_tpu_torch.convert import stream_operands_to_torch
 from spada_tpu_torch.ops.element import (_ceil_pow2, build_esc_plan,
@@ -66,15 +67,16 @@ def _assert_plans_equal(got, ref):
 @pytest.mark.parametrize("cap", [8, 512])
 @pytest.mark.parametrize("name,a,b", CASES, ids=IDS)
 def test_esc_plan_matches_reference(name, a, b, cap, backend):
-    got = build_esc_plan(a, b, cap=cap, backend=backend)
+    got = build_esc_plan(P(a), P(b), cap=cap, backend=backend)
     ref = jax_element.build_esc_plan(a, b, cap=cap, backend=backend)
     _assert_plans_equal(got, ref)
-    assert expansion_products(a, b) == jax_element.expansion_products(a, b)
+    assert (expansion_products(P(a), P(b))
+            == jax_element.expansion_products(a, b))
 
 
 @pytest.mark.parametrize("name,a,b", CASES, ids=IDS)
 def test_stream_layout_and_operands_match_reference(name, a, b):
-    plan = build_esc_plan(a, b)
+    plan = build_esc_plan(P(a), P(b))
     ref_plan = jax_element.build_esc_plan(a, b)
     layout = build_stream_layout(plan)
     ref = jax_stream.build_stream_layout(ref_plan)
@@ -82,7 +84,7 @@ def test_stream_layout_and_operands_match_reference(name, a, b):
     np.testing.assert_array_equal(layout.esc_to_csr, ref.esc_to_csr)
     assert (layout.n_padded, layout.nnz_c, layout.operand_bytes()) == (
         ref.n_padded, ref.nnz_c, ref.operand_bytes())
-    for (ga, gb), (ra, rb) in zip(stream_operands(layout, plan, a, b),
+    for (ga, gb), (ra, rb) in zip(stream_operands(layout, plan, P(a), P(b)),
                                   jax_stream.stream_operands(ref, ref_plan,
                                                              a, b)):
         np.testing.assert_array_equal(ga, ra)
@@ -93,9 +95,9 @@ def test_stream_layout_and_operands_match_reference(name, a, b):
 def test_stream_executor_matches_pallas_and_scipy(name, a, b):
     import jax.numpy as jnp
 
-    plan = build_esc_plan(a, b)
+    plan = build_esc_plan(P(a), P(b))
     layout = build_stream_layout(plan)
-    ops = stream_operands(layout, plan, a, b)
+    ops = stream_operands(layout, plan, P(a), P(b))
     vals = stream_execute(layout, stream_operands_to_torch(ops, "cpu"))
     run = jax_stream.stream_execute_fn(
         jax_stream.build_stream_layout(jax_element.build_esc_plan(a, b)),
@@ -111,9 +113,10 @@ def test_stream_executor_matches_pallas_and_scipy(name, a, b):
 
 def test_plain_executor_equals_wrappers_on_cpu():
     a, b = CASES[2][1], CASES[2][2]
-    plan = build_esc_plan(a, b)
+    plan = build_esc_plan(P(a), P(b))
     layout = build_stream_layout(plan)
-    ops = stream_operands_to_torch(stream_operands(layout, plan, a, b), "cpu")
+    ops = stream_operands_to_torch(
+        stream_operands(layout, plan, P(a), P(b)), "cpu")
     assert {c["L"] for c in layout.classes} >= {1, 2}
     for x, y in zip(stream_execute(layout, ops),
                     stream_execute_reference(layout, ops)):
@@ -143,7 +146,7 @@ def test_ceil_pow2_and_backend_guard():
     x = np.array([1, 2, 3, 5, 8, 9, 511, 513])
     np.testing.assert_array_equal(_ceil_pow2(x), jax_element._ceil_pow2(x))
     with pytest.raises(ValueError):
-        build_esc_plan(CASES[0][1], CASES[0][2], backend="xla")
+        build_esc_plan(P(CASES[0][1]), P(CASES[0][2]), backend="xla")
 
 
 def test_stream_wrappers_check_arguments():

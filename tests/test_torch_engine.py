@@ -16,6 +16,7 @@ from spada_tpu.io.workloads import powerlaw_csr, random_csr
 from spada_tpu.ops.engine import run_worklist_cached, run_worklist_xla
 from spada_tpu.ops.worklist import build_worklist as jax_build_worklist
 from spada_tpu.sparse.bsr import BsrMatrix
+from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch import _build
 from spada_tpu_torch.convert import (bsr_to_torch, c_tiles_to_numpy,
                                      tile_ptr_of, worklist_to_torch)
@@ -27,8 +28,8 @@ from spada_tpu_torch.ops.worklist import build_worklist
 def _case(tm, seed=41):
     a = powerlaw_csr(256, 256, 12.0, seed=seed, dtype=np.float32)
     b = random_csr(256, 256, 0.08, seed=seed + 1, dtype=np.float32)
-    ab = BsrMatrix.from_csr(a, tm, 64, dtype=np.float32)
-    bb = BsrMatrix.from_csr(b, 64, 64, dtype=np.float32)
+    ab = P(BsrMatrix.from_csr(a, tm, 64, dtype=np.float32))
+    bb = P(BsrMatrix.from_csr(b, 64, 64, dtype=np.float32))
     return ab, bb, build_worklist(ab, bb, order="row")
 
 
@@ -103,8 +104,8 @@ def test_bf16_tiles_match_reference_in_f32():
 def test_k_major_worklist_uses_plain_engine():
     a = powerlaw_csr(200, 256, 10.0, seed=5, dtype=np.float32)
     b = random_csr(256, 192, 0.1, seed=6, dtype=np.float32)
-    ab = BsrMatrix.from_csr(a, 16, 64)
-    bb = BsrMatrix.from_csr(b, 64, 64)
+    ab = P(BsrMatrix.from_csr(a, 16, 64))
+    bb = P(BsrMatrix.from_csr(b, 64, 64))
     wl = build_worklist(ab, bb, order="k")
     assert select_engine("k") == "xla" and select_engine("row") == "cached"
     got = c_tiles_to_numpy(run_worklist(wl, bsr_to_torch(ab, "cpu"),

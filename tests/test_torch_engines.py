@@ -27,6 +27,7 @@ from spada_tpu.ops import engine as jax_engine
 from spada_tpu.plan.planner import choose_tile_size, plan_spgemm
 from spada_tpu.plan.planner import execute_plan as jax_execute_plan
 from spada_tpu.sparse.bsr import BsrMatrix
+from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch import cli
 from spada_tpu_torch.config import h100_config
 from spada_tpu_torch.convert import bsr_to_torch, c_tiles_to_numpy, item_ptr_of
@@ -45,8 +46,8 @@ WRAPPER = {"streaming": "tile_stream", "panel": "tile_panel",
 def _case(tm, seed=41):
     a = powerlaw_csr(256, 256, 12.0, seed=seed, dtype=np.float32)
     b = random_csr(256, 256, 0.08, seed=seed + 1, dtype=np.float32)
-    ab = BsrMatrix.from_csr(a, tm, 64, dtype=np.float32)
-    bb = BsrMatrix.from_csr(b, 64, 64, dtype=np.float32)
+    ab = P(BsrMatrix.from_csr(a, tm, 64, dtype=np.float32))
+    bb = P(BsrMatrix.from_csr(b, 64, 64, dtype=np.float32))
     return ab, bb, build_worklist(ab, bb, order="row")
 
 
@@ -254,7 +255,7 @@ def test_spgemm_engine_override_matches_reference(override, wrapper_calls):
     a, b = _pair()
     cfg = (h100_config(use_pallas=True) if override == "use_pallas"
            else h100_config(engine=override))
-    res = spgemm(a, b, cfg, dataflow="spada", device="cpu")
+    res = spgemm(P(a), P(b), cfg, dataflow="spada", device="cpu")
     ref = jax_spgemm_mod.spgemm(a, b, cfg, dataflow="spada")
     assert res.engine_used == ref.engine_used == "tile"
     eng = "pallas_grid" if override == "use_pallas" else override
@@ -273,7 +274,7 @@ def test_plan_path_engine_override_matches_reference(eng, wrapper_calls):
     cfg.tile_k = cfg.tile_n = cfg.default_tm = t
     cfg.tm_choices = tuple(x for x in cfg.tm_choices if x <= t) + (t,)
     plan = plan_spgemm(a, b, cfg)
-    got = execute_plan(a, b, plan, cfg, device="cpu")
+    got = execute_plan(P(a), P(b), P(plan), cfg, device="cpu")
     ref = jax_execute_plan(a, b, plan, cfg)
     assert wrapper_calls[WRAPPER[eng]] == len(got.segments) > 0
     assert wrapper_calls["tile_spgemm"] == 0
@@ -304,7 +305,8 @@ def test_select_engine_and_k_major_refusal():
     assert engine.select_engine("row", use_pallas=False) == "xla"
     a = powerlaw_csr(200, 256, 10.0, seed=5, dtype=np.float32)
     b = random_csr(256, 192, 0.1, seed=6, dtype=np.float32)
-    ab, bb = BsrMatrix.from_csr(a, 16, 64), BsrMatrix.from_csr(b, 64, 64)
+    ab = P(BsrMatrix.from_csr(a, 16, 64))
+    bb = P(BsrMatrix.from_csr(b, 64, 64))
     wl = build_worklist(ab, bb, order="k")
     assert np.any(np.diff(wl.o_tid) < 0)
     a_t, b_t = bsr_to_torch(ab, "cpu"), bsr_to_torch(bb, "cpu")

@@ -18,6 +18,7 @@ from spada_tpu_torch.ops.element_stream import (esc_stream_mul,
                                                 esc_stream_red,
                                                 esc_stream_red_reference)
 from spada_tpu_torch.ops.engine import run_worklist_reference, tile_spgemm
+from spada_tpu_torch.tools import probe_pallas_stream, tile_probe
 
 
 @pytest.fixture
@@ -231,3 +232,50 @@ def test_engine_kernels_reject_what_they_cannot_take(cuda_device):
     assert dict(_build.launches) == before
     for out in outs:
         assert out.shape == (1, 8, 64) and bool((out == 0).all())
+
+
+# ---- the probe kernel and the stream block sizes ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", tile_probe.GPU_MODES)
+@pytest.mark.parametrize("tm,tk,tn", [(128, 64, 256), (256, 256, 256)])
+def test_probe_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, mode):
+    """full and flat: tile_spgemm's C bitwise; the modes that write zeros
+    or nothing: their plain C bitwise; the rest 1e-5 of max|C|."""
+    a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
+                                                        tn, dtype)
+    args = (a, b, ai, bi, dev(tile_ptr_of(o_ids, n_c)), mode, 3, 2)
+    got = _launched_once("tile_probe", tile_probe.tile_probe, *args)
+    ref = tile_probe.tile_probe_reference(*args)
+    if mode in ("full", "flat"):
+        assert torch.equal(got, tile_spgemm(*args[:5]))
+    elif mode in ("nodma", "loop", "empty", "empty0", "nocopy", "dots",
+                  "stat"):
+        assert torch.equal(got, ref)
+    else:
+        assert _relerr(got, ref) <= 1e-5
+        assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [4, 512, 4096, 1 << 20, 2869 * 1024])
+def test_stream_kernels_at_block_sizes(cuda_device, block):
+    """The probe's launches at any block size give the main path's values:
+    mul bitwise, red the same sums in the same order."""
+    rng = np.random.default_rng(block)
+    a = torch.from_numpy(rng.standard_normal((96, 1024), np.float32))
+    b = torch.from_numpy(rng.standard_normal((96, 1024), np.float32))
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    got = _launched_once("esc_stream_mul_blocked",
+                         probe_pallas_stream.esc_stream_mul_blocked, a, b,
+                         block)
+    assert torch.equal(got, a * b)
+    for L in (2, 32):
+        x, y = a[:L].contiguous(), b[:L].contiguous()
+        got = _launched_once("esc_stream_red_blocked",
+                             probe_pallas_stream.esc_stream_red_blocked, x,
+                             y, block)
+        assert torch.equal(got, esc_stream_red(x, y))
+    with pytest.raises(ValueError, match="block"):
+        probe_pallas_stream.esc_stream_mul_blocked(a, b, 6)

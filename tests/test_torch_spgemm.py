@@ -19,6 +19,7 @@ from spada_tpu.io.workloads import (block_sparse_csr, localized_powerlaw_csr,
                                     relu_activation_csr)
 from spada_tpu.plan.planner import choose_tile_size, plan_spgemm
 from spada_tpu.plan.planner import execute_plan as jax_execute_plan
+from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch import cli
 from spada_tpu_torch.config import datasheet_peaks, h100_config
 from spada_tpu_torch.ops.spgemm import (dispatch_dataflow, element_plan_bytes,
@@ -54,13 +55,13 @@ def _close(got, ref):
 def test_spada_slice_matches_reference_and_scipy(cari_workload, name):
     a, b, route = _pairs(cari_workload)[name]
     cfg = h100_config()
-    choice, det = dispatch_dataflow(a, b, cfg)
+    choice, det = dispatch_dataflow(P(a), P(b), cfg)
     ref_choice, ref_det = jax_spgemm_mod.dispatch_dataflow(a, b, cfg)
     assert choice == ref_choice == route
     assert det["tile_T"] == ref_det["tile_T"]
     assert det["element"] == ref_det["element"]
 
-    res = spgemm(a, b, cfg, dataflow="spada", device="cpu")
+    res = spgemm(P(a), P(b), cfg, dataflow="spada", device="cpu")
     ref = jax_spgemm_mod.spgemm(a, b, cfg, dataflow="spada")
     assert res.engine_used == ref.engine_used == route
     got = res.todense()
@@ -77,7 +78,7 @@ def test_plan_path_matches_reference(cari_workload, name):
     cfg.tile_k = cfg.tile_n = cfg.default_tm = t
     cfg.tm_choices = tuple(x for x in cfg.tm_choices if x <= t) + (t,)
     plan = plan_spgemm(a, b, cfg)
-    got = execute_plan(a, b, plan, cfg, device="cpu")
+    got = execute_plan(P(a), P(b), P(plan), cfg, device="cpu")
     ref = jax_execute_plan(a, b, plan, cfg)
     assert got.n_work_items == ref.n_work_items
     assert got.mxu_flops == ref.mxu_flops
@@ -85,7 +86,8 @@ def test_plan_path_matches_reference(cari_workload, name):
     _close(got.todense(), ref.todense())
     _close(got.todense(), _oracle(a, b))
     # the result round-trips through the spgemm entry point too
-    via = spgemm(a, b, cfg, dataflow="spada", plan=plan, device="cpu")
+    via = spgemm(P(a), P(b), cfg, dataflow="spada", plan=P(plan),
+                 device="cpu")
     np.testing.assert_array_equal(via.todense(), got.todense())
 
 
@@ -95,7 +97,7 @@ def test_other_dataflows_match_reference(cari_workload, dataflow):
     name = "locpl" if dataflow == "element" else "cari"
     a, b, _ = _pairs(cari_workload)[name]
     cfg = h100_config()
-    res = spgemm(a, b, cfg, dataflow=dataflow, device="cpu")
+    res = spgemm(P(a), P(b), cfg, dataflow=dataflow, device="cpu")
     ref = jax_spgemm_mod.spgemm(a, b, cfg, dataflow=dataflow)
     assert (res.tm, res.n_work_items) == (ref.tm, ref.n_work_items)
     _close(res.todense(), ref.todense())
@@ -104,7 +106,7 @@ def test_other_dataflows_match_reference(cari_workload, dataflow):
 def test_bf16_tiles_close_to_scipy(cari_workload):
     a, b = cari_workload.a, cari_workload.b
     cfg = h100_config(engine_dtype="bfloat16", precision="default")
-    res = spgemm(a, b, cfg, dataflow="rowwise", device="cpu")
+    res = spgemm(P(a), P(b), cfg, dataflow="rowwise", device="cpu")
     ref = jax_spgemm_mod.spgemm(a, b, cfg, dataflow="rowwise")
     assert res.tile_itemsize == 2
     _close(res.todense(), ref.todense())
@@ -115,9 +117,10 @@ def test_bf16_tiles_close_to_scipy(cari_workload):
 def test_cost_models_match_reference(cari_workload):
     a, b, _ = _pairs(cari_workload)["locpl"]
     cfg = h100_config()
-    assert element_plan_bytes(a, b) == jax_spgemm_mod.element_plan_bytes(a, b)
+    assert (element_plan_bytes(P(a), P(b))
+            == jax_spgemm_mod.element_plan_bytes(a, b))
     for tile_t in (None, 1e-5, 1e-3):
-        assert (estimate_element_time(a, b, cfg, tile_t)
+        assert (estimate_element_time(P(a), P(b), cfg, tile_t)
                 == jax_spgemm_mod.estimate_element_time(a, b, cfg, tile_t))
 
 
@@ -126,7 +129,8 @@ def test_run_spada_routes_and_matches_scipy(cari_workload):
     for name in ("locpl", "nn"):
         a, b, route = pairs[name]
         lines = []
-        run = cli.run_spada(a, b, h100_config(), "cpu", log=lines.append)
+        run = cli.run_spada(P(a), P(b), h100_config(), "cpu",
+                            log=lines.append)
         assert run.choice == route
         _close(run.result.todense(), _oracle(a, b))
         if route == "tile":
@@ -154,7 +158,7 @@ def test_cuda_device_raises_without_cuda(cari_workload):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        spgemm(cari_workload.a, cari_workload.b, h100_config(),
+        spgemm(P(cari_workload.a), P(cari_workload.b), h100_config(),
                device="cuda")
 
 

@@ -8,6 +8,7 @@ from spada_tpu.io.workloads import (block_sparse_csr, localized_powerlaw_csr,
                                     random_csr)
 from spada_tpu.ops.worklist import build_worklist as jax_build_worklist
 from spada_tpu.sparse.bsr import BsrMatrix
+from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch.ops.worklist import build_worklist
 
 _FIELDS = ("a_tid", "b_tid", "o_tid", "first", "c_tile_row", "c_tile_col")
@@ -36,7 +37,7 @@ def test_worklist_matches_reference(cari_workload, name, order, tm, tk, tn):
     a_bsr = BsrMatrix.from_csr(a, tm, tk, dtype=np.float32)
     b_bsr = BsrMatrix.from_csr(b, tk, tn, dtype=np.float32)
     ref = jax_build_worklist(a_bsr, b_bsr, order=order)
-    got = build_worklist(a_bsr, b_bsr, order=order)
+    got = build_worklist(P(a_bsr), P(b_bsr), order=order)
     assert got.n_items == ref.n_items > 0
     assert got.n_c_tiles == ref.n_c_tiles
     assert got.order == ref.order
@@ -50,16 +51,16 @@ def test_worklist_empty_and_mismatch():
     z = random_csr(64, 64, 0.0, seed=1, dtype=np.float32)
     a_bsr = BsrMatrix.from_csr(z, 8, 64)
     b_bsr = BsrMatrix.from_csr(z, 64, 64)
-    got = build_worklist(a_bsr, b_bsr)
+    got = build_worklist(P(a_bsr), P(b_bsr))
     ref = jax_build_worklist(a_bsr, b_bsr)
     # an empty matrix still carries one explicit zero tile (BsrValueMap)
     assert got.n_items == ref.n_items
     assert got.n_c_tiles == ref.n_c_tiles
     with pytest.raises(ValueError, match="tile-K mismatch"):
-        build_worklist(a_bsr, BsrMatrix.from_csr(z, 32, 64))
+        build_worklist(P(a_bsr), P(BsrMatrix.from_csr(z, 32, 64)))
     with pytest.raises(ValueError, match="unknown order"):
-        build_worklist(BsrMatrix.from_csr(
-            random_csr(64, 64, 0.2, seed=2, dtype=np.float32), 8, 64),
-            BsrMatrix.from_csr(
-            random_csr(64, 64, 0.2, seed=3, dtype=np.float32), 64, 64),
+        build_worklist(P(BsrMatrix.from_csr(
+            random_csr(64, 64, 0.2, seed=2, dtype=np.float32), 8, 64)),
+            P(BsrMatrix.from_csr(
+                random_csr(64, 64, 0.2, seed=3, dtype=np.float32), 64, 64)),
             order="diag")
