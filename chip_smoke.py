@@ -9,7 +9,10 @@ It builds the hand-written kernels from ``spada_tpu_torch/csrc`` and drives
 the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
 ``run_spada``:
 
-1. environment: versions, the card's name and power limit, nvcc, build time;
+1. environment: versions, the card's name and power limit, nvcc, build time,
+   and the HMMA (tensor-core) instructions of the tensor-core kernels of
+   ``tile_spgemm`` and ``tile_stream`` (``cuobjdump -sass``): a kernel with
+   none, or a toolkit without cuobjdump, fails the run;
 2. each kernel against its plain PyTorch version on the card
    (``tile_spgemm``, both block shapes, and ``tile_stream`` with ogroup 1
    and 8, ``tile_panel`` with f32 and bf16 output, ``tile_grid``:
@@ -30,13 +33,15 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    again through ``spgemm(..., plan=)`` under each ``engine`` streaming,
    panel and pallas_grid, gated against scipy/numpy (< 1e-4) and against
    phase 4's ``tile_spgemm`` result (<= 1e-5), each kernel timed beside its
-   plain version on the launches the run made;
+   plain version on the launches the run made (``tile_stream`` also at
+   ogroup 1 against 8, in one timing);
 7. the probes (``spada_tpu_torch.tools``) at their tools' sizes: every mode
    of ``tile_probe`` on the banded 65536^2 / T=256 / bf16 workload of
-   ``probe_kernel`` and ``probe_manual`` (full and flat bitwise equal to
-   ``tile_spgemm``, modes that write zeros or nothing bitwise equal to their
-   plain versions, the rest within 1e-5 of max|C|), ``probe_panel3d``
-   (``tile_spgemm`` and ``tile_panel`` on runs of two slot tiles, 1e-5) and
+   ``probe_kernel`` and ``probe_manual`` (modes that write zeros or nothing
+   bitwise equal to their plain versions, the rest, full and flat among
+   them, within 1e-5 of max|C|), ``probe_panel3d`` (``tile_spgemm`` and
+   ``tile_panel`` on runs of two slot tiles, 1e-5; its library call one
+   ``torch.bmm`` of the gathered run pairs) and
    ``probe_pallas_stream`` (the stream kernels as the main path launches
    them and, through their probe-only entry points, at the TPU's block
    sizes: mul bitwise, red 1e-6), each mode timed beside its bound.
@@ -44,9 +49,11 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
 Beside each kernel's time the script computes its bound, the larger of two
 times on the datasheet placeholders of ``config.h100_config``: the useful
 operations (the scalar products of the CSR pair, not the zeros inside a
-tile) over the peak for the operand type (67 TFLOP/s f32, 989 TFLOP/s
-bf16), and the bytes it must move (inputs read once, output written once)
-over 3.35 TB/s.  It also times one PyTorch call that computes the same
+tile) over the peak for the operand type (tile products: 165 TFLOP/s for
+f32, a third of the 495 TFLOP/s TF32 rate, as 3xTF32 reaches f32-level
+error on the tensor cores, and 989 TFLOP/s for bf16; the stream kernels'
+f32 products 67 TFLOP/s outside the tensor cores), and the bytes it must
+move (inputs read once, output written once) over 3.35 TB/s.  It also times one PyTorch call that computes the same
 function: ``torch.matmul`` of the dense operands for the tile kernels
 (cuBLAS; f32 with TF32 off for nn, bf16 in and f32 out for the probe's
 banded pair), ``torch.mul`` and ``torch.linalg.vecdot`` for the stream
@@ -63,6 +70,7 @@ CUDA device, and a run that loaded JAX or any module of ``spada_tpu``.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -169,6 +177,27 @@ def host_enqueue_s(fn, reps: int = 5) -> float:
     dt = (time.perf_counter() - t0) / reps
     torch.cuda.synchronize()
     return dt
+
+
+#: the kernels that must run on tensor cores: tile_spgemm's and
+#: tile_stream's wide path (csrc/tile_mma.cuh)
+MMA_KERNELS = ("tile_spgemm_mma", "tile_stream_mma")
+
+
+def check_tensor_cores() -> None:
+    """Count the HMMA instructions of each tensor-core kernel in the built
+    library; fail if one has none (it compiled back to FFMA) or if the
+    toolkit has no cuobjdump to tell."""
+    from spada_tpu_torch import _build
+
+    counts = _build.sass_counts("HMMA")
+    for kernel in MMA_KERNELS:
+        found = {n: c for n, c in counts.items() if kernel in n}
+        require(bool(found), f"no {kernel} kernel in the built library")
+        for name, c in sorted(found.items()):
+            log(f"  {c:5d} HMMA in {name}")
+            require(c > 0, f"{name} has no HMMA instruction: it does not "
+                    f"run on tensor cores")
 
 
 # --------------------------------------------------------------------------
@@ -425,7 +454,8 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
                                    for p in run.plan.panels if p.tm == tm])
         flops, nbytes = tile_work(a_np, b_np, wl.n_items, wl.n_c_tiles,
                                   a_sp[seg_rows], b_sp)
-        b_s, by = roofline_bound(flops, nbytes, kind, a_np.dtype)
+        b_s, by = roofline_bound(flops, nbytes, kind, a_np.dtype,
+                                 matmul=True)
         bounds.append((b_s, by))
         log(f"  segment tm={tm} tk=tn={tk}: W={wl.n_items} nC={wl.n_c_tiles}"
             f", {flops / 1e9:.1f} GFLOP of products in "
@@ -555,9 +585,10 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
 # phase 6: the engine override at full width
 # --------------------------------------------------------------------------
 
-def engine_pair(engine: str, a_t, b_t, wl, dev):
+def engine_pair(engine: str, a_t, b_t, wl, dev, ogroup=None):
     """(kernel, plain) calls for one segment, with the arguments the
-    engine's run_worklist_* passes its wrapper (ogroup 8, nbuf 8)."""
+    engine's run_worklist_* passes its wrapper (its default ogroup, nbuf
+    8; the streaming engine at another ``ogroup`` on request)."""
     import torch
 
     from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
@@ -568,8 +599,11 @@ def engine_pair(engine: str, a_t, b_t, wl, dev):
 
     ai, bi, oi, n_c = ids(wl.a_tid), ids(wl.b_tid), ids(wl.o_tid), wl.n_c_tiles
     if engine == "streaming":
-        args = (a_t, b_t, ai, bi, oi, ids(item_ptr_of(wl.o_tid, n_c, 8)),
-                n_c, 8, 8)
+        if ogroup is None:
+            ogroup = inspect.signature(E.run_worklist_streaming).parameters[
+                "ogroup"].default
+        args = (a_t, b_t, ai, bi, oi,
+                ids(item_ptr_of(wl.o_tid, n_c, ogroup)), n_c, ogroup, 8)
         kernel, plain = E.tile_stream, E.tile_stream_reference
     elif engine == "panel":
         args = (a_t.transpose(1, 2).contiguous(), b_t, ai, bi,
@@ -614,13 +648,15 @@ def run_engines(dev, run, c_tile, ref_rows, totals: dict, errs: dict,
         del got
 
         t_kernel = t_plain = 0.0
+        t_og = [0.0, 0.0]  # tile_stream at ogroup 1 and 8
         tk, tn = res.host_state["tk"], res.host_state["tn"]
         for wl, a_np, b_np, tm in res.host_state["segments"]:
             a_t = torch.from_numpy(a_np).to(dev)
             b_t = torch.from_numpy(b_np).to(dev)
             kernel_fn, plain_fn = engine_pair(engine, a_t, b_t, wl, dev)
             g, r = kernel_fn(), plain_fn()
-            e = relerr(g.cpu().numpy(), r.cpu().numpy())
+            r_np = r.cpu().numpy()
+            e = relerr(g.cpu().numpy(), r_np)
             require(e <= 1e-5, f"{kernel} nn segment tm={tm}: kernel vs "
                     f"plain {e:.3e}")
             errs[kernel] = max(errs[kernel], float((g - r).abs().max()))
@@ -634,8 +670,27 @@ def run_engines(dev, run, c_tile, ref_rows, totals: dict, errs: dict,
                 f"kernel vs plain max|d|/max|ref| {e:.2e}")
             t_kernel += tk_s
             t_plain += tp_s
-            del a_t, b_t, kernel_fn, plain_fn
+            if engine == "streaming":
+                # ogroup 1 (item_ptr = tile_ptr) against the reference's 8,
+                # interleaved in one timing
+                og = [engine_pair(engine, a_t, b_t, wl, dev, ogroup=k)[0]
+                      for k in (1, 8)]
+                for k, fn in zip((1, 8), og):
+                    e_k = relerr(fn().cpu().numpy(), r_np)
+                    require(e_k <= 1e-5, f"tile_stream ogroup {k} nn "
+                            f"segment tm={tm}: kernel vs plain {e_k:.3e}")
+                t1, t8 = time_pair(*og)
+                t_og[0] += t1
+                t_og[1] += t8
+                log(f"  tile_stream segment tm={tm}: ogroup 1 {t1 * 1e3:.3f}"
+                    f" ms ({flops / t1 / 1e12:.2f} TFLOP/s), ogroup 8 "
+                    f"{t8 * 1e3:.3f} ms ({flops / t8 / 1e12:.2f} TFLOP/s)")
+                del og
+            del a_t, b_t, r_np, kernel_fn, plain_fn
         times[kernel] = (t_kernel, t_plain)
+        if engine == "streaming":
+            log(f"  tile_stream on nn, one timing: ogroup 1 "
+                f"{t_og[0] * 1e3:.3f} ms, ogroup 8 {t_og[1] * 1e3:.3f} ms")
         torch.cuda.empty_cache()
 
 
@@ -682,14 +737,20 @@ def run_probes(dev, totals: dict, errs: dict, times: dict,
     modes = {**res_k, **res_m}
     for mode, rec in modes.items():
         if rec["exact"] is not None:
-            require(rec["exact"], f"tile_probe {mode}: not bitwise what it "
-                    f"must be")
+            require(rec["exact"], f"tile_probe {mode}: not bitwise its "
+                    f"plain version")
         require(rec["relerr"] <= PROBE_TILE_TOL, f"tile_probe {mode}: "
                 f"relerr {rec['relerr']:.3e} > {PROBE_TILE_TOL}")
         errs["tile_probe"] = max(errs["tile_probe"], rec["max_abs_err"])
     for variant, rec in res_p.items():
         require(rec["relerr"] <= PROBE_TILE_TOL, f"panel3d {variant}: "
                 f"relerr {rec['relerr']:.3e} > {PROBE_TILE_TOL}")
+    # the library yardstick of panel3d's peritem (tile_spgemm)
+    call, label = probe_panel3d.library_case(384, 200, dev)
+    lib_p = library_time(call)
+    log(f"  panel3d library call, {label}: {lib_p * 1e3:.3f} ms (peritem "
+        f"{res_p['peritem']['ms']:.3f} ms)")
+    del call
     for label, rec in res_s.items():
         tol = (PROBE_STREAM_TOL if rec["kernel"].startswith("esc_stream_red")
                else 0.0)
@@ -761,6 +822,7 @@ def main() -> int:
     for line in (_build.build_log or "").splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("    " + line.strip())
+    check_tensor_cores()
 
     errs = dict.fromkeys(("tile_spgemm", "tile_stream", "tile_panel",
                           "tile_grid", "esc_stream_mul", "esc_stream_red",
@@ -835,6 +897,13 @@ def main() -> int:
                         "plain_ms": times[name][1] * 1e3,
                         "bound_ms": b_s * 1e3, "bound_by": by,
                         "library_ms": lib_s * 1e3})
+    (b_nn, by_nn), (lib_nn, lib_name) = (extra["nn"]["bound"],
+                                         extra["nn"]["library"])
+    log("== the tensor-core kernels on nn (csrc/tile_mma.cuh)")
+    for name in ("tile_spgemm", "tile_stream"):
+        log(f"  {name}: {times[name][0] * 1e3:.3f} ms, bound "
+            f"{b_nn * 1e3:.3f} ms ({by_nn}), plain {times[name][1] * 1e3:.3f}"
+            f" ms, library {lib_name} {lib_nn * 1e3:.3f} ms")
     log(json.dumps({"kernels": kernels}))
     log(smi_name_power())
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``, all
 at once, and the objects link into one shared library with a plain C
 interface, ``_build/libspada_kernels.so``, at first use; it is loaded with
-:mod:`ctypes`.  Rebuilt when a source or header is newer than the library.  A failed build raises with nvcc's output: no caller falls back
-to another engine.
+:mod:`ctypes`.  Rebuilt when a source or header is newer than the library.
+A failed build raises with nvcc's output: no caller falls back to another
+engine.  :func:`sass_counts` counts an opcode per kernel in the built code
+(``cuobjdump -sass``).
 
 Each kernel wrapper adds one to :data:`launches` under its kernel's name
 where it launches the kernel, and nowhere else, so a run can show which
@@ -148,6 +150,31 @@ def load() -> ctypes.CDLL:
             lib.spada_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def sass_counts(opcode: str) -> dict:
+    """{kernel's mangled name: number of ``opcode`` instructions} of every
+    kernel in the built library, from ``cuobjdump -sass``; raises if the
+    toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        raise RuntimeError("cuobjdump not found beside nvcc or on PATH: the "
+                           "built kernels' instructions cannot be read")
+    out = subprocess.run([tool, "-sass", LIB_PATH], capture_output=True,
+                         text=True, check=True).stdout
+    counts: dict = {}
+    name = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and any(
+                tok.split(".")[0] == opcode
+                for tok in line.split(";")[0].split()):
+            counts[name] += 1
+    return counts
 
 
 def check(status: int, kernel: str) -> None:

@@ -173,24 +173,30 @@ class SpadaConfig:
         return self.cache_size // self.word_byte
 
 
-# (substring of the device name, HBM bytes/s, f32 FLOP/s, dense bf16 FLOP/s);
-# first match wins, the last row is the H100 SXM default.
+# (substring of the device name, HBM bytes/s, f32 FLOP/s outside the
+# tensor cores, dense TF32 FLOP/s, dense bf16 FLOP/s); first match wins, the
+# last row is the H100 SXM default.
 _DATASHEET = (
-    ("H200", 4.8e12, 67e12, 989e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100", 3.35e12, 67e12, 989e12),
+    ("H200", 4.8e12, 67e12, 495e12, 989e12),
+    ("H100 NVL", 3.9e12, 60e12, 418e12, 835e12),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12, 756e12),
+    ("H100", 3.35e12, 67e12, 495e12, 989e12),
 )
+
+
+def _datasheet_row(device_name: Optional[str]) -> tuple:
+    name = device_name or ""
+    for row in _DATASHEET:
+        if row[0] in name:
+            return row
+    return _DATASHEET[-1]
 
 
 def datasheet_peaks(device_name: Optional[str] = None) -> dict:
     """Published peaks for the card named ``device_name`` (as
     ``nvidia-smi``/``torch.cuda.get_device_name`` give it); H100 SXM when no
     name is given or the name is not in the table."""
-    name = device_name or ""
-    for key, bw, f32, bf16 in _DATASHEET:
-        if key in name:
-            break
+    _, bw, f32, _, bf16 = _datasheet_row(device_name)
     return {"hbm_bytes_per_s": bw, "peak_flops_f32": f32,
             "peak_flops_bf16": bf16}
 
@@ -204,17 +210,20 @@ def h100_config(device_name: Optional[str] = None,
 
 def roofline_bound(flops: float, nbytes: float,
                    device_name: Optional[str] = None,
-                   dtype="float32") -> tuple:
+                   dtype="float32", matmul: bool = False) -> tuple:
     """(seconds, 'operations' | 'bytes'): the least time the card named
     ``device_name`` could take for ``flops`` operations on ``dtype``
     operands that move ``nbytes``, on its datasheet peaks (placeholders
     until measured).  bf16 and fp16 operands count at the dense tensor-core
-    rate (their products are exact in an f32 accumulator); other operands
-    at the FP32 rate outside the tensor cores (TF32 would round them)."""
-    peaks = datasheet_peaks(device_name)
+    rate (their products are exact in an f32 accumulator).  f32 operands of
+    a matrix product (``matmul``) count at a third of the dense TF32 rate:
+    3xTF32 on the tensor cores gives f32-level error at that rate
+    (``csrc/tile_mma.cuh``).  Other f32 work counts at the FP32 rate outside
+    the tensor cores."""
+    _, bw, f32, tf32, bf16 = _datasheet_row(device_name)
     half = str(dtype).rsplit(".", 1)[-1] in ("bfloat16", "float16")
-    t_op = flops / peaks["peak_flops_bf16" if half else "peak_flops_f32"]
-    t_by = nbytes / peaks["hbm_bytes_per_s"]
+    t_op = flops / (bf16 if half else tf32 / 3 if matmul else f32)
+    t_by = nbytes / bw
     return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
 
 

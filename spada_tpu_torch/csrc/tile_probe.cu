@@ -1,20 +1,22 @@
-// tile_probe: tile_spgemm's wide path with components stripped, to attribute
-// its time (written for Hopper, sm_90a).
+// tile_probe: the FP32 SIMT wide block of the tile kernels with components
+// stripped, to attribute its time (written for Hopper, sm_90a).
 //
 // Replaces: tools/probe_kernel.py : make_variant / run_variant and
 // tools/probe_manual.py : make_kernel / make_flat_kernel / run_variant, the
 // Pallas ablation variants of the cached megakernel
 // (spada_tpu/ops/engine.py : _make_cached_kernel).
 //
-// What it computes.  The kernel is tile_spgemm's wide block (tile_wide.cuh:
+// What it computes.  The kernel is the SIMT wide block (tile_wide.cuh:
 // one 128 x 128 piece of a C tile per block of 256 threads, 8 x 8 per
 // thread, BK = 8 k-slices staged through two shared-memory stages,
 // accumulator in registers) with a compile-time mode that removes one part
-// at a time; tile_spgemm.cu runs the same code in mode full.
+// at a time.  tile_spgemm.cu runs the same code in mode full only for wide
+// tiles whose tk the tensor-core block (tile_mma.cuh) does not take; its
+// usual wide path is that tensor-core block, which has no modes yet.
 // Tiles: tm, tn multiples of 128, tk of 8; f32 or bf16 (widened on load).
 //
 //   mode      GPU kernel                                    C it writes
-//   full      unchanged                                     tile_spgemm's C, bitwise
+//   full      unchanged                                     the C of the run
 //   nodma     no global loads of A/B: FMAs over a zeroed     0
 //             stage chosen per step from the worklist ids
 //   statslot  A[c % a_slots], B[c % b_slots] for every item  run length x A.B
@@ -30,7 +32,7 @@
 //             ids, no loads, no FMAs
 //   empty     the (item, k-slice) loop with an empty body    0
 //   empty0    no loop, no worklist: the grid and the store   0
-//   flat      full on a persistent grid: one block per SM,   tile_spgemm's C, bitwise
+//   flat      full on a persistent grid: one block per SM,   the C of the run
 //             looping over the pieces
 //
 // Each TPU mode maps to the GPU mode that means the same on an SM

@@ -7,45 +7,65 @@
 // of items tile_ptr[c] .. tile_ptr[c+1]; item w contributes
 // A[a_tid[w]] (tm x tk) @ B[b_tid[w]] (tk x tn).  C[c] is the f32 sum of its
 // run, and an empty run gives an exact zero tile (the TPU kernel's lo == hi
-// branch).  A and B tiles are f32 or bf16; bf16 is widened to f32 on load, so
-// every product and every sum is an f32 FMA (no TF32, no bf16 rounding of
-// products).
+// branch).  A and B tiles are f32 or bf16.
 //
 // What bounds it on an H100.  Per item the kernel does 2*tm*tk*tn FLOPs and
 // moves (tm*tk + tk*tn) tile elements.  For the tile edges the planner picks
 // (tk = tn = T in 128..512) and tm = T this is T/4 = 32-128 FLOP per byte of
-// f32, above the card's FP32 ridge (67 TFLOP/s over 3.35 TB/s, about 20), so
-// tall panels are bound by FP32 FMA throughput; short panels (tm = 8..32)
-// drop to a few FLOP per byte and are bound by reading B tiles.
+// f32, so tall panels are bound by the arithmetic (and by L2's operand
+// traffic once that runs on tensor cores, tile_mma.cuh); short panels (tm =
+// 8..32) drop to a few FLOP per byte and are bound by reading B tiles.
 //
 // Design.  The TPU kernel kept whole tiles in VMEM slot caches planned on
 // the host (Belady) and added each item's product into a VMEM accumulator.
 // An SM has 227 KB of shared memory, less than one 512 x 512 f32 C tile, so
-// here a C tile is split across blocks: grid = (C tile, row block, column
-// block).  A block walks its C tile's whole run, streaming BK-deep slices of
-// the A rows and B columns it needs through shared memory, and keeps its
-// part of the accumulator in registers for the whole run, so C is written
+// here a C tile is split across blocks, one per piece (row block, column
+// block); tile_mma.cuh sets the order they launch in.  A block walks its C
+// tile's whole run, streaming k-slices of the A rows and B columns it needs
+// through shared memory, and keeps its part of the accumulator in registers
+// for the whole run, so C is written
 // exactly once and never read.  Tile reuse across C tiles is left to the
-// 50 MB L2 instead of a host slot plan.  Two block shapes:
-//   wide   (tm and tn multiples of 128, tk of 8): 128 x 128 per block, 8 x 8
-//          per thread (two 4 x 4 quadrants 64 apart, so the shared-memory
-//          reads are conflict-free float4s), BK = 8, two shared-memory
-//          stages: the next slice is fetched into registers while the
-//          current one is multiplied.  This is the planner's usual shape;
-//          its code is tile_wide.cuh, which tile_probe.cu shares.
+// 50 MB L2 instead of a host slot plan.  Three block shapes:
+//   mma    (tm a multiple of 128, tn of 128, tk of 32 f32 / 64 bf16): the
+//          tensor-core block of tile_mma.cuh over the item range
+//          tile_ptr[c] .. tile_ptr[c+1], a 4-stage cp.async ring; f32 tiles
+//          run 3xTF32 (f32-level error), bf16 tiles bf16 mma with f32 sums.
+//          This is the planner's usual shape.
+//   wide   (tm and tn multiples of 128, tk of 8 but not of the mma BK): the
+//          FP32 SIMT block of tile_wide.cuh (128 x 128, 8 x 8 per thread),
+//          which tile_probe.cu also runs; every product and sum an f32 FMA.
 //   narrow (tm in {8, 16, 32} or a multiple of 64, tn a multiple of 64, tk
 //          of 16): BM = min(tm, 64) rows x 64 columns per block, RM x 4 per
-//          thread, BK = 16, one stage.
-// No tensor cores and no TMA yet: this is the simple, right first version.
+//          thread, BK = 16, one stage, f32 FMAs.
 //
 // Launch: tile_spgemm_f32 / tile_spgemm_bf16 (plain C interface for ctypes)
 // enqueue one kernel on the given stream and return cudaGetLastError().
 
+#include "tile_mma.cuh"
 #include "tile_wide.cuh"
 
 namespace {
 
 using spada::to_f32;
+
+// ---- mma: 128 x 128 of one C tile per block, tensor cores -----------------
+constexpr int kStages = spada::mma::kDeepest;
+
+template <typename T>
+__global__ void __launch_bounds__(spada::mma::kThreads, 1)
+    tile_spgemm_mma(const T* __restrict__ a_tiles,
+                    const T* __restrict__ b_tiles,
+                    const int32_t* __restrict__ a_tid,
+                    const int32_t* __restrict__ b_tid,
+                    const int32_t* __restrict__ tile_ptr,
+                    float* __restrict__ c_tiles, int tm, int tk, int tn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const spada::mma::Place p = spada::mma::place(tm, tn);
+  const int c = p.unit;
+  spada::mma::piece<T, kStages>(
+      a_tiles, b_tiles, a_tid, b_tid, [c](int) { return c; }, tile_ptr[c],
+      tile_ptr[c + 1], c, c + 1, c_tiles, tm, tk, tn, p.row0, p.col0, smem);
+}
 
 // ---- wide: 128 x 128 of one C tile per block, 256 threads -----------------
 constexpr int kWide = spada::wide::kP;
@@ -152,6 +172,14 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
   const int32_t* bi = static_cast<const int32_t*>(b_tid);
   const int32_t* tp = static_cast<const int32_t*>(tile_ptr);
   float* c = static_cast<float*>(c_tiles);
+  if (spada::mma::takes<T>(tm, tk, tn)) {
+    const size_t smem = kStages * spada::mma::Stage<T>::kBytes;
+    const int err = spada::allow_smem(tile_spgemm_mma<T>, smem);
+    if (err) return err;
+    tile_spgemm_mma<T><<<spada::mma::grid(n_c, tm, tn), spada::mma::kThreads,
+                         smem, s>>>(a, b, ai, bi, tp, c, tm, tk, tn);
+    return (int)cudaGetLastError();
+  }
   if (tm % kWide == 0 && tn % kWide == 0 && tk % kWideBK == 0) {
     const dim3 grid(n_c, tm / kWide, tn / kWide);
     tile_spgemm_wide<T><<<grid, 256, 0, s>>>(a, b, ai, bi, tp, c, tm, tk, tn);

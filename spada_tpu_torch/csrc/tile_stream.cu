@@ -10,32 +10,38 @@
 // items item_ptr[g] .. item_ptr[g+1] and the C tiles g*ogroup .. +ogroup-1;
 // C[o_tid[w]] is the f32 sum of A[a_tid[w]] (tm x tk) @ B[b_tid[w]]
 // (tk x tn) over its items.  A C tile with no items is an exact zero tile.
-// bf16 tiles are widened to f32 as they are read; every product and sum is
-// an f32 FMA (no TF32).
+// f32 tiles on the tensor-core path run 3xTF32 (f32-level error), bf16
+// tiles bf16 mma with f32 sums; the SIMT paths widen bf16 to f32 FMAs.
 //
 // What bounds it on an H100.  As tile_spgemm: 2*tm*tk*tn FLOPs per item
 // against (tm*tk + tk*tn) tile elements read, so tall panels are bound by
-// the FP32 FMA rate and short ones (tm = 8..32) by reading B tiles.  What
-// the TPU kernel fought was the latency of each item's tile copy: it kept
-// an nbuf-deep ring of async DMAs running across C-tile boundaries, so the
+// the arithmetic and short ones (tm = 8..32) by reading B tiles.  What the
+// TPU kernel fought was the latency of each item's tile copy: it kept an
+// nbuf-deep ring of async DMAs running across C-tile boundaries, so the
 // copies never drained at the end of a run.
 //
-// Design.  The same idea on an SM: grid = (group, row block, column block);
-// a block walks every item of its group as one flat sequence of BK-deep
-// k-slices of its A rows and B columns, and cp.async keeps nbuf - 1 slices
-// in flight in a ring of nbuf shared-memory stages (tile_pipe.cuh).  The
-// ring runs on across C-tile boundaries inside the group.  The accumulator
-// lives in registers; when the next item belongs to another C tile, the
-// block writes its piece of the finished tile (and zeros for the group's
-// empty tiles before it) and starts again from zero.  So each C tile is
-// written once, by exactly one block per piece, and never read; the padded
-// n_groups*ogroup output of the TPU kernel does not exist.  Block shapes are
-// tile_spgemm's (128 x 128 or BM x 64); no tensor cores yet.
+// Design.  The same idea on an SM: one block per (group, row block, column
+// block); a block walks every item of its group as one flat sequence of
+// k-slices of its A rows and B columns, and cp.async keeps the next slices in flight in
+// a ring of shared-memory stages that runs on across C-tile boundaries.  The
+// accumulator lives in registers; when the next item belongs to another C
+// tile, the block writes its piece of the finished tile (and zeros for the
+// group's empty tiles before it) and starts again from zero.  So each C
+// tile is written once, by exactly one block per piece, and never read; the
+// padded n_groups*ogroup output of the TPU kernel does not exist.  With
+// ogroup = 1, item_ptr is tile_spgemm's tile_ptr, and the wide shapes run
+// the same block as tile_spgemm:
+//   mma    (tm, tn multiples of 128, tk of 32 f32 / 64 bf16): tile_mma.cuh
+//          over the range item_ptr[g] .. item_ptr[g+1], C tiles g*ogroup ..
+//          min((g+1)*ogroup, n_c), its ring min(nbuf, 4) stages deep (a
+//          compile-time depth: 2, 3 or 4).
+//   the rest (tile_pipe.cuh, f32 FMAs): 128 x 128 for tm, tn multiples of
+//          128 and tk of 8, BM x 64 for short panels, an nbuf-stage ring.
 //
 // Launch: tile_stream_f32 / tile_stream_bf16 (plain C interface for ctypes)
 // enqueue one kernel on the given stream and return cudaGetLastError().
 
-#include "tile_pipe.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -90,6 +96,25 @@ __global__ void __launch_bounds__(G::NT)
     store_piece<G, true>(tile(next_c), tn, row0, col0, tx, ty, acc);
 }
 
+template <typename T, int STAGES>
+__global__ void __launch_bounds__(mma::kThreads, 1)
+    tile_stream_mma(const T* __restrict__ a_tiles,
+                    const T* __restrict__ b_tiles,
+                    const int32_t* __restrict__ a_tid,
+                    const int32_t* __restrict__ b_tid,
+                    const int32_t* __restrict__ o_tid,
+                    const int32_t* __restrict__ item_ptr,
+                    float* __restrict__ c_tiles, int n_c, int ogroup, int tm,
+                    int tk, int tn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mma::Place p = mma::place(tm, tn);
+  const int g = p.unit;
+  mma::piece<T, STAGES>(
+      a_tiles, b_tiles, a_tid, b_tid, [o_tid](int w) { return o_tid[w]; },
+      item_ptr[g], item_ptr[g + 1], g * ogroup, min((g + 1) * ogroup, n_c),
+      c_tiles, tm, tk, tn, p.row0, p.col0, smem);
+}
+
 template <typename T>
 int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
            const void* b_tid, const void* o_tid, const void* item_ptr,
@@ -98,6 +123,23 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
   if (n_c <= 0 || ogroup <= 0 || nbuf < 2) return (int)cudaErrorInvalidValue;
   const int n_groups = (n_c + ogroup - 1) / ogroup;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mma::takes<T>(tm, tk, tn)) {
+    return mma::with_depth(nbuf, [&](auto depth) {
+      constexpr int STAGES = decltype(depth)::value;
+      const size_t smem = STAGES * mma::Stage<T>::kBytes;
+      const int err = allow_smem(tile_stream_mma<T, STAGES>, smem);
+      if (err) return err;
+      tile_stream_mma<T, STAGES>
+          <<<mma::grid(n_groups, tm, tn), mma::kThreads, smem, s>>>(
+              static_cast<const T*>(a_tiles), static_cast<const T*>(b_tiles),
+              static_cast<const int32_t*>(a_tid),
+              static_cast<const int32_t*>(b_tid),
+              static_cast<const int32_t*>(o_tid),
+              static_cast<const int32_t*>(item_ptr),
+              static_cast<float*>(c_tiles), n_c, ogroup, tm, tk, tn);
+      return (int)cudaGetLastError();
+    });
+  }
   return with_geo(tm, tk, tn, [&](auto geo) {
     using G = decltype(geo);
     const size_t smem =

@@ -5,10 +5,9 @@
 // fetched into registers while the current one is multiplied), the
 // accumulator in registers over the whole run, C written once.
 //
-// tile_spgemm.cu runs it as it is (mode kFull); tile_probe.cu runs it with
-// one component stripped per mode (the table is in tile_probe.cu).  One
-// piece of code for both is what makes a probe's full mode tile_spgemm's
-// C, bitwise.
+// tile_probe.cu runs it with one component stripped per mode (the table is
+// in tile_probe.cu); tile_spgemm.cu runs it as it is (mode kFull) for wide
+// tiles whose tk the tensor-core block (tile_mma.cuh) does not take.
 
 #pragma once
 

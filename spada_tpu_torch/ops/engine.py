@@ -25,10 +25,15 @@ for ``sm_90a``, each with its plain PyTorch version beside it:
   the four kernels need a row-major (o-sorted) worklist and raise on
   another.
 
-All compute in f32: bf16 tiles are widened, products and sums are FP32
-(TF32 is never enabled), so ``precision`` 'highest' and 'default' run the
-same arithmetic here; the tile dtype (``SpadaConfig.engine_dtype``) is what
-selects bf16.  On a CUDA device an engine runs its kernel or raises: none
+Arithmetic.  Every engine gives f32-level results at either
+``precision``, so 'highest' and 'default' run the same arithmetic here; the
+tile dtype (``SpadaConfig.engine_dtype``) is what selects bf16.  In
+``cached`` and ``streaming`` the wide tiles (tm and tn multiples of 128, tk
+of 32 f32 / 64 bf16) run on tensor cores (``csrc/tile_mma.cuh``): f32 tiles
+as 3xTF32 (each operand split into two TF32 parts, three products summed
+in f32, small terms first), bf16 tiles as bf16 ``mma`` with f32 sums.  Their
+other shapes, and ``panel`` and ``pallas_grid``, widen bf16 and run FP32
+FMAs; the plain versions run f32 ``bmm`` (TF32 off).  On a CUDA device an engine runs its kernel or raises: none
 falls back to another engine or to the CPU.  The reference's TPU reroutes
 (``precision='highest'`` to XLA, large ids to streaming) and its item
 splits are not copied.
@@ -104,12 +109,15 @@ def run_worklist(wl, a_tiles: torch.Tensor, b_tiles: torch.Tensor,
 
 def run_worklist_streaming(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                            a_ids, b_ids, o_ids, n_c_tiles: int,
-                           nbuf: int = 8, ogroup: int = 8,
+                           nbuf: int = 8, ogroup: int = 1,
                            precision: str = "default") -> torch.Tensor:
     """Streaming engine: C tiles [n_c_tiles, tm, tn] f32 of a row-major
     worklist given as host id arrays (the port of the reference's function
     of the same name).  ``ogroup`` C tiles per block, ``nbuf`` stages in the
-    kernel's shared-memory ring (:func:`tile_stream`)."""
+    kernel's shared-memory ring (:func:`tile_stream`).  ``ogroup`` defaults
+    to 1, not the reference's 8: on an H100 a group of 8 runs serially in
+    one block, and on the nn pair that took 24-37% longer than one C tile per
+    block (PERF.md); it changes no value of C."""
     _check_precision(precision)
     a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
     ptr = item_ptr_of(o, n_c_tiles, ogroup)
@@ -271,7 +279,9 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     ``a_tiles`` [nA, tm, tk] and ``b_tiles`` [nB, tk, tn] (f32 or bf16),
     ``a_tid``/``b_tid`` int32 [W], ``tile_ptr`` int32 [nC + 1] (C tile c's
     items are ``tile_ptr[c]:tile_ptr[c+1]``; an empty run gives a zero
-    tile).  CUDA tensors run ``csrc/tile_spgemm.cu``.
+    tile).  CUDA tensors run ``csrc/tile_spgemm.cu``: wide tiles on tensor
+    cores (f32 as 3xTF32, bf16 as bf16 ``mma``, f32 sums), other shapes on
+    FP32 FMAs.
     """
     _check_tile_args("tile_spgemm", a_tiles, b_tiles, 2, a_tid=a_tid,
                      b_tid=b_tid, tile_ptr=tile_ptr)
@@ -305,9 +315,12 @@ def tile_stream(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     ``a_tid``/``b_tid``/``o_tid`` int32 [W] (``o_tid`` nondecreasing),
     ``item_ptr`` int32 [ceil(n_c_tiles / ogroup) + 1]: group g's items are
     ``item_ptr[g]:item_ptr[g+1]`` (:func:`~spada_tpu_torch.convert.item_ptr_of`).
-    ``nbuf`` (2..16) is the depth of the kernel's shared-memory ring.  A C
-    tile with no items is a zero tile.  CUDA tensors run
-    ``csrc/tile_stream.cu``.
+    ``nbuf`` (2..16) asks for the depth of the kernel's shared-memory
+    ring: the tensor-core path runs the compiled depth ``min(nbuf, 4)``,
+    the FP32 paths ``nbuf``.  ``ogroup`` changes no value of C.  A C tile
+    with no items is a zero tile.  CUDA tensors run ``csrc/tile_stream.cu``:
+    wide tiles on tensor cores (f32 as 3xTF32, bf16 as bf16 ``mma``, f32
+    sums), other shapes on FP32 FMAs.
     """
     _check_tile_args("tile_stream", a_tiles, b_tiles, 2, a_tid=a_tid,
                      b_tid=b_tid, o_tid=o_tid, item_ptr=item_ptr)

@@ -38,19 +38,49 @@ L = 2     # run length
 VARIANTS = ("peritem", "panel2", "panel2s")
 
 
+def slot_data(T: int, G: int, device, seed: int = 0):
+    """Each run's first slot, and the slot caches: A k-major ([tk, tm] per
+    slot, as the TPU caches hold it) and B natural, bf16."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, S - L, size=G * OG).astype(np.int32)
+    a_t = torch.from_numpy(rng.standard_normal((S, T, T), np.float32)).to(
+        device, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((S, T, T), np.float32)).to(
+        device, torch.bfloat16)
+    return slots, a_t, b
+
+
+def library_case(T: int, G: int, device, seed: int = 0):
+    """(call, label): one PyTorch call computing ``peritem``'s C, a
+    ``torch.bmm`` of the G * OG runs' operands gathered beforehand, A
+    [T, L*T] @ B [L*T, T] in bf16, f32 out where ``bmm`` takes
+    ``out_dtype`` (bf16 out otherwise)."""
+    slots, a_t, b = slot_data(T, G, device, seed)
+    idx = torch.from_numpy(slots[:, None] + np.arange(L, dtype=np.int32)).to(
+        a_t.device).long()
+    n_runs = len(slots)
+    a_run = a_t[idx].permute(0, 3, 1, 2).reshape(n_runs, T, L * T)
+    b_run = b[idx].reshape(n_runs, L * T, T)
+    del a_t, b
+    try:
+        torch.bmm(a_run[:1, :8, :8], b_run[:1, :8, :8],
+                  out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return (lambda: torch.bmm(a_run, b_run),
+                f"torch.bmm of {n_runs} gathered [{T}, {L * T}]·"
+                f"[{L * T}, {T}] bf16 run pairs, bf16 out")
+    return (lambda: torch.bmm(a_run, b_run, out_dtype=torch.float32),
+            f"torch.bmm of {n_runs} gathered [{T}, {L * T}]·[{L * T}, {T}] "
+            f"bf16 run pairs, f32 out")
+
+
 def panel3d_case(T: int, G: int, device, variant: str, seed: int = 0):
     """(kernel, plain, n_items) for one variant: zero-argument calls of the
     kernel's wrapper and its plain version on the probe's slot worklist."""
     from spada_tpu_torch.convert import tile_ptr_of
     from spada_tpu_torch.ops import engine as E
 
-    rng = np.random.default_rng(seed)
-    slots = rng.integers(0, S - L, size=G * OG).astype(np.int32)
-    # the TPU caches hold A k-major ([tk, tm] per slot), B natural
-    a_t = torch.from_numpy(rng.standard_normal((S, T, T), np.float32)).to(
-        device, torch.bfloat16)
-    b = torch.from_numpy(rng.standard_normal((S, T, T), np.float32)).to(
-        device, torch.bfloat16)
+    slots, a_t, b = slot_data(T, G, device, seed)
     if variant == "panel2s":
         slots = (np.arange(G * OG) % OG % (S - L)).astype(np.int32)
     ids = (slots[:, None] + np.arange(L, dtype=np.int32)).reshape(-1)
@@ -88,7 +118,7 @@ def run(T: int = 384, G: int = 200, device="cuda",
     flops, nbytes = tile_work(slot, slot, n_items, G * OG)
     bound, by = roofline_bound(
         flops, nbytes, torch.cuda.get_device_name(dev) if cuda else None,
-        torch.bfloat16)
+        torch.bfloat16, matmul=True)
     log(f"{G * OG} runs of {L} items, T={T} bf16, S={S} slots; bound "
         f"{bound * 1e3:.3f} ms ({by}; {bound / n_items * 1e9:.0f} ns/item)")
     out = {}

@@ -4,8 +4,10 @@ plain version of every mode, and the probes' shared workload and runner.
 The port of the Pallas variants of ``tools/probe_kernel.py`` and
 ``tools/probe_manual.py``.  Those stripped the cached megakernel one
 component at a time (DMA, dynamic slots, accumulate, copy-out, loop) to
-attribute its time per work item.  :func:`tile_probe` does the same to
-``tile_spgemm``'s wide path on the card: ``mode`` names a GPU mode
+attribute its time per work item.  :func:`tile_probe` does the same on the
+card to the FP32 SIMT wide block (``csrc/tile_wide.cuh``), which
+``tile_spgemm`` runs only for wide tiles its tensor-core block does not
+take: ``mode`` names a GPU mode
 (:data:`GPU_MODES`), and :data:`TPU_MODES` maps every mode name of the two
 TPU probes to the GPU mode that means the same on an SM (see the table in
 ``csrc/tile_probe.cu``).
@@ -26,8 +28,7 @@ import torch
 from spada_tpu_torch import _build
 from spada_tpu_torch.config import roofline_bound, tile_work
 from spada_tpu_torch.ops.engine import (_check_tile_args, _launched,
-                                        _run_o_ids, run_worklist_reference,
-                                        tile_spgemm)
+                                        _run_o_ids, run_worklist_reference)
 
 #: the kernel's modes, in the order of its ``mode`` argument
 GPU_MODES = ("full", "nodma", "statslot", "oneslot", "noacc", "nocopy",
@@ -119,8 +120,8 @@ def tile_probe(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                a_tid: torch.Tensor, b_tid: torch.Tensor,
                tile_ptr: torch.Tensor, mode: str = "full",
                a_slots: int = 12, b_slots: int = 24) -> torch.Tensor:
-    """C tiles [nC, tm, tn] f32 of an o-sorted worklist, as ``tile_spgemm``
-    computes them with the parts ``mode`` strips left out.
+    """C tiles [nC, tm, tn] f32 of an o-sorted worklist, as the SIMT wide
+    block computes them with the parts ``mode`` strips left out.
 
     Arguments as :func:`~spada_tpu_torch.ops.engine.tile_spgemm`; tm and tn
     multiples of 128, tk of 8 (the wide block shape).  ``a_slots`` and
@@ -196,7 +197,8 @@ class ProbeWork:
 
     def bound(self, device_name=None) -> tuple:
         """(seconds, what bounds it) of the full mode on the named card."""
-        return roofline_bound(*self.work(), device_name, self.a_tiles.dtype)
+        return roofline_bound(*self.work(), device_name, self.a_tiles.dtype,
+                              matmul=True)
 
 
 def probe_work(n: int, band: int, T: int, device, dtype=torch.bfloat16,
@@ -233,9 +235,10 @@ def run_modes(work: ProbeWork, names: List[str],
 
     Returns {GPU mode: {"tpu": [names], "max_abs_err", "relerr" (to the
     plain version, of max|plain|), "exact", "ms", "ns_per_item",
-    "plain_ms"}}.  "exact" is whether C is bitwise what it must be:
-    ``tile_spgemm``'s C for full and flat, the plain C for the modes that
-    write zeros or nothing, None for the rest.  Times are None on the CPU.
+    "plain_ms"}}.  "exact" is whether C is bitwise the plain C, for the
+    modes that write zeros or nothing; None for the rest (full and flat
+    included), which are held to the plain C by "relerr".  Times are None
+    on the CPU.
     """
     modes = [gpu_mode(m) for m in names]
     cuda = work.a_tiles.device.type == "cuda"
@@ -259,11 +262,8 @@ def run_modes(work: ProbeWork, names: List[str],
         ref = tile_probe_reference(*args, **kw)
         err = float((got - ref).abs().max()) if got.numel() else 0.0
         scale = max(float(ref.abs().max()) if ref.numel() else 0.0, 1e-30)
-        exact = None
-        if mode in ("full", "flat"):
-            exact = torch.equal(got, tile_spgemm(*args))
-        elif mode in _ZERO + _UNWRITTEN:
-            exact = torch.equal(got, ref)
+        exact = (torch.equal(got, ref) if mode in _ZERO + _UNWRITTEN
+                 else None)
         rec = {"tpu": [tpu], "max_abs_err": err, "relerr": err / scale,
                "exact": exact, "ms": None, "ns_per_item": None,
                "plain_ms": None}

@@ -31,7 +31,8 @@ def cuda_time(fn: Callable, *args, warmup: int = 2,
 
     ``fn`` must not synchronise with the device.  At least one call is made
     before the timed ones, to measure how long the host takes to enqueue
-    one.  Raises where there is no CUDA device: a CPU timing is not a device
+    one, then ``reps`` whose outputs are held together, as the timed calls'
+    are.  Raises where there is no CUDA device: a CPU timing is not a device
     number.
     """
     if not torch.cuda.is_available():
@@ -42,6 +43,12 @@ def cuda_time(fn: Callable, *args, warmup: int = 2,
     for _ in range(n_warm):
         fn(*args)
     host_s = (time.perf_counter() - t0) / n_warm
+    # the timed calls keep their outputs: let the allocator cache that much
+    # memory first, or a call that must allocate afresh (cudaMalloc takes
+    # milliseconds for a large block) outlasts the hold below and its
+    # interval takes in idle device time
+    held = [fn(*args) for _ in range(reps)]
+    del held
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
     outs = []

@@ -32,19 +32,27 @@ def _relerr(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
+# items per C tile (0: an empty run): short runs, and a 64-item run
+TILE_RUNS = {"short": [2, 0, 5, 1, 0, 3], "long": [0, 64, 0, 1]}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("runs", TILE_RUNS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tm,tk,tn", [
     # narrow blocks (BM = min(tm, 64) x 64)
     (8, 128, 128), (16, 64, 128), (32, 128, 64), (64, 256, 256),
     (192, 128, 64),
-    # wide blocks (128 x 128)
-    (128, 64, 256), (384, 384, 384), (512, 512, 512)])
-def test_tile_kernel_matches_plain(cuda_device, tm, tk, tn, dtype):
-    """f32 products of the same values on both sides: only the summation
-    order differs (1e-5 of max|C|); empty runs are exact zero tiles."""
+    # tensor-core blocks (128 x 128), T = 384 and 512 among them
+    (128, 64, 256), (384, 384, 384), (512, 512, 512),
+    # a wide tile whose tk the tensor-core block does not take: SIMT block
+    (128, 40, 128)])
+def test_tile_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, runs):
+    """Wide tiles run 3xTF32 (f32) or bf16 mma with f32 sums, the others
+    f32 FMAs; the plain version sums exact f32 products in another order:
+    1e-5 of max|C|.  Empty runs are exact zero tiles."""
     rng = np.random.default_rng(tm + tk)
-    runs = np.array([2, 0, 5, 1, 0, 3])
+    runs = np.array(TILE_RUNS[runs])
     n_c, w = len(runs), int(runs.sum())
     o_ids = np.repeat(np.arange(n_c), runs).astype(np.int32)
 
@@ -116,12 +124,17 @@ def test_stream_red_kernel(cuda_device, L):
 ENGINE_SHAPES = [(8, 128, 128), (16, 64, 128), (32, 128, 64), (64, 256, 256),
                  (192, 128, 64), (128, 64, 256), (512, 512, 512)]
 
+# items per C tile.  "groups": empty runs inside a group and at its end, and
+# with ogroup 8 a whole group (C tiles 8-15) with none.  "long": a 64-item
+# run, empty C tiles inside group 0 and at the end of both groups of 8.
+ENGINE_RUNS = {"groups": [2, 0, 5, 1, 0, 3, 0, 0] + [0] * 8 + [1, 2],
+               "long": [1, 64, 0, 2, 0, 0, 0, 0, 3, 0]}
 
-def _engine_case(device, tm, tk, tn, dtype):
-    """A random o-sorted worklist with empty runs; C tiles 8-15 have no
-    items, so an ogroup of 8 gives a whole group with none."""
+
+def _engine_case(device, tm, tk, tn, dtype, runs="groups"):
+    """A random o-sorted worklist with empty runs (``ENGINE_RUNS``)."""
     rng = np.random.default_rng(tm + tk + tn)
-    runs = np.array([2, 0, 5, 1, 0, 3, 0, 0] + [0] * 8 + [1, 2])
+    runs = np.array(ENGINE_RUNS[runs])
     n_c, w = len(runs), int(runs.sum())
     o_ids = np.repeat(np.arange(n_c), runs).astype(np.int32)
 
@@ -144,14 +157,18 @@ def _launched_once(name, fn, *args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ogroup,nbuf", [(1, 2), (8, 8), (3, 5)])
+@pytest.mark.parametrize("runs", ENGINE_RUNS)
+@pytest.mark.parametrize("ogroup,nbuf", [(1, 2), (8, 8), (3, 5), (2, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tm,tk,tn", ENGINE_SHAPES)
+@pytest.mark.parametrize("tm,tk,tn", ENGINE_SHAPES + [(384, 384, 384),
+                                                      (128, 40, 128)])
 def test_stream_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, ogroup,
-                                     nbuf):
-    """Same bar as the tile kernel; empty runs and groups are zero tiles."""
+                                     nbuf, runs):
+    """Same bar as the tile kernel (the tensor-core path rings 2, 3 or 4
+    stages deep for nbuf 2, 3 and above); empty runs and groups are zero
+    tiles."""
     a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
-                                                        tn, dtype)
+                                                        tn, dtype, runs)
     args = (a, b, ai, bi, dev(o_ids), dev(item_ptr_of(o_ids, n_c, ogroup)),
             n_c, ogroup, nbuf)
     got = _launched_once("tile_stream", engine.tile_stream, *args)
@@ -234,6 +251,19 @@ def test_engine_kernels_reject_what_they_cannot_take(cuda_device):
         assert out.shape == (1, 8, 64) and bool((out == 0).all())
 
 
+@pytest.mark.cuda
+def test_wide_kernels_run_on_tensor_cores(cuda_device):
+    """Every tensor-core kernel of tile_spgemm and tile_stream holds HMMA
+    instructions in the built library (cuobjdump -sass): none compiled
+    back to FFMA."""
+    _build.load()
+    counts = _build.sass_counts("HMMA")
+    for kernel in ("tile_spgemm_mma", "tile_stream_mma"):
+        names = [n for n in counts if kernel in n]
+        assert names, f"no {kernel} in the library"
+        assert all(counts[n] > 0 for n in names), counts
+
+
 # ---- the probe kernel and the stream block sizes ---------------------------
 
 @pytest.mark.cuda
@@ -241,16 +271,14 @@ def test_engine_kernels_reject_what_they_cannot_take(cuda_device):
 @pytest.mark.parametrize("mode", tile_probe.GPU_MODES)
 @pytest.mark.parametrize("tm,tk,tn", [(128, 64, 256), (256, 256, 256)])
 def test_probe_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, mode):
-    """full and flat: tile_spgemm's C bitwise; the modes that write zeros
-    or nothing: their plain C bitwise; the rest 1e-5 of max|C|."""
+    """The modes that write zeros or nothing: their plain C bitwise; the
+    rest, full and flat among them, 1e-5 of max|C|."""
     a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
                                                         tn, dtype)
     args = (a, b, ai, bi, dev(tile_ptr_of(o_ids, n_c)), mode, 3, 2)
     got = _launched_once("tile_probe", tile_probe.tile_probe, *args)
     ref = tile_probe.tile_probe_reference(*args)
-    if mode in ("full", "flat"):
-        assert torch.equal(got, tile_spgemm(*args[:5]))
-    elif mode in ("nodma", "loop", "empty", "empty0", "nocopy", "dots",
+    if mode in ("nodma", "loop", "empty", "empty0", "nocopy", "dots",
                   "stat"):
         assert torch.equal(got, ref)
     else:

@@ -138,6 +138,20 @@ def test_roofline_bound_by_operand_type(dtype, peak):
                                                       "bytes")
 
 
+@pytest.mark.parametrize("dtype,peak", [("float32", 495e12 / 3),
+                                        (torch.float32, 495e12 / 3),
+                                        (torch.bfloat16, 989e12)])
+def test_roofline_bound_of_matrix_products(dtype, peak):
+    """f32 operands of a matrix product count at the 3xTF32 rate (a third
+    of the dense TF32 peak), bf16 operands at the bf16 peak."""
+    from spada_tpu_torch.config import roofline_bound
+
+    assert roofline_bound(1e12, 1e6, "NVIDIA H100 80GB HBM3", dtype,
+                          matmul=True) == (1e12 / peak, "operations")
+    assert roofline_bound(1e6, 1e12, None, dtype, matmul=True) == (
+        1e12 / 3.35e12, "bytes")
+
+
 def test_work_counts():
     from spada_tpu_torch.config import spgemm_flops, stream_work, tile_work
     from spada_tpu_torch.io.workloads import localized_powerlaw_csr
@@ -181,6 +195,18 @@ def test_panel3d_case_values():
     got = kernel().double()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert torch.equal(kernel(), plain())
+
+
+def test_panel3d_library_call():
+    """The library yardstick of peritem, one bmm of the gathered runs,
+    computes peritem's C (to its output type's rounding)."""
+    kernel, _, _ = probe_panel3d.panel3d_case(128, 2, "cpu", "peritem")
+    call, label = probe_panel3d.library_case(128, 2, "cpu")
+    assert label.startswith("torch.bmm of 12 gathered [128, 256]")
+    want, got = kernel(), call().float()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 2 ** -8 * float(
+        want.abs().max())
 
 
 def test_stream_probe_on_cpu():
