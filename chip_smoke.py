@@ -11,8 +11,9 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
 
 1. environment: versions, the card's name and power limit, nvcc, build time,
    and the HMMA (tensor-core) instructions of the tensor-core kernels of
-   ``tile_spgemm`` and ``tile_stream`` (``cuobjdump -sass``): a kernel with
-   none, or a toolkit without cuobjdump, fails the run;
+   ``tile_spgemm``, ``tile_stream``, ``tile_panel`` and ``tile_grid``
+   (``cuobjdump -sass``): a kernel with none, or a toolkit without
+   cuobjdump, fails the run;
 2. each kernel against its plain PyTorch version on the card
    (``tile_spgemm``, both block shapes, and ``tile_stream`` with ogroup 1
    and 8, ``tile_panel`` with f32 and bf16 output, ``tile_grid``:
@@ -179,9 +180,10 @@ def host_enqueue_s(fn, reps: int = 5) -> float:
     return dt
 
 
-#: the kernels that must run on tensor cores: tile_spgemm's and
-#: tile_stream's wide path (csrc/tile_mma.cuh)
-MMA_KERNELS = ("tile_spgemm_mma", "tile_stream_mma")
+#: the kernels that must run on tensor cores: the wide path of the four
+#: main-path tile kernels (csrc/tile_mma.cuh)
+MMA_KERNELS = ("tile_spgemm_mma", "tile_stream_mma", "tile_panel_mma",
+               "tile_grid_mma")
 
 
 def check_tensor_cores() -> None:
@@ -900,10 +902,11 @@ def main() -> int:
     (b_nn, by_nn), (lib_nn, lib_name) = (extra["nn"]["bound"],
                                          extra["nn"]["library"])
     log("== the tensor-core kernels on nn (csrc/tile_mma.cuh)")
-    for name in ("tile_spgemm", "tile_stream"):
+    for name in ("tile_spgemm", "tile_stream", "tile_panel", "tile_grid"):
         log(f"  {name}: {times[name][0] * 1e3:.3f} ms, bound "
-            f"{b_nn * 1e3:.3f} ms ({by_nn}), plain {times[name][1] * 1e3:.3f}"
-            f" ms, library {lib_name} {lib_nn * 1e3:.3f} ms")
+            f"{b_nn * 1e3:.3f} ms ({by_nn}, {b_nn / times[name][0]:.1%} of "
+            f"it), plain {times[name][1] * 1e3:.3f} ms, library {lib_name} "
+            f"{lib_nn * 1e3:.3f} ms")
     log(json.dumps({"kernels": kernels}))
     log(smi_name_power())
     print(json.dumps({"ok": True, "device": {

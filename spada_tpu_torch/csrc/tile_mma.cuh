@@ -1,5 +1,13 @@
-// The tensor-core block of the tile kernels (sm_90a): tile_spgemm.cu and
-// tile_stream.cu run their wide shapes on it.
+// The tensor-core block of the tile kernels (sm_90a).  The shapes it takes
+// (tm, tn multiples of 128, tk of 32 for f32 tiles or 64 for bf16) run on
+// it in all four main-path tile kernels:
+//   tile_spgemm.cu  one block per piece of a C tile, over its run;
+//   tile_stream.cu  one block per piece of a group of C tiles;
+//   tile_panel.cu   as tile_spgemm, A k-transposed, f32 or bf16 output;
+//   tile_grid.cu    one block per piece of one item, added into C with f32
+//                   atomics.
+// tile_probe.cu keeps the FP32 SIMT block of tile_wide.cuh, and every other
+// shape runs the SIMT blocks of tile_wide.cuh / tile_pipe.cuh.
 //
 // Work unit.  A block of 256 threads (8 warps, 2 along rows x 4 along
 // columns, each warp 64 x 32) computes one 128 x 128 piece (row0, col0) of
@@ -9,16 +17,21 @@
 // ring of STAGES shared-memory stages, STAGES - 1 slices ahead of the
 // tensor cores.  The ring runs on across C-tile boundaries inside the
 // range.  The accumulator lives in registers; at the end of a run the block
-// stores its piece of that C tile (f32, written once and never read),
-// writes exact zeros for the range's C tiles that have no items, and starts
+// hands its piece of that C tile to the kernel's epilogue (Store: written
+// once and never read, f32 or rounded once to bf16; Add: f32 atomic adds),
+// gives it the range's C tiles that have no items as zeros, and starts
 // again from zero.
 //
-// Layouts.  A is staged as it lies (rows of a [tm][tk] tile, the A
-// fragment's row-major m x k) and B as it lies (rows of [tk][tn]); no
-// transposed copy is made.  Each staged row carries 16 (A) or 8-element (B)
-// padding, so that a warp's fragment reads fall in 32 distinct banks: A row
-// pitch BK + 16 bytes (bank 4*row + k), B row pitch 128 + 8 elements (f32:
-// bank 8*k + n; bf16: ldmatrix.trans rows 16 bytes apart mod 128).
+// Layouts.  B is staged as it lies (rows of [tk][tn]), and A as it lies
+// too: natural A (rows of a [tm][tk] tile, the A fragment's row-major
+// m x k) as As[m][k], k-transposed A (rows of [tk][tm]) as As[k][m], which
+// is the B slice's copy applied to A.  No transposed copy is made.  Each
+// staged row carries 16 (natural A) or 8-element ([k][*] rows) padding, so
+// that a warp's fragment reads fall in 32 distinct banks: natural A row
+// pitch BK + 16 bytes (bank 4*row + k), [k][*] row pitch 128 + 8 elements
+// (f32: bank 8*k + m or n; bf16: ldmatrix.trans rows 16 bytes apart mod
+// 128).  The bf16 A fragment of [k][m] rows is ldmatrix.trans of four 8 x 8
+// matrices, as B's is.
 //
 // Arithmetic.
 //   f32 tiles: 3xTF32 on mma.sync.m16n8k8 (tf32 in, f32 sums).  Each operand
@@ -46,16 +59,17 @@
 // products, so near 100 TFLOP/s the SMs pull about 3 TB/s of operands: L2
 // hits, not HBM, decide whether the loads bind.
 //
-// Launch order.  Blocks launch x-fastest, and x runs over a C tile's (or
-// group's) pieces first, then over the o-sorted C tiles.  Measured on an
-// H100 80GB HBM3 at 700 W (PERF.md), with the per-slice fold: on the nn
-// pair, this order and the C-tile-fastest one (pieces in y and z) were
-// within 0.5% of each other (this one ahead in four runs of six), and on
-// runs of two 384^2 bf16 tiles this one was 2-3% faster in three runs of
-// three, so it is the order used.  The fold cost 5.0-5.6% in this order and
-// 0.4-0.7% in the other, against forms that sum in the tensor cores over
-// the whole run, which fail the 1e-5 gate.  Pieces of 128 x 256 (half the
-// blocks, half A's re-reads from L2) ran 20-30% slower.
+// Launch order.  Blocks launch x-fastest, and x runs over a unit's pieces
+// first (a C tile's, a group's, or tile_grid's item's), then over the
+// units.  Measured on an H100 80GB HBM3 at 700 W (PERF.md), with the
+// per-slice fold: on the nn pair, this order and the C-tile-fastest one
+// (pieces in y and z) were within 0.5% of each other (this one ahead in
+// four runs of six), and on runs of two 384^2 bf16 tiles this one was 2-3%
+// faster in three runs of three, so it is the order used.  The fold cost
+// 5.0-5.6% in this order and 0.4-0.7% in the other, against forms that sum
+// in the tensor cores over the whole run, which fail the 1e-5 gate.  Pieces
+// of 128 x 256 (half the blocks, half A's re-reads from L2) ran 20-30%
+// slower.
 
 #pragma once
 
@@ -88,15 +102,15 @@ struct Op<__nv_bfloat16> {
   static constexpr int KI = 16;
 };
 
-// One ring stage of a 128 x 128 piece: the A slice As[m][k], then the B
-// slice Bs[k][n], both padded.
-template <typename T>
+// One ring stage of a 128 x 128 piece: the A slice, As[m][k] (natural) or
+// with A_T As[k][m] (k-transposed), then the B slice Bs[k][n], all padded.
+template <typename T, bool A_T = false>
 struct Stage {
   static constexpr int BK = Op<T>::BK;
   static constexpr int E = 16 / (int)sizeof(T);  // elements per 16 bytes
-  static constexpr int kAPitch = BK + E;
   static constexpr int kBPitch = kBN + 8;
-  static constexpr int kA = kBM * kAPitch;
+  static constexpr int kAPitch = A_T ? kBM + 8 : BK + E;
+  static constexpr int kA = (A_T ? BK : kBM) * kAPitch;
   static constexpr int kElems = kA + BK * kBPitch;
   static constexpr size_t kBytes = (size_t)kElems * sizeof(T);
 };
@@ -181,10 +195,11 @@ __device__ __forceinline__ void fold(float (&acc)[kMT][kNT][4],
 // acc += As @ Bs over one staged f32 slice, 3xTF32, its mmas summed in d
 // and folded into acc.  Fragment (m16n8k8): lane = 4g + t holds
 // A[g | g+8][t | t+4], B[t | t+4][g], C[g | g+8][2t, 2t+1].
+template <bool A_T>
 __device__ __forceinline__ void slice_mma(const float* As, const float* Bs,
                                           int wm0, int wn0, int lane,
                                           float (&acc)[kMT][kNT][4]) {
-  using S = Stage<float>;
+  using S = Stage<float, A_T>;
   constexpr int P = S::kAPitch, PB = S::kBPitch, Q = S::BK / Op<float>::KI;
   const int g = lane >> 2, t = lane & 3;
   float d[kMT][kNT][4];
@@ -195,11 +210,19 @@ __device__ __forceinline__ void slice_mma(const float* As, const float* Bs,
     uint32_t ab[kMT][4], as[kMT][4], bb[kNT][2], bs[kNT][2];
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
-      const float* p = As + (wm0 + i * 16 + g) * P + kk + t;
-      split(p[0], ab[i][0], as[i][0]);
-      split(p[8 * P], ab[i][1], as[i][1]);
-      split(p[4], ab[i][2], as[i][2]);
-      split(p[8 * P + 4], ab[i][3], as[i][3]);
+      if constexpr (A_T) {  // As[k][m]: bank 8t + g, as B's reads
+        const float* p = As + (kk + t) * P + wm0 + i * 16 + g;
+        split(p[0], ab[i][0], as[i][0]);
+        split(p[8], ab[i][1], as[i][1]);
+        split(p[4 * P], ab[i][2], as[i][2]);
+        split(p[4 * P + 8], ab[i][3], as[i][3]);
+      } else {
+        const float* p = As + (wm0 + i * 16 + g) * P + kk + t;
+        split(p[0], ab[i][0], as[i][0]);
+        split(p[8 * P], ab[i][1], as[i][1]);
+        split(p[4], ab[i][2], as[i][2]);
+        split(p[8 * P + 4], ab[i][3], as[i][3]);
+      }
     }
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
@@ -227,12 +250,16 @@ __device__ __forceinline__ void slice_mma(const float* As, const float* Bs,
 // acc += As @ Bs over one staged bf16 slice, its mmas summed in d and
 // folded into acc.  Fragment (m16n8k16): lane = 4g + t holds
 // A[g | g+8][2t, 2t+1 | 2t+8, 2t+9], B[2t, 2t+1 | 2t+8, 2t+9][g] (from
-// ldmatrix.trans of [k][n] rows), C as for f32.
+// ldmatrix.trans of [k][n] rows), C as for f32.  ldmatrix.trans gives lane
+// 4g + t of an 8 x 8 matrix of [k][*] rows the elements of rows 2t, 2t+1
+// in column g, so of [k][m] rows of A it gives A[g][2t, 2t+1]: the four
+// matrices (m 0-7 | 8-15) x (k 0-7 | 8-15) are the A fragment's a[0..3].
+template <bool A_T>
 __device__ __forceinline__ void slice_mma(const __nv_bfloat16* As,
                                           const __nv_bfloat16* Bs, int wm0,
                                           int wn0, int lane,
                                           float (&acc)[kMT][kNT][4]) {
-  using S = Stage<__nv_bfloat16>;
+  using S = Stage<__nv_bfloat16, A_T>;
   constexpr int P = S::kAPitch, PB = S::kBPitch;
   constexpr int Q = S::BK / Op<__nv_bfloat16>::KI;
   static_assert(kNT % 2 == 0, "ldmatrix.x4 reads two n8 fragments");
@@ -241,17 +268,23 @@ __device__ __forceinline__ void slice_mma(const __nv_bfloat16* As,
   zero(d);
   // ldmatrix: matrix q = lane / 8 is k half q & 1 of n8 fragment q >> 1
   const int lk = (lane & 7) + ((lane >> 3) & 1) * 8, ln = (lane >> 4) * 8;
+  // and of A's [k][m] rows: m half q & 1, k half q >> 1
+  const int ak = (lane & 7) + (lane >> 4) * 8, am = ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int kk = q * Op<__nv_bfloat16>::KI;
     uint32_t a[kMT][4], b[kNT][2];
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
-      const __nv_bfloat16* p = As + (wm0 + i * 16 + g) * P + kk + 2 * t;
-      a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * P);
-      a[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * P + 8);
+      if constexpr (A_T) {
+        ldmatrix_x4_trans(a[i], As + (kk + ak) * P + wm0 + i * 16 + am);
+      } else {
+        const __nv_bfloat16* p = As + (wm0 + i * 16 + g) * P + kk + 2 * t;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * P);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * P + 8);
+      }
     }
 #pragma unroll
     for (int j = 0; j < kNT; j += 2) {
@@ -272,55 +305,118 @@ __device__ __forceinline__ void slice_mma(const __nv_bfloat16* As,
 
 // ---- staging and stores -----------------------------------------------------
 
-// Start the copies of k-slice k0 of the piece's rows of tile a [tm][tk] and
-// columns of tile b [tk][tn] into one ring stage.
+// Start the copies of rows k0 .. k0 + BK - 1, columns col0 .. col0 + 127, of
+// a [*][ld] tile into the [BK][128] slice `s` (pitch 128 + 8).
 template <typename T>
-__device__ __forceinline__ void issue(T* st, const T* a, const T* b, int tk,
-                                      int tn, int row0, int col0, int k0,
-                                      int tid) {
+__device__ __forceinline__ void issue_k_rows(T* s, const T* x, int ld,
+                                             int col0, int k0, int tid) {
   using S = Stage<T>;
-  constexpr int per_a = S::BK / S::E, per_b = kBN / S::E;
-  static_assert(kBM * per_a % kThreads == 0 && S::BK * per_b % kThreads == 0,
-                "copies per thread");
+  constexpr int per = kBN / S::E;
+  static_assert(S::BK * per % kThreads == 0, "copies per thread");
 #pragma unroll
-  for (int i = 0; i < kBM * per_a / kThreads; ++i) {
+  for (int i = 0; i < S::BK * per / kThreads; ++i) {
     const int c = tid + i * kThreads;
-    const int r = c / per_a, k = (c % per_a) * S::E;
-    cp_async16(st + r * S::kAPitch + k, a + (size_t)(row0 + r) * tk + k0 + k);
-  }
-  T* bs = st + S::kA;
-#pragma unroll
-  for (int i = 0; i < S::BK * per_b / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int k = c / per_b, n = (c % per_b) * S::E;
-    cp_async16(bs + k * S::kBPitch + n, b + (size_t)(k0 + k) * tn + col0 + n);
+    const int k = c / per, n = (c % per) * S::E;
+    cp_async16(s + k * S::kBPitch + n, x + (size_t)(k0 + k) * ld + col0 + n);
   }
 }
 
-// Write the warp's part of a piece of C tile `out` [tm][tn] (zeros with
-// ZERO): two 8-byte stores per fragment, a warp's store 8 rows x 32 bytes.
-template <bool ZERO>
-__device__ __forceinline__ void store(float* out, int tn, int row0, int col0,
-                                      int lane,
-                                      const float (&acc)[kMT][kNT][4]) {
+// Start the copies of k-slice k0 of the piece's rows of tile a, [tm][tk]
+// (natural) or [tk][tm] (A_T), and columns of tile b [tk][tn] into one ring
+// stage.
+template <typename T, bool A_T>
+__device__ __forceinline__ void issue(T* st, const T* a, const T* b, int tm,
+                                      int tk, int tn, int row0, int col0,
+                                      int k0, int tid) {
+  using S = Stage<T, A_T>;
+  if constexpr (A_T) {
+    static_assert(S::kAPitch == S::kBPitch, "A slice staged as B's");
+    issue_k_rows(st, a, tm, row0, k0, tid);
+  } else {
+    constexpr int per_a = S::BK / S::E;
+    static_assert(kBM * per_a % kThreads == 0, "copies per thread");
+#pragma unroll
+    for (int i = 0; i < kBM * per_a / kThreads; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c / per_a, k = (c % per_a) * S::E;
+      cp_async16(st + r * S::kAPitch + k,
+                 a + (size_t)(row0 + r) * tk + k0 + k);
+    }
+  }
+  issue_k_rows(st + S::kA, b, tn, col0, k0, tid);
+}
+
+// Call f(p, x, y) for each two adjacent values x, y of the warp's part of
+// a piece of C tile `out` [tm][tn], p their place: one pair per fragment
+// row, a warp's 8 rows x 8 pairs per call site.
+template <typename OutT, class F>
+__device__ __forceinline__ void each_pair(OutT* out, int tn, int row0,
+                                          int col0, int lane,
+                                          const float (&acc)[kMT][kNT][4],
+                                          F f) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < kMT; ++i) {
-    float* p = out + (size_t)(row0 + i * 16 + g) * tn + col0 + 2 * t;
+    OutT* p = out + (size_t)(row0 + i * 16 + g) * tn + col0 + 2 * t;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       const float* v = acc[i][j];
-      *reinterpret_cast<float2*>(p + j * 8) =
-          ZERO ? make_float2(0.f, 0.f) : make_float2(v[0], v[1]);
-      *reinterpret_cast<float2*>(p + 8 * (size_t)tn + j * 8) =
-          ZERO ? make_float2(0.f, 0.f) : make_float2(v[2], v[3]);
+      f(p + j * 8, v[0], v[1]);
+      f(p + 8 * (size_t)tn + j * 8, v[2], v[3]);
     }
   }
 }
 
+// Two adjacent C values stored as f32 (8 bytes) or rounded once to bf16
+// (nearest, ties to even; 4 bytes), or added into f32 C by one two-wide
+// atomic (sm_90), half the scalar atomics.
+__device__ __forceinline__ void put2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void add2(float* p, float x, float y) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(p), "f"(x),
+               "f"(y)
+               : "memory");
+}
+
+// The epilogues: where piece() puts its finished C tiles, `out` [n_c][tm][tn].
+// put<ZERO>(c, ...) takes the warp's part of C tile c (ZERO: a tile with no
+// items).  Store writes each tile once, f32 or bf16.  Add adds into a C
+// that starts zeroed, so an empty tile needs nothing.
+template <typename OutT>
+struct Store {
+  OutT* out;
+  size_t c_size;
+  int tn;
+  template <bool ZERO>
+  __device__ __forceinline__ void put(int c, int row0, int col0, int lane,
+                                      const float (&acc)[kMT][kNT][4]) const {
+    each_pair(out + c * c_size, tn, row0, col0, lane, acc,
+              [](OutT* p, float x, float y) {
+                put2(p, ZERO ? 0.f : x, ZERO ? 0.f : y);
+              });
+  }
+};
+
+struct Add {
+  float* out;
+  size_t c_size;
+  int tn;
+  template <bool ZERO>
+  __device__ __forceinline__ void put(int c, int row0, int col0, int lane,
+                                      const float (&acc)[kMT][kNT][4]) const {
+    if constexpr (!ZERO)
+      each_pair(out + c * c_size, tn, row0, col0, lane, acc,
+                [](float* p, float x, float y) { add2(p, x, y); });
+  }
+};
+
 // ---- launch shape -------------------------------------------------------------
 
-// The block's unit (C tile or group) and piece origin: x runs over a
+// The block's unit (C tile, group or item) and piece origin: x runs over a
 // unit's pieces, row-major, then over the units.
 struct Place {
   int unit, row0, col0;
@@ -349,15 +445,16 @@ int with_depth(int depth, F f) {
 
 // One 128 x 128 piece (row0, col0) of the C tiles c_first .. c_end - 1
 // from the items [lo, hi) of an o-sorted worklist; o_of(w) is item w's C
-// tile.  smem holds STAGES stages of Stage<T>.
-template <typename T, int STAGES, class OTile>
+// tile, and `out` (Store or Add) takes each finished tile.  A tiles are
+// [tm][tk], or with A_T k-transposed [tk][tm].  smem holds STAGES stages of
+// Stage<T, A_T>.
+template <typename T, int STAGES, bool A_T, class OTile, class Out>
 __device__ __forceinline__ void piece(
     const T* __restrict__ a_tiles, const T* __restrict__ b_tiles,
     const int32_t* __restrict__ a_tid, const int32_t* __restrict__ b_tid,
-    OTile o_of, int lo, int hi, int c_first, int c_end,
-    float* __restrict__ c_tiles, int tm, int tk, int tn, int row0, int col0,
-    unsigned char* smem) {
-  using S = Stage<T>;
+    OTile o_of, int lo, int hi, int c_first, int c_end, const Out& out,
+    int tm, int tk, int tn, int row0, int col0, unsigned char* smem) {
+  using S = Stage<T, A_T>;
   static_assert(STAGES >= 2, "ring depth");
   T* ring = reinterpret_cast<T*>(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -365,7 +462,6 @@ __device__ __forceinline__ void piece(
   const int wn0 = (warp % kWarpsN) * (kBN / kWarpsN);
   const int k_steps = tk / S::BK;
   const size_t a_size = (size_t)tm * tk, b_size = (size_t)tk * tn;
-  const size_t c_size = (size_t)tm * tn;
 
   // the next slice to copy: k-slice ik of item iw, whose tiles are a_w, b_w
   int iw = lo, ik = 0;
@@ -377,8 +473,8 @@ __device__ __forceinline__ void piece(
   }
   auto issue_next = [&](int stage) {
     if (iw < hi) {
-      issue<T>(ring + stage * S::kElems, a_w, b_w, tk, tn, row0, col0,
-                   ik * S::BK, tid);
+      issue<T, A_T>(ring + stage * S::kElems, a_w, b_w, tm, tk, tn, row0,
+                    col0, ik * S::BK, tid);
       if (++ik == k_steps) {
         ik = 0;
         if (++iw < hi) {
@@ -403,20 +499,20 @@ __device__ __forceinline__ void piece(
     __syncthreads();  // ... and everyone's; all are done with the last one
     issue_next(stage == 0 ? STAGES - 1 : stage - 1);  // refill the last's
     const T* st = ring + stage * S::kElems;
-    slice_mma(st, st + S::kA, wm0, wn0, lane, acc);
+    slice_mma<A_T>(st, st + S::kA, wm0, wn0, lane, acc);
     stage = stage == STAGES - 1 ? 0 : stage + 1;
     if (++k < k_steps) continue;
     k = 0;
     const int o = o_of(w);
     if (++w < hi && o_of(w) == o) continue;  // the run goes on
     for (; next_c < o; ++next_c)
-      store<true>(c_tiles + next_c * c_size, tn, r0, n0, lane, acc);
-    store<false>(c_tiles + o * c_size, tn, r0, n0, lane, acc);
+      out.template put<true>(next_c, r0, n0, lane, acc);
+    out.template put<false>(o, r0, n0, lane, acc);
     next_c = o + 1;
     zero(acc);
   }
   for (; next_c < c_end; ++next_c)
-    store<true>(c_tiles + next_c * c_size, tn, r0, n0, lane, acc);
+    out.template put<true>(next_c, r0, n0, lane, acc);
 }
 
 }  // namespace mma

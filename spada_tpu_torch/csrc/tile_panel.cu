@@ -10,41 +10,67 @@
 // of its B tiles.  A comes k-transposed, a_tiles_t [nA, tk, tm]; B is
 // [nB, tk, tn].  The sum is f32 and is written as f32, or rounded once to
 // bf16 (round to nearest even).  An empty run writes an exact zero tile.
-// bf16 tiles are widened to f32 as they are read; no TF32.
 //
-// What bounds it on an H100.  As tile_spgemm: the FP32 FMA rate for tall
-// panels, reading B tiles for short ones.  The TPU kernel was built against
-// the per-item read-modify-write of a VMEM accumulator: it placed a run's
-// tiles in adjacent cache slots so that one MXU dot over the whole panel
-// accumulated internally.  It stored A k-transposed so that the run's A
-// tiles concatenate along k as rows.
+// What bounds it on an H100.  As tile_spgemm: the tensor cores' rate
+// (3xTF32 for f32 tiles, bf16 mma for bf16) for tall panels, reading B tiles
+// for short ones.  The TPU kernel was built against the per-item
+// read-modify-write of a VMEM accumulator: it placed a run's tiles in
+// adjacent cache slots so that one MXU dot over the whole panel accumulated
+// internally.  It stored A k-transposed so that the run's A tiles
+// concatenate along k as rows.
 //
 // Design.  On an SM the accumulator of a block's piece lives in registers
 // for the whole contraction, so "one dot per run" is a k loop over the
 // concatenated panel with no boundary between items and no max_panel limit:
-// grid = (C tile, row block, column block), and the block walks the run as
-// one flat sequence of BK-deep k-slices.  The k-transposed A is what makes
-// the staging a straight copy here too: a row of a_tiles_t[id] is
-// contiguous along m, so each k-slice goes by cp.async into the k-major
-// shared-memory layout the FMA loop reads (four rows per float4), with no
-// transpose on the way.  A ring of kStages stages keeps the copies ahead of
-// the FMAs (tile_pipe.cuh).  The epilogue writes the piece once, as f32 or
-// as bf16.  The slot plans, the VMEM fit and the item split of the TPU
-// kernel have no counterpart.  Block shapes are tile_spgemm's; no tensor
-// cores yet.
+// one block per piece of a C tile, walking the run as one flat sequence of
+// BK-deep k-slices.  The k-transposed A is what makes the staging a straight
+// copy here too: a row of a_tiles_t[id] is contiguous along m, so each
+// k-slice goes by cp.async into a [k][m] shared-memory slice with no
+// transpose on the way.  The epilogue writes the piece once, as f32 or as
+// bf16.  The slot plans, the VMEM fit and the item split of the TPU kernel
+// have no counterpart.  Two paths:
+//   mma  (tm, tn multiples of 128, tk of 32 f32 / 64 bf16): the tensor-core
+//        block of tile_mma.cuh with A k-transposed, a 4-stage ring: f32
+//        tiles 3xTF32, bf16 tiles bf16 mma, each k-slice's tensor-core sums
+//        added into the f32 accumulator: tile_spgemm's arithmetic on the
+//        same values, so the f32 output is its C bit for bit.
+//   SIMT (the other shapes: tk not such a multiple, or tm, tn not multiples
+//        of 128, the short panels tm in {8..64} among them): the k pipeline
+//        of tile_pipe.cuh, tile_spgemm's block shapes, a 3-stage ring, bf16
+//        widened to f32 and every product an f32 FMA.
 //
 // Launch: tile_panel_f32 / tile_panel_bf16 (the A/B tile type; plain C
 // interface for ctypes) enqueue one kernel on the given stream and return
 // cudaGetLastError().  out_bf16 != 0 selects the bf16 output.
 
-#include "tile_pipe.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
 using namespace spada;
 
-constexpr int kStages = 3;
+constexpr int kStages = 3;  // SIMT ring
 
+// ---- mma: 128 x 128 of one C tile per block, tensor cores -----------------
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(mma::kThreads, 1)
+    tile_panel_mma(const T* __restrict__ a_tiles_t,
+                   const T* __restrict__ b_tiles,
+                   const int32_t* __restrict__ a_tid,
+                   const int32_t* __restrict__ b_tid,
+                   const int32_t* __restrict__ tile_ptr,
+                   OutT* __restrict__ c_tiles, int tm, int tk, int tn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mma::Place p = mma::place(tm, tn);
+  const int c = p.unit;
+  mma::piece<T, mma::kDeepest, true>(
+      a_tiles_t, b_tiles, a_tid, b_tid, [c](int) { return c; }, tile_ptr[c],
+      tile_ptr[c + 1], c, c + 1,
+      mma::Store<OutT>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn, p.row0,
+      p.col0, smem);
+}
+
+// ---- SIMT: tile_pipe.cuh's block shapes, f32 FMAs -------------------------
 template <typename T, typename OutT, class G>
 __global__ void __launch_bounds__(G::NT)
     tile_panel_kernel(const T* __restrict__ a_tiles_t,
@@ -81,6 +107,19 @@ int launch(const void* a_tiles_t, const void* b_tiles, const void* a_tid,
            int tm, int tk, int tn, void* stream) {
   if (n_c <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mma::takes<T>(tm, tk, tn)) {
+    const size_t smem = mma::kDeepest * mma::Stage<T, true>::kBytes;
+    const int err = allow_smem(tile_panel_mma<T, OutT>, smem);
+    if (err) return err;
+    tile_panel_mma<T, OutT>
+        <<<mma::grid(n_c, tm, tn), mma::kThreads, smem, s>>>(
+            static_cast<const T*>(a_tiles_t), static_cast<const T*>(b_tiles),
+            static_cast<const int32_t*>(a_tid),
+            static_cast<const int32_t*>(b_tid),
+            static_cast<const int32_t*>(tile_ptr),
+            static_cast<OutT*>(c_tiles), tm, tk, tn);
+    return (int)cudaGetLastError();
+  }
   return with_geo(tm, tk, tn, [&](auto geo) {
     using G = decltype(geo);
     const size_t smem =

@@ -62,9 +62,11 @@ __global__ void __launch_bounds__(spada::mma::kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem[];
   const spada::mma::Place p = spada::mma::place(tm, tn);
   const int c = p.unit;
-  spada::mma::piece<T, kStages>(
+  spada::mma::piece<T, kStages, false>(
       a_tiles, b_tiles, a_tid, b_tid, [c](int) { return c; }, tile_ptr[c],
-      tile_ptr[c + 1], c, c + 1, c_tiles, tm, tk, tn, p.row0, p.col0, smem);
+      tile_ptr[c + 1], c, c + 1,
+      spada::mma::Store<float>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn,
+      p.row0, p.col0, smem);
 }
 
 // ---- wide: 128 x 128 of one C tile per block, 256 threads -----------------

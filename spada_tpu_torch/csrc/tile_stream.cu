@@ -109,10 +109,11 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem[];
   const mma::Place p = mma::place(tm, tn);
   const int g = p.unit;
-  mma::piece<T, STAGES>(
+  mma::piece<T, STAGES, false>(
       a_tiles, b_tiles, a_tid, b_tid, [o_tid](int w) { return o_tid[w]; },
       item_ptr[g], item_ptr[g + 1], g * ogroup, min((g + 1) * ogroup, n_c),
-      c_tiles, tm, tk, tn, p.row0, p.col0, smem);
+      mma::Store<float>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn, p.row0,
+      p.col0, smem);
 }
 
 template <typename T>

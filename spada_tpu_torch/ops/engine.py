@@ -27,13 +27,13 @@ for ``sm_90a``, each with its plain PyTorch version beside it:
 
 Arithmetic.  Every engine gives f32-level results at either
 ``precision``, so 'highest' and 'default' run the same arithmetic here; the
-tile dtype (``SpadaConfig.engine_dtype``) is what selects bf16.  In
-``cached`` and ``streaming`` the wide tiles (tm and tn multiples of 128, tk
-of 32 f32 / 64 bf16) run on tensor cores (``csrc/tile_mma.cuh``): f32 tiles
-as 3xTF32 (each operand split into two TF32 parts, three products summed
-in f32, small terms first), bf16 tiles as bf16 ``mma`` with f32 sums.  Their
-other shapes, and ``panel`` and ``pallas_grid``, widen bf16 and run FP32
-FMAs; the plain versions run f32 ``bmm`` (TF32 off).  On a CUDA device an engine runs its kernel or raises: none
+tile dtype (``SpadaConfig.engine_dtype``) is what selects bf16.  In all
+four kernels the wide tiles (tm and tn multiples of 128, tk of 32 f32 / 64
+bf16) run on tensor cores (``csrc/tile_mma.cuh``): f32 tiles as 3xTF32
+(each operand split into two TF32 parts, three products summed in f32,
+small terms first), bf16 tiles as bf16 ``mma`` with f32 sums.  Their other
+shapes widen bf16 and run FP32 FMAs; the plain versions run f32 ``bmm``
+(TF32 off).  On a CUDA device an engine runs its kernel or raises: none
 falls back to another engine or to the CPU.  The reference's TPU reroutes
 (``precision='highest'`` to XLA, large ids to streaming) and its item
 splits are not copied.
@@ -358,7 +358,9 @@ def tile_panel(a_tiles_t: torch.Tensor, b_tiles: torch.Tensor,
     (f32 or bf16), ``tile_ptr`` int32 [nC + 1] as for :func:`tile_spgemm`.
     The f32 sum is written as ``out_dtype`` (float32, or bfloat16 rounded
     once, to nearest even).  An empty run gives a zero tile.  CUDA tensors
-    run ``csrc/tile_panel.cu``.
+    run ``csrc/tile_panel.cu``: wide tiles on tensor cores, as
+    :func:`tile_spgemm` (whose f32 C the f32 output then equals), other
+    shapes on FP32 FMAs.
     """
     _check_tile_args("tile_panel", a_tiles_t, b_tiles, 1, a_tid=a_tid,
                      b_tid=b_tid, tile_ptr=tile_ptr)
@@ -390,7 +392,8 @@ def tile_grid(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     ``C[o_tid[w]]``, one block per item and piece, in any item order.  C
     starts zeroed, so a tile with no items is a zero tile.  The adds are
     f32 atomics whose order changes from run to run.  CUDA tensors run
-    ``csrc/tile_grid.cu``.
+    ``csrc/tile_grid.cu``: wide tiles on tensor cores, as
+    :func:`tile_spgemm`, other shapes on FP32 FMAs.
     """
     _check_tile_args("tile_grid", a_tiles, b_tiles, 2, a_tid=a_tid,
                      b_tid=b_tid, o_tid=o_tid)

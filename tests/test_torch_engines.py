@@ -43,11 +43,11 @@ WRAPPER = {"streaming": "tile_stream", "panel": "tile_panel",
            "pallas_grid": "tile_grid"}
 
 
-def _case(tm, seed=41):
+def _case(tm, seed=41, tn=64):
     a = powerlaw_csr(256, 256, 12.0, seed=seed, dtype=np.float32)
     b = random_csr(256, 256, 0.08, seed=seed + 1, dtype=np.float32)
     ab = P(BsrMatrix.from_csr(a, tm, 64, dtype=np.float32))
-    bb = P(BsrMatrix.from_csr(b, 64, 64, dtype=np.float32))
+    bb = P(BsrMatrix.from_csr(b, 64, tn, dtype=np.float32))
     return ab, bb, build_worklist(ab, bb, order="row")
 
 
@@ -102,10 +102,7 @@ def wrapper_calls(monkeypatch):
 
 # (a) each engine against its JAX kernel and the XLA oracle ----------------
 
-@pytest.mark.parametrize("tm", [8, 32, 64])
-@pytest.mark.parametrize("eng", ENGINES)
-def test_engine_matches_jax_kernel_and_xla(eng, tm):
-    ab, bb, wl = _case(tm)
+def _check_engine(eng, ab, bb, wl):
     a_t, b_t = bsr_to_torch(ab, "cpu"), bsr_to_torch(bb, "cpu")
     ids = (wl.a_tid, wl.b_tid, wl.o_tid, wl.first, wl.n_c_tiles)
     got = _port(eng, a_t, b_t, *ids)
@@ -113,12 +110,27 @@ def test_engine_matches_jax_kernel_and_xla(eng, tm):
         ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
         n_c_tiles=wl.n_c_tiles, precision="highest"))
     ref = _jax(eng, ab.tiles, bb.tiles, *ids)
-    assert got.shape == xla.shape == (wl.n_c_tiles, tm, 64)
+    assert got.shape == xla.shape == (wl.n_c_tiles, ab.tm, bb.tn)
     assert _relerr(got, xla) <= 1e-5
     assert _relerr(got, ref) <= 1e-5  # build_worklist: no empty C tiles
     # run_worklist reaches the same engine
     via = c_tiles_to_numpy(engine.run_worklist(wl, a_t, b_t, engine=eng))
     np.testing.assert_array_equal(via, got)
+
+
+@pytest.mark.parametrize("tm", [8, 32, 64])
+@pytest.mark.parametrize("eng", ENGINES)
+def test_engine_matches_jax_kernel_and_xla(eng, tm):
+    _check_engine(eng, *_case(tm))
+
+
+@pytest.mark.parametrize("eng", ENGINES)
+def test_engine_matches_jax_kernel_at_tensor_core_shapes(eng):
+    """tm = tn = 128, tk = 64, runs of several items: tiles that the card's
+    kernels run on tensor cores (``csrc/tile_mma.cuh``)."""
+    ab, bb, wl = _case(128, seed=43, tn=128)
+    assert np.any(np.diff(wl.o_tid) == 0)
+    _check_engine(eng, ab, bb, wl)
 
 
 # (b) panel: pre-transposed A, bf16 output, empty C tiles ------------------
@@ -138,11 +150,7 @@ def test_panel_takes_pretransposed_a():
         engine.run_worklist_panel(a_t, b_t, *ids, run_order="col")
 
 
-def test_panel_bf16_output_matches_jax():
-    """Both round their f32 sums once to bf16; the sums differ in order, so
-    the two may round a value to neighbouring bf16 numbers: at most one
-    bf16 ulp apart.  The port's bf16 output is its f32 output rounded."""
-    ab, bb, wl = _case(8, seed=13)
+def _check_panel_bf16_output(ab, bb, wl):
     a_t, b_t = bsr_to_torch(ab, "cpu"), bsr_to_torch(bb, "cpu")
     ids = (wl.a_tid, wl.b_tid, wl.o_tid, wl.n_c_tiles)
     got = engine.run_worklist_panel(a_t, b_t, *ids,
@@ -155,6 +163,19 @@ def test_panel_bf16_output_matches_jax():
     got = got.float().numpy()
     ulp = np.exp2(np.floor(np.log2(np.abs(ref) + 1e-30)) - 7)
     assert np.all(np.abs(got - ref) <= ulp)
+
+
+def test_panel_bf16_output_matches_jax():
+    """Both round their f32 sums once to bf16; the sums differ in order, so
+    the two may round a value to neighbouring bf16 numbers: at most one
+    bf16 ulp apart.  The port's bf16 output is its f32 output rounded."""
+    _check_panel_bf16_output(*_case(8, seed=13))
+
+
+def test_panel_bf16_output_matches_jax_at_tensor_core_shapes():
+    """As above, at tiles the card runs on tensor cores (tm = tn = 128,
+    tk = 64)."""
+    _check_panel_bf16_output(*_case(128, seed=17, tn=128))
 
 
 def test_panel_gap_tiles_are_zero():

@@ -177,18 +177,26 @@ def test_stream_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, ogroup,
     assert bool((got[empty] == 0).all())
 
 
+# ENGINE_SHAPES and three wide tiles: T = 384 (tensor cores), tk = 32 (the
+# tensor-core block for f32 tiles, tile_pipe.cuh for bf16) and tk = 40
+# (tile_pipe.cuh for both)
+PANEL_GRID_SHAPES = ENGINE_SHAPES + [(384, 384, 384), (128, 32, 128),
+                                     (128, 40, 128)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("runs", ENGINE_RUNS)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tm,tk,tn", ENGINE_SHAPES)
+@pytest.mark.parametrize("tm,tk,tn", PANEL_GRID_SHAPES)
 def test_panel_kernel_matches_plain(cuda_device, tm, tk, tn, dtype,
-                                    out_dtype):
+                                    out_dtype, runs):
     """f32 output: 1e-5 of max|C|.  bf16 output: the kernel's own f32 sum
     rounded once, bitwise; against the plain value rounded the same way,
     one bf16 ulp plus the f32 bar (the two f32 sums differ in order, and
     near a cancellation a bf16 ulp is smaller than their gap)."""
     a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
-                                                        tn, dtype)
+                                                        tn, dtype, runs)
     args = (a.transpose(1, 2).contiguous(), b, ai, bi,
             dev(tile_ptr_of(o_ids, n_c)), out_dtype)
     got = _launched_once("tile_panel", engine.tile_panel, *args)
@@ -209,19 +217,81 @@ def test_panel_kernel_matches_plain(cuda_device, tm, tk, tn, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("runs", ENGINE_RUNS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tm,tk,tn", ENGINE_SHAPES)
-def test_grid_kernel_matches_plain(cuda_device, tm, tk, tn, dtype):
+@pytest.mark.parametrize("tm,tk,tn", PANEL_GRID_SHAPES)
+def test_grid_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, runs):
     """Atomic adds in a run-dependent order: 1e-5 of max|C|.  Any item
     order is right; the worklist is shuffled to show it."""
     a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
-                                                        tn, dtype)
+                                                        tn, dtype, runs)
     perm = dev(np.random.default_rng(0).permutation(len(o_ids)))
     args = (a, b, ai[perm], bi[perm], dev(o_ids)[perm], n_c)
     got = _launched_once("tile_grid", engine.tile_grid, *args)
     ref = engine.tile_grid_reference(*args)
     assert _relerr(got, ref) <= 1e-5
     assert bool((got[empty] == 0).all())
+
+
+def _f64_relerr(got, a, b, ai, bi, o_ids, n_c):
+    """max|got - C| / max|C| of the f64 product of the worklist."""
+    a64, b64 = a.double().cpu(), b.double().cpu()
+    ref = torch.zeros((n_c,) + tuple(got.shape[1:]), dtype=torch.float64)
+    ref.index_add_(0, torch.from_numpy(o_ids).long(),
+                   torch.bmm(a64[ai.long().cpu()], b64[bi.long().cpu()]))
+    return _relerr(got.double().cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_panel_kernel_long_run_against_f64(cuda_device, dtype):
+    """A 64-item run at tk = 512 (one contraction of depth 32768) on the
+    tensor cores: each k-slice's sums folded into f32 keeps C within 1e-5
+    of max|C| of the f64 product, as for tile_spgemm.  Its f32 output is
+    tile_spgemm's C bit for bit (the same arithmetic on the same values);
+    its bf16 output that C rounded once."""
+    rng = np.random.default_rng(64)
+    runs = np.array([1, 64, 0, 8])
+    n_c, w = len(runs), int(runs.sum())
+    o_ids = np.repeat(np.arange(n_c), runs).astype(np.int32)
+    a = torch.from_numpy(rng.standard_normal((16, 128, 512), np.float32))
+    b = torch.from_numpy(rng.standard_normal((16, 512, 256), np.float32))
+    a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    ai = torch.from_numpy(rng.integers(0, 16, w).astype(np.int32))
+    bi = torch.from_numpy(rng.integers(0, 16, w).astype(np.int32))
+    ai, bi = ai.to(cuda_device), bi.to(cuda_device)
+    tp = torch.from_numpy(tile_ptr_of(o_ids, n_c)).to(cuda_device)
+    a_t = a.transpose(1, 2).contiguous()
+    got = _launched_once("tile_panel", engine.tile_panel, a_t, b, ai, bi, tp)
+    assert _f64_relerr(got, a, b, ai, bi, o_ids, n_c) <= 1e-5
+    assert torch.equal(got, tile_spgemm(a, b, ai, bi, tp))
+    out16 = engine.tile_panel(a_t, b, ai, bi, tp, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(out16, got.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_kernel_atomics_collide(cuda_device, dtype):
+    """96 shuffled items into one C tile (and a few into two others): the
+    blocks of every item add into the same addresses at once.  The sum of
+    the folded tensor-core products stays within 1e-5 of max|C| of the f64
+    product and of the plain version."""
+    rng = np.random.default_rng(96)
+    o_ids = np.r_[np.full(96, 1), [0, 0, 2]].astype(np.int32)
+    n_c, w = 3, len(o_ids)
+    perm = rng.permutation(w)
+    o_ids = o_ids[perm]
+    a = torch.from_numpy(rng.standard_normal((8, 256, 512), np.float32))
+    b = torch.from_numpy(rng.standard_normal((8, 512, 256), np.float32))
+    a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    ai = torch.from_numpy(rng.integers(0, 8, w).astype(np.int32))
+    bi = torch.from_numpy(rng.integers(0, 8, w).astype(np.int32))
+    ai, bi = ai.to(cuda_device), bi.to(cuda_device)
+    args = (a, b, ai, bi, torch.from_numpy(o_ids).to(cuda_device), n_c)
+    got = _launched_once("tile_grid", engine.tile_grid, *args)
+    assert _f64_relerr(got, a, b, ai, bi, o_ids, n_c) <= 1e-5
+    assert _relerr(got, engine.tile_grid_reference(*args)) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -253,12 +323,13 @@ def test_engine_kernels_reject_what_they_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 def test_wide_kernels_run_on_tensor_cores(cuda_device):
-    """Every tensor-core kernel of tile_spgemm and tile_stream holds HMMA
-    instructions in the built library (cuobjdump -sass): none compiled
+    """Every tensor-core kernel of the four main-path tile kernels holds
+    HMMA instructions in the built library (cuobjdump -sass): none compiled
     back to FFMA."""
     _build.load()
     counts = _build.sass_counts("HMMA")
-    for kernel in ("tile_spgemm_mma", "tile_stream_mma"):
+    for kernel in ("tile_spgemm_mma", "tile_stream_mma", "tile_panel_mma",
+                   "tile_grid_mma"):
         names = [n for n in counts if kernel in n]
         assert names, f"no {kernel} in the library"
         assert all(counts[n] > 0 for n in names), counts
