@@ -11,15 +11,17 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
 
 1. environment: versions, the card's name and power limit, nvcc, build time,
    and the HMMA (tensor-core) instructions of the tensor-core kernels of
-   ``tile_spgemm``, ``tile_stream``, ``tile_panel`` and ``tile_grid``
-   (``cuobjdump -sass``): a kernel with none, or a toolkit without
-   cuobjdump, fails the run;
+   ``tile_spgemm``, ``tile_stream``, ``tile_panel``, ``tile_grid`` and
+   ``tile_probe_mma`` (``cuobjdump -sass``): a kernel with none, or a
+   toolkit without cuobjdump, fails the run;
 2. each kernel against its plain PyTorch version on the card
    (``tile_spgemm``, both block shapes, and ``tile_stream`` with ogroup 1
    and 8, ``tile_panel`` with f32 and bf16 output, ``tile_grid``:
    max|d|/max|ref| <= 1e-5, the bf16 output its own f32 output rounded
    once and within one bf16 ulp plus 1e-5 of max|ref| of the plain value,
-   empty runs exact zeros; ``esc_stream_mul`` bitwise; ``esc_stream_red``: <= 1e-6);
+   empty runs exact zeros; ``esc_stream_mul`` bitwise; ``esc_stream_red``:
+   <= 1e-6; ``esc_stream_group`` on plans of 1 to 10 classes bitwise its
+   per-class kernels, twice the same bits);
 3. ``cari`` through the port's CLI, equal to scipy (rtol 1e-4, atol 1e-3),
    once on the auto engine (``tile_spgemm``) and once under each
    ``--engine streaming | panel | pallas_grid``, each launching its kernel
@@ -29,7 +31,15 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    first 2048 rows (max|d|/max|ref| < 1e-4), kernel and plain version timed
    on the launches the run made;
 5. the localized power-law pair (65536^2, degree 32): dispatched to the
-   element kernels, gated against scipy on 2048 rows (< 1e-3), timed;
+   element side, one grouped launch per multiply and no per-class launch,
+   gated against scipy on 2048 rows (< 1e-3); on every class the per-class
+   wrappers and the grouped launch held to the plain versions (mul bitwise,
+   red 1e-6) and to each other (bitwise); the grouped launch timed beside
+   the per-class launches, the plain versions and the library calls, with
+   the host's enqueue time per multiply; the red block shapes and the
+   grouped launch's class orders swept; then, on a 8192^2 cut of the pair,
+   ``spgemm_element(backend="xla")`` and row-slab runs of both backends
+   (four slabs or more) against scipy (1e-5 of max|C|);
 6. the engine override at full width: phase 4's plan of the NN pair run
    again through ``spgemm(..., plan=)`` under each ``engine`` streaming,
    panel and pallas_grid, gated against scipy/numpy (< 1e-4) and against
@@ -38,9 +48,13 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    ogroup 1 against 8, in one timing);
 7. the probes (``spada_tpu_torch.tools``) at their tools' sizes: every mode
    of ``tile_probe`` on the banded 65536^2 / T=256 / bf16 workload of
-   ``probe_kernel`` and ``probe_manual`` (modes that write zeros or nothing
-   bitwise equal to their plain versions, the rest, full and flat among
-   them, within 1e-5 of max|C|), ``probe_panel3d`` (``tile_spgemm`` and
+   ``probe_kernel`` and ``probe_manual``, on the FP32 SIMT block
+   (``block="simt"``) and on the tensor-core block with its own modes, and
+   the tensor-core block's modes on the same pair as f32 tiles (modes that
+   write zeros or nothing bitwise equal to their plain versions, the rest,
+   full and flat among them, within 1e-5 of max|C|, ``onepass`` within 1e-5
+   of the product of the operands rounded to TF32, ``nofold`` within 5e-4),
+   ``probe_panel3d`` (``tile_spgemm`` and
    ``tile_panel`` on runs of two slot tiles, 1e-5; its library call one
    ``torch.bmm`` of the gathered run pairs) and
    ``probe_pallas_stream`` (the stream kernels as the main path launches
@@ -181,9 +195,9 @@ def host_enqueue_s(fn, reps: int = 5) -> float:
 
 
 #: the kernels that must run on tensor cores: the wide path of the four
-#: main-path tile kernels (csrc/tile_mma.cuh)
+#: main-path tile kernels and the probe's build of it (csrc/tile_mma.cuh)
 MMA_KERNELS = ("tile_spgemm_mma", "tile_stream_mma", "tile_panel_mma",
-               "tile_grid_mma")
+               "tile_grid_mma", "tile_probe_mma")
 
 
 def check_tensor_cores() -> None:
@@ -267,6 +281,52 @@ def check_kernels(dev, errs: dict) -> None:
         require(err <= 1e-6, f"esc_stream_red L={L}: relerr {err:.3e} > 1e-6")
         errs["esc_stream_red"] = max(errs["esc_stream_red"],
                                      float((got - ref).abs().max()))
+    check_grouped_launch(dev, errs, rng)
+
+
+def check_grouped_launch(dev, errs: dict, rng) -> None:
+    """esc_stream_group on plans of 1 to 10 classes (L = 1 and powers of two
+    up to 512, class sizes from one float4 up): every class bitwise what its
+    per-class kernel gives, within 1e-6 of max|out| of the plain version
+    (L = 1 bitwise), and the same bits when run twice."""
+    import torch
+
+    from spada_tpu_torch.ops.element_stream import (esc_stream_group,
+                                                    esc_stream_mul,
+                                                    esc_stream_mul_reference,
+                                                    esc_stream_red,
+                                                    esc_stream_red_reference)
+
+    all_Ls = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512]
+    worst = 0.0
+    for n_classes in (1, 2, 3, 5, 10):
+        Ls = sorted(rng.choice(all_Ls, n_classes, replace=False).tolist())
+        pairs = []
+        for L in Ls:
+            n = int(rng.choice([4, 132, 4096, 40000]))
+            shape = (max(n // 1024, 1), 1024) if L == 1 else (L, n)
+            pairs.append(tuple(torch.from_numpy(rng.standard_normal(
+                shape, np.float32)).to(dev) for _ in "ab"))
+        got, again = esc_stream_group(pairs, Ls), esc_stream_group(pairs, Ls)
+        torch.cuda.synchronize()
+        for L, (x, y), g, g2 in zip(Ls, pairs, got, again):
+            one, plain = ((esc_stream_mul(x, y),
+                           esc_stream_mul_reference(x, y)) if L == 1 else
+                          (esc_stream_red(x, y),
+                           esc_stream_red_reference(x, y)))
+            require(torch.equal(g, one), f"esc_stream_group L={L}: not "
+                    f"bitwise the per-class kernel's values")
+            require(torch.equal(g, g2), f"esc_stream_group L={L}: two runs "
+                    f"differ")
+            e = float((g - plain).abs().max())
+            rel = e / max(float(plain.abs().max()), 1e-30)
+            require(rel <= (0.0 if L == 1 else 1e-6),
+                    f"esc_stream_group L={L} {tuple(x.shape)}: {rel:.3e}")
+            errs["esc_stream_group"] = max(errs["esc_stream_group"], e)
+            worst = max(worst, rel)
+    require(esc_stream_group([], []) == (), "esc_stream_group: no classes")
+    log(f"  esc_stream_group, plans of 1-10 classes: bitwise the per-class "
+        f"kernels, two runs equal, max|d|/max|plain| {worst:.2e}")
 
 
 def bf16_ulp(x):
@@ -500,12 +560,15 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
     from spada_tpu_torch.cli import run_spada
     from spada_tpu_torch.config import roofline_bound, stream_work
     from spada_tpu_torch.convert import stream_operands_to_torch
-    from spada_tpu_torch.ops.element_stream import (esc_stream_mul,
+    from spada_tpu_torch.ops.element_stream import (esc_stream_group,
+                                                    esc_stream_mul,
                                                     esc_stream_mul_reference,
                                                     esc_stream_red,
                                                     esc_stream_red_reference,
+                                                    stream_execute_reference,
                                                     stream_operands)
     from spada_tpu_torch.io.workloads import localized_powerlaw_csr
+    from spada_tpu_torch.tools.probe_pallas_stream import block_shape_sweep
     from spada_tpu_torch.utils.timing import cuda_time
 
     t0 = time.perf_counter()
@@ -520,9 +583,12 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
         f"engine {run.choice}, launches {counts}")
     require(run.choice == "element",
             f"locpl dispatched to {run.choice}, not element")
-    require(counts.get("esc_stream_mul", 0) > 0
-            and counts.get("esc_stream_red", 0) > 0,
-            "locpl did not launch both stream kernels")
+    # spgemm_element runs the multiply twice (warm, then timed)
+    require(counts.get("esc_stream_group", 0) == 2,
+            f"locpl did not make one grouped launch per multiply: {counts}")
+    require(not counts.get("esc_stream_mul") and not
+            counts.get("esc_stream_red"),
+            f"locpl launched a per-class stream kernel: {counts}")
 
     er = run.result.element
     rows = min(GATE_ROWS, m)
@@ -538,8 +604,10 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
     layout = er.layout
     kind = torch.cuda.get_device_name(dev)
     ops = stream_operands_to_torch(stream_operands(layout, er.plan, a, b), dev)
-    ones = [i for i, c in enumerate(layout.classes) if c["L"] == 1]
-    reds = [i for i, c in enumerate(layout.classes) if c["L"] > 1]
+    Ls = [c["L"] for c in layout.classes]
+    ones = [i for i, L in enumerate(Ls) if L == 1]
+    reds = [i for i, L in enumerate(Ls) if L > 1]
+    grouped = esc_stream_group(ops, Ls)
     for name, idx, kern, plain_fn, library, lib_name in (
             ("esc_stream_mul", ones, esc_stream_mul, esc_stream_mul_reference,
              torch.mul, "torch.mul"),
@@ -551,10 +619,12 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
             e = float((g - r).abs().max())
             rel = e / max(float(r.abs().max()), 1e-30)
             require(rel <= (0.0 if name == "esc_stream_mul" else 1e-6),
-                    f"{name} class L={layout.classes[i]['L']}: {rel:.3e}")
+                    f"{name} class L={Ls[i]}: {rel:.3e}")
+            require(torch.equal(grouped[i], g), f"esc_stream_group class "
+                    f"L={Ls[i]}: not bitwise {name}'s values")
             errs[name] = max(errs[name], e)
-        work = [stream_work(layout.classes[i]["L"], layout.classes[i]["n_pad"])
-                for i in idx]
+            errs["esc_stream_group"] = max(errs["esc_stream_group"], e)
+        work = [stream_work(Ls[i], layout.classes[i]["n_pad"]) for i in idx]
         flops, nbytes = (sum(w[j] for w in work) for j in (0, 1))
 
         def kernel_all():
@@ -579,8 +649,104 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
             f"{h_p * 1e6:.1f} us")
         times[name] = (t_k, t_p)
         extra[name] = {"bound": (b_s, by), "library": (t_l, lib_name)}
-    del ops
+    log("  every class: per-class wrapper and grouped launch bitwise equal; "
+        "against the plain versions mul bitwise, red <= 1e-6")
+
+    # the whole multiply: one grouped launch against the per-class launches,
+    # the plain versions and one library call per class
+    def group_call():
+        return esc_stream_group(ops, Ls)
+
+    def per_class_call():
+        return [esc_stream_mul(*ops[i]) if Ls[i] == 1
+                else esc_stream_red(*ops[i]) for i in range(len(Ls))]
+
+    def plain_call():
+        return stream_execute_reference(layout, ops)
+
+    def library_call():
+        return [torch.mul(*ops[i]) if Ls[i] == 1
+                else torch.linalg.vecdot(*ops[i], dim=0)
+                for i in range(len(Ls))]
+
+    t_g, t_pc = time_pair(group_call, per_class_call)
+    t_pl, _ = cuda_time(plain_call, warmup=1, reps=10)
+    t_lib, _ = cuda_time(library_call, warmup=1, reps=10)
+    work = [stream_work(L, c["n_pad"]) for L, c in zip(Ls, layout.classes)]
+    flops, nbytes = (sum(w[j] for w in work) for j in (0, 1))
+    b_s, by = roofline_bound(flops, nbytes, kind)
+    host = {k: host_enqueue_s(f) for k, f in (
+        ("grouped", group_call), ("per class", per_class_call),
+        ("plain", plain_call))}
+    log(f"  one multiply, {len(Ls)} classes, {nbytes / 1e9:.3f} GB: grouped "
+        f"launch {t_g * 1e3:.3f} ms ({nbytes / t_g / 1e9:.0f} GB/s, "
+        f"{b_s / t_g:.1%} of the bound), per-class launches "
+        f"{t_pc * 1e3:.3f} ms, plain {t_pl * 1e3:.3f} ms, library torch.mul +"
+        f" vecdot per class {t_lib * 1e3:.3f} ms, bound {b_s * 1e3:.3f} ms "
+        f"({by}); host enqueue per multiply: "
+        + ", ".join(f"{k} {v * 1e6:.0f} us" for k, v in host.items()))
+    times["esc_stream_group"] = (t_g, t_pl)
+    extra["esc_stream_group"] = {
+        "bound": (b_s, by),
+        "library": (t_lib, "torch.mul + torch.linalg.vecdot per class")}
+    log("  block shapes of esc_stream_red and class orders of the grouped "
+        "launch (device ms):")
+    block_shape_sweep(ops, Ls, log=lambda s: log("  " + s))
+    del ops, grouped
     torch.cuda.empty_cache()
+    run_element_backends(dev, totals, deg)
+
+
+def run_element_backends(dev, totals: dict, deg: float,
+                         m: int = 8192) -> None:
+    """``spgemm_element`` on a cut of the locpl pair: the fused elementwise
+    backend, and row slabs under both backends, against scipy (f32 sums in
+    another order: 1e-5 of max|C|)."""
+    from spada_tpu_torch.io.workloads import localized_powerlaw_csr
+    from spada_tpu_torch.ops.element import (EscResult, EscSlabbedResult,
+                                             expansion_products,
+                                             spgemm_element)
+    from spada_tpu_torch.ops.element_stream import StreamResult
+
+    a = localized_powerlaw_csr(m, m, deg, seed=1, dtype=np.float32)
+    b = localized_powerlaw_csr(m, m, deg, seed=2, dtype=np.float32)
+    ref = (a.to_scipy() @ b.to_scipy()).tocsr()
+    budget = expansion_products(a, b) // 4
+
+    def gate(label, res):
+        err = float(abs(res.to_csr().to_scipy() - ref).max()
+                    / max(abs(ref).max(), 1e-30))
+        require(err <= 1e-5, f"spgemm_element {label}: {err:.3e} vs scipy")
+        return err
+
+    with main_path(totals) as counts:
+        res = spgemm_element(a, b, dev, backend="xla")
+        require(isinstance(res, EscResult), "backend='xla' did not return "
+                "an EscResult")
+        e_x = gate("backend='xla'", res)
+        require(not _launches_now(),
+                f"backend='xla' launched a hand kernel: {_launches_now()}")
+        parts = {}
+        for backend, kind in (("xla", EscResult), ("auto", StreamResult)):
+            res = spgemm_element(a, b, dev, max_slab_products=budget,
+                                 backend=backend)
+            require(isinstance(res, EscSlabbedResult) and len(res.parts) >= 4
+                    and all(isinstance(p, kind) for p in res.parts),
+                    f"row slabs under backend {backend!r}: {type(res)}")
+            parts[backend] = (len(res.parts), gate(f"slabs, {backend}", res))
+    require(counts.get("esc_stream_group", 0) == 2 * parts["auto"][0]
+            and set(counts) == {"esc_stream_group"},
+            f"row slabs under 'auto': launches {counts}")
+    log(f"  spgemm_element on a {m}^2 cut: backend='xla' {e_x:.2e} of "
+        f"max|C| from scipy; over a budget of {budget} products "
+        + ", ".join(f"{k}: {n} slabs, {e:.2e}" for k, (n, e) in parts.items())
+        + f"; launches {counts}")
+
+
+def _launches_now() -> dict:
+    from spada_tpu_torch import _build
+
+    return dict(_build.launches)
 
 
 # --------------------------------------------------------------------------
@@ -714,36 +880,60 @@ def run_probes(dev, totals: dict, errs: dict, times: dict,
 
     from spada_tpu_torch.tools import (probe_kernel, probe_manual,
                                        probe_pallas_stream, probe_panel3d)
-    from spada_tpu_torch.tools.tile_probe import probe_work, run_modes
+    from spada_tpu_torch.tools.tile_probe import (F32_MODES, MMA_MODES,
+                                                  probe_work, run_modes)
 
     t0 = time.perf_counter()
     work = probe_work(65536, 384, 256, dev)
     log(f"  banded 65536^2 band 384, T=256 bf16 tiles built in "
         f"{time.perf_counter() - t0:.1f} s")
     sub_log = lambda s: log("  " + s)  # noqa: E731
+    tpu_names = probe_kernel.ALL_MODES + probe_manual.ALL_MODES
+    both = [m for m in MMA_MODES if m not in F32_MODES]
     with main_path(totals) as counts:
-        log(" probe_kernel, all modes:")
-        res_k = run_modes(work, probe_kernel.ALL_MODES, log=sub_log)
-        log(" probe_manual, all modes:")
-        res_m = run_modes(work, probe_manual.ALL_MODES, log=sub_log)
+        log(" probe_kernel, all modes, FP32 SIMT block:")
+        res_k = run_modes(work, probe_kernel.ALL_MODES, log=sub_log,
+                          block="simt")
+        log(" probe_manual, all modes, FP32 SIMT block:")
+        res_m = run_modes(work, probe_manual.ALL_MODES, log=sub_log,
+                          block="simt")
+        log(" both probes' modes and the block's own, tensor-core block:")
+        res_t = run_modes(work, tpu_names + both, log=sub_log, block="mma")
+        t1 = time.perf_counter()
+        work32 = probe_work(65536, 384, 256, dev, dtype=torch.float32)
+        log(f" the same pair as f32 tiles (built in "
+            f"{time.perf_counter() - t1:.1f} s), tensor-core block:")
+        res_f = run_modes(work32, ["full", "nodma", "v2nocopy", "v2stat",
+                                   *MMA_MODES], log=sub_log, block="mma")
+        del work32
         log(" probe_panel3d:")
         res_p = probe_panel3d.run(device=dev, log=sub_log)
         log(" probe_pallas_stream:")
         res_s = probe_pallas_stream.run(device=dev, log=sub_log)
     log(f"  launches {counts}")
-    for k in ("tile_probe", "tile_spgemm", "tile_panel", "esc_stream_mul",
+    for k in ("tile_probe", "tile_probe_mma", "tile_spgemm", "tile_panel",
+              "esc_stream_mul",
               "esc_stream_red", "esc_stream_mul_blocked",
               "esc_stream_red_blocked"):
         require(counts.get(k, 0) > 0, f"the probes did not launch {k}")
 
-    modes = {**res_k, **res_m}
-    for mode, rec in modes.items():
-        if rec["exact"] is not None:
-            require(rec["exact"], f"tile_probe {mode}: not bitwise its "
-                    f"plain version")
-        require(rec["relerr"] <= PROBE_TILE_TOL, f"tile_probe {mode}: "
-                f"relerr {rec['relerr']:.3e} > {PROBE_TILE_TOL}")
-        errs["tile_probe"] = max(errs["tile_probe"], rec["max_abs_err"])
+    for name, label, modes in (
+            ("tile_probe", "SIMT", {**res_k, **res_m}),
+            ("tile_probe_mma", "tensor cores, bf16 tiles", res_t),
+            ("tile_probe_mma", "tensor cores, f32 tiles", res_f)):
+        for mode, rec in modes.items():
+            if rec["exact"] is not None:
+                require(rec["exact"], f"{name} {mode} ({label}): not "
+                        f"bitwise its plain version")
+            require(rec["relerr"] <= rec["tol"], f"{name} {mode} ({label}): "
+                    f"relerr {rec['relerr']:.3e} > {rec['tol']}")
+            errs[name] = max(errs[name], rec["max_abs_err"])
+    for label, res in (("bf16", res_t), ("f32", res_f)):
+        full = res["full"]["ms"]
+        log(f"  tensor-core block, {label} tiles, ms less than full "
+            f"({full:.3f} ms): "
+            + ", ".join(f"{m} {full - r['ms']:+.3f}" for m, r in res.items()
+                        if m != "full"))
     for variant, rec in res_p.items():
         require(rec["relerr"] <= PROBE_TILE_TOL, f"panel3d {variant}: "
                 f"relerr {rec['relerr']:.3e} > {PROBE_TILE_TOL}")
@@ -769,8 +959,9 @@ def run_probes(dev, totals: dict, errs: dict, times: dict,
         extra[name] = {"bound": (rec["bound_ms"] * 1e-3, rec["bound_by"]),
                        "library": (rec["library_ms"] * 1e-3, lib)}
 
-    full = res_k["full"]
-    times["tile_probe"] = (full["ms"] * 1e-3, full["plain_ms"] * 1e-3)
+    for name, res in (("tile_probe", res_k), ("tile_probe_mma", res_t)):
+        full = res["full"]
+        times[name] = (full["ms"] * 1e-3, full["plain_ms"] * 1e-3)
     kind = torch.cuda.get_device_name(dev)
     # one dense product computes the same C: bf16 in, f32 out (the probe's
     # C tiles are f32); a torch without out_dtype gives bf16 out
@@ -828,7 +1019,8 @@ def main() -> int:
 
     errs = dict.fromkeys(("tile_spgemm", "tile_stream", "tile_panel",
                           "tile_grid", "esc_stream_mul", "esc_stream_red",
-                          "tile_probe", "esc_stream_mul_blocked",
+                          "esc_stream_group", "tile_probe", "tile_probe_mma",
+                          "esc_stream_mul_blocked",
                           "esc_stream_red_blocked"), 0.0)
     totals: dict = {}
     times: dict = {}
@@ -876,6 +1068,10 @@ def main() -> int:
                "esc_stream_red": ("spada_tpu_torch/csrc/esc_stream.cu",
                                   "spada_tpu/ops/element_stream.py:184",
                                   "esc_stream_red"),
+               "esc_stream_group": ("spada_tpu_torch/csrc/esc_stream.cu",
+                                    "spada_tpu/ops/element_stream.py:168, "
+                                    "spada_tpu/ops/element_stream.py:184",
+                                    "esc_stream_group"),
                "esc_stream_mul_blocked": (
                    "spada_tpu_torch/csrc/esc_stream.cu",
                    "tools/probe_pallas_stream.py:65",
@@ -886,7 +1082,11 @@ def main() -> int:
                    "esc_stream_red_blocked"),
                "tile_probe": ("spada_tpu_torch/csrc/tile_probe.cu",
                               "tools/probe_kernel.py:153, "
-                              "tools/probe_manual.py:375", "tile_probe")}
+                              "tools/probe_manual.py:375", "tile_probe"),
+               "tile_probe_mma": (
+                   "spada_tpu_torch/csrc/tile_probe_mma.cuh",
+                   "tools/probe_kernel.py:153, tools/probe_manual.py:375",
+                   "tile_probe")}
     kernels = []
     for name, (src, replaces, key) in sources.items():
         require(totals.get(name, 0) > 0, f"{name} never ran on the main path")

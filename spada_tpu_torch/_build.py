@@ -50,14 +50,17 @@ _SIGNATURES = {
                          ctypes.c_int, ctypes.c_int, _P],
     # a, b, out, n, stream
     "esc_stream_mul": [_P, _P, _P, ctypes.c_longlong, _P],
-    # a, b, out, L, n_pad, stream
-    "esc_stream_red": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    # a, b, out, L, n_pad, slices, group, stream
+    "esc_stream_red": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _I, _I,
+                       _P],
+    # table (host int64 [n, 8]), n, n_blocks, stream
+    "esc_stream_group": [_P, _I, ctypes.c_longlong, _P],
     # a, b, out, n, block, stream
     "esc_stream_mul_blocked": [_P, _P, _P, ctypes.c_longlong,
                                ctypes.c_longlong, _P],
-    # a, b, out, L, n_pad, block, stream
+    # a, b, out, L, n_pad, slices, group, block, stream
     "esc_stream_red_blocked": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-                               ctypes.c_longlong, _P],
+                               _I, _I, ctypes.c_longlong, _P],
     # a_tiles, b_tiles, a_tid, b_tid, o_tid, item_ptr, c_tiles, n_c, ogroup,
     # tm, tk, tn, nbuf, stream
     "tile_stream_f32": [_P] * 7 + [_I] * 6 + [_P],
@@ -74,6 +77,9 @@ _SIGNATURES = {
     # a_slots, b_slots, mode, stream
     "tile_probe_f32": [_P] * 6 + [_I] * 7 + [_P],
     "tile_probe_bf16": [_P] * 6 + [_I] * 7 + [_P],
+    # as tile_probe's, then stages, a_t, stream
+    "tile_probe_mma_f32": [_P] * 6 + [_I] * 9 + [_P],
+    "tile_probe_mma_bf16": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 

@@ -6,8 +6,9 @@
 //   tile_panel.cu   as tile_spgemm, A k-transposed, f32 or bf16 output;
 //   tile_grid.cu    one block per piece of one item, added into C with f32
 //                   atomics.
-// tile_probe.cu keeps the FP32 SIMT block of tile_wide.cuh, and every other
-// shape runs the SIMT blocks of tile_wide.cuh / tile_pipe.cuh.
+// tile_probe_mma.cuh runs it with one part stripped or changed per mode
+// (piece's and slice_mma's compile-time M, kFull everywhere else), and every
+// other shape runs the SIMT blocks of tile_wide.cuh / tile_pipe.cuh.
 //
 // Work unit.  A block of 256 threads (8 warps, 2 along rows x 4 along
 // columns, each warp 64 x 32) computes one 128 x 128 piece (row0, col0) of
@@ -88,6 +89,22 @@ constexpr int kWM = 64;        // rows per warp
 constexpr int kMT = kWM / 16;  // m16 fragments per warp
 constexpr int kNT = kBN / kWarpsN / 8;  // n8 fragments per warp
 constexpr int kDeepest = 4;    // deepest ring compiled
+
+// ---- probe modes (tile_probe_mma.cuh; M = kFull is the block as it runs) --
+
+using namespace mode;
+// the A/B slices are copied into the ring
+template <int M>
+constexpr bool kLoads = M != kNoDma && M != kDots && M != kStat && M != kNoBar;
+// nothing is copied, and the worklist ids pick the (zeroed) stage multiplied
+template <int M>
+constexpr bool kIdsOnly = M == kNoDma || M == kDots || M == kNoBar;
+// every item reads the same A and B tile: no worklist reads
+template <int M>
+constexpr bool kFixed = M == kStatSlot || M == kOneSlot || M == kNoAcc;
+// f32 operands are rounded to TF32 once, not split into two TF32 parts
+template <int M>
+constexpr bool kNoSplit = M == kOnePass || M == kBigOnly;
 
 template <typename T>
 struct Op;
@@ -192,18 +209,30 @@ __device__ __forceinline__ void fold(float (&acc)[kMT][kNT][4],
       for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
 }
 
-// acc += As @ Bs over one staged f32 slice, 3xTF32, its mmas summed in d
-// and folded into acc.  Fragment (m16n8k8): lane = 4g + t holds
-// A[g | g+8][t | t+4], B[t | t+4][g], C[g | g+8][2t, 2t+1].
-template <bool A_T>
-__device__ __forceinline__ void slice_mma(const float* As, const float* Bs,
-                                          int wm0, int wn0, int lane,
-                                          float (&acc)[kMT][kNT][4]) {
+// x's TF32 parts for the mmas of mode M: both, or with kNoSplit the big one
+// alone (one cvt, no subtraction)
+template <int M>
+__device__ __forceinline__ void parts(float x, uint32_t& big,
+                                      uint32_t& small) {
+  if constexpr (kNoSplit<M>)
+    big = to_tf32(x);
+  else
+    split(x, big, small);
+}
+
+// d += As @ Bs over one staged f32 slice, 3xTF32.  Fragment (m16n8k8):
+// lane = 4g + t holds A[g | g+8][t | t+4], B[t | t+4][g],
+// C[g | g+8][2t, 2t+1].  Probe modes: kOnePass one mma per fragment pair on
+// the operands rounded to TF32 (a 1xTF32 product), kBigOnly three of those
+// (the mma work of 3xTF32 without the split: d holds three times the 1xTF32
+// product).
+template <bool A_T, int M>
+__device__ __forceinline__ void slice_sums(const float* As, const float* Bs,
+                                           int wm0, int wn0, int lane,
+                                           float (&d)[kMT][kNT][4]) {
   using S = Stage<float, A_T>;
   constexpr int P = S::kAPitch, PB = S::kBPitch, Q = S::BK / Op<float>::KI;
   const int g = lane >> 2, t = lane & 3;
-  float d[kMT][kNT][4];
-  zero(d);
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int kk = q * Op<float>::KI;
@@ -212,60 +241,68 @@ __device__ __forceinline__ void slice_mma(const float* As, const float* Bs,
     for (int i = 0; i < kMT; ++i) {
       if constexpr (A_T) {  // As[k][m]: bank 8t + g, as B's reads
         const float* p = As + (kk + t) * P + wm0 + i * 16 + g;
-        split(p[0], ab[i][0], as[i][0]);
-        split(p[8], ab[i][1], as[i][1]);
-        split(p[4 * P], ab[i][2], as[i][2]);
-        split(p[4 * P + 8], ab[i][3], as[i][3]);
+        parts<M>(p[0], ab[i][0], as[i][0]);
+        parts<M>(p[8], ab[i][1], as[i][1]);
+        parts<M>(p[4 * P], ab[i][2], as[i][2]);
+        parts<M>(p[4 * P + 8], ab[i][3], as[i][3]);
       } else {
         const float* p = As + (wm0 + i * 16 + g) * P + kk + t;
-        split(p[0], ab[i][0], as[i][0]);
-        split(p[8 * P], ab[i][1], as[i][1]);
-        split(p[4], ab[i][2], as[i][2]);
-        split(p[8 * P + 4], ab[i][3], as[i][3]);
+        parts<M>(p[0], ab[i][0], as[i][0]);
+        parts<M>(p[8 * P], ab[i][1], as[i][1]);
+        parts<M>(p[4], ab[i][2], as[i][2]);
+        parts<M>(p[8 * P + 4], ab[i][3], as[i][3]);
       }
     }
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       const float* p = Bs + (kk + t) * PB + wn0 + j * 8 + g;
-      split(p[0], bb[j][0], bs[j][0]);
-      split(p[4 * PB], bb[j][1], bs[j][1]);
+      parts<M>(p[0], bb[j][0], bs[j][0]);
+      parts<M>(p[4 * PB], bb[j][1], bs[j][1]);
     }
-    // three passes over all fragments, so neighbouring mmas are independent
+    if constexpr (kNoSplit<M>) {
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+      for (int pass = 0; pass < (M == kOnePass ? 1 : 3); ++pass)
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) mma_tf32(d[i][j], as[i], bb[j]);
+        for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+          for (int j = 0; j < kNT; ++j) mma_tf32(d[i][j], ab[i], bb[j]);
+    } else {
+      // three passes over all fragments, so neighbouring mmas are
+      // independent
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) mma_tf32(d[i][j], ab[i], bs[j]);
+      for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+        for (int j = 0; j < kNT; ++j) mma_tf32(d[i][j], as[i], bb[j]);
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) mma_tf32(d[i][j], ab[i], bb[j]);
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_tf32(d[i][j], ab[i], bs[j]);
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_tf32(d[i][j], ab[i], bb[j]);
+    }
   }
-  fold(acc, d);
 }
 
-// acc += As @ Bs over one staged bf16 slice, its mmas summed in d and
-// folded into acc.  Fragment (m16n8k16): lane = 4g + t holds
+// d += As @ Bs over one staged bf16 slice.  Fragment (m16n8k16): lane =
+// 4g + t holds
 // A[g | g+8][2t, 2t+1 | 2t+8, 2t+9], B[2t, 2t+1 | 2t+8, 2t+9][g] (from
 // ldmatrix.trans of [k][n] rows), C as for f32.  ldmatrix.trans gives lane
 // 4g + t of an 8 x 8 matrix of [k][*] rows the elements of rows 2t, 2t+1
 // in column g, so of [k][m] rows of A it gives A[g][2t, 2t+1]: the four
 // matrices (m 0-7 | 8-15) x (k 0-7 | 8-15) are the A fragment's a[0..3].
-template <bool A_T>
-__device__ __forceinline__ void slice_mma(const __nv_bfloat16* As,
-                                          const __nv_bfloat16* Bs, int wm0,
-                                          int wn0, int lane,
-                                          float (&acc)[kMT][kNT][4]) {
+template <bool A_T, int M>
+__device__ __forceinline__ void slice_sums(const __nv_bfloat16* As,
+                                           const __nv_bfloat16* Bs, int wm0,
+                                           int wn0, int lane,
+                                           float (&d)[kMT][kNT][4]) {
   using S = Stage<__nv_bfloat16, A_T>;
   constexpr int P = S::kAPitch, PB = S::kBPitch;
   constexpr int Q = S::BK / Op<__nv_bfloat16>::KI;
   static_assert(kNT % 2 == 0, "ldmatrix.x4 reads two n8 fragments");
+  static_assert(!kNoSplit<M>, "bf16 operands are not split");
   const int g = lane >> 2, t = lane & 3;
-  float d[kMT][kNT][4];
-  zero(d);
   // ldmatrix: matrix q = lane / 8 is k half q & 1 of n8 fragment q >> 1
   const int lk = (lane & 7) + ((lane >> 3) & 1) * 8, ln = (lane >> 4) * 8;
   // and of A's [k][m] rows: m half q & 1, k half q >> 1
@@ -300,7 +337,24 @@ __device__ __forceinline__ void slice_mma(const __nv_bfloat16* As,
 #pragma unroll
       for (int j = 0; j < kNT; ++j) mma_bf16(d[i][j], a[i], b[j]);
   }
-  fold(acc, d);
+}
+
+// acc += As @ Bs over one staged slice: its mmas summed in a register tile
+// d that starts at zero, and d folded into acc.  Probe mode kNoFold sums
+// through the tensor cores straight into acc (no d: 64 registers fewer, and
+// sums that round toward zero over the whole run).
+template <bool A_T, int M, typename T>
+__device__ __forceinline__ void slice_mma(const T* As, const T* Bs, int wm0,
+                                          int wn0, int lane,
+                                          float (&acc)[kMT][kNT][4]) {
+  if constexpr (M == kNoFold) {
+    slice_sums<A_T, M>(As, Bs, wm0, wn0, lane, acc);
+  } else {
+    float d[kMT][kNT][4];
+    zero(d);
+    slice_sums<A_T, M>(As, Bs, wm0, wn0, lane, d);
+    fold(acc, d);
+  }
 }
 
 // ---- staging and stores -----------------------------------------------------
@@ -448,12 +502,23 @@ int with_depth(int depth, F f) {
 // tile, and `out` (Store or Add) takes each finished tile.  A tiles are
 // [tm][tk], or with A_T k-transposed [tk][tm].  smem holds STAGES stages of
 // Stage<T, A_T>.
-template <typename T, int STAGES, bool A_T, class OTile, class Out>
+//
+// M is a probe mode (tile_probe_mma.cuh), kFull in every main-path kernel; with
+// kFull none of the branches below compiles to anything.  kNoDma, kDots and
+// kNoBar copy nothing and multiply a zeroed ring, the stage picked from the
+// item's worklist ids (kStat: without reading them; kNoBar: without the
+// per-slice barrier, which then guards nothing); kStatSlot, kOneSlot and
+// kNoAcc read A tile fix_a and B tile fix_b for every item, and kNoAcc
+// zeroes the accumulator at each item; kOnePass, kBigOnly and kNoFold change
+// slice_mma.  Whether C is written is the caller's `out`.
+template <typename T, int STAGES, bool A_T, int M = kFull, class OTile,
+          class Out>
 __device__ __forceinline__ void piece(
     const T* __restrict__ a_tiles, const T* __restrict__ b_tiles,
     const int32_t* __restrict__ a_tid, const int32_t* __restrict__ b_tid,
     OTile o_of, int lo, int hi, int c_first, int c_end, const Out& out,
-    int tm, int tk, int tn, int row0, int col0, unsigned char* smem) {
+    int tm, int tk, int tn, int row0, int col0, unsigned char* smem,
+    int fix_a = 0, int fix_b = 0) {
   using S = Stage<T, A_T>;
   static_assert(STAGES >= 2, "ring depth");
   T* ring = reinterpret_cast<T*>(smem);
@@ -467,39 +532,57 @@ __device__ __forceinline__ void piece(
   int iw = lo, ik = 0;
   const T* a_w = a_tiles;
   const T* b_w = b_tiles;
-  if (lo < hi) {
-    a_w += (size_t)a_tid[lo] * a_size;
-    b_w += (size_t)b_tid[lo] * b_size;
+  if constexpr (kFixed<M>) {
+    a_w += (size_t)fix_a * a_size;
+    b_w += (size_t)fix_b * b_size;
+  } else if constexpr (kLoads<M>) {
+    if (lo < hi) {
+      a_w += (size_t)a_tid[lo] * a_size;
+      b_w += (size_t)b_tid[lo] * b_size;
+    }
   }
   auto issue_next = [&](int stage) {
-    if (iw < hi) {
-      issue<T, A_T>(ring + stage * S::kElems, a_w, b_w, tm, tk, tn, row0,
-                    col0, ik * S::BK, tid);
-      if (++ik == k_steps) {
-        ik = 0;
-        if (++iw < hi) {
-          a_w = a_tiles + (size_t)a_tid[iw] * a_size;
-          b_w = b_tiles + (size_t)b_tid[iw] * b_size;
+    if constexpr (kLoads<M>) {
+      if (iw < hi) {
+        issue<T, A_T>(ring + stage * S::kElems, a_w, b_w, tm, tk, tn, row0,
+                      col0, ik * S::BK, tid);
+        if (++ik == k_steps) {
+          ik = 0;
+          if (++iw < hi && !kFixed<M>) {
+            a_w = a_tiles + (size_t)a_tid[iw] * a_size;
+            b_w = b_tiles + (size_t)b_tid[iw] * b_size;
+          }
         }
       }
+      cp_async_commit();  // one group per slice, empty past the end
     }
-    cp_async_commit();  // one group per slice, empty past the end
   };
 
   float acc[kMT][kNT][4];
   zero(acc);
   const int r0 = row0 + wm0, n0 = col0 + wn0;
 
+  if constexpr (!kLoads<M>) {
+    for (int i = tid; i < STAGES * S::kElems; i += kThreads) ring[i] = T(0.0f);
+    __syncthreads();
+  }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) issue_next(s);
   int next_c = c_first;  // the first C tile not yet written
   int stage = 0;         // the stage of the slice in hand
   for (int w = lo, k = 0; w < hi;) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of the slice ...
-    __syncthreads();  // ... and everyone's; all are done with the last one
+    if constexpr (M != kNoBar)
+      __syncthreads();  // ... and everyone's; all are done with the last one
     issue_next(stage == 0 ? STAGES - 1 : stage - 1);  // refill the last's
-    const T* st = ring + stage * S::kElems;
-    slice_mma<A_T>(st, st + S::kA, wm0, wn0, lane, acc);
+    int use = stage;
+    if constexpr (kIdsOnly<M>)
+      use = (int)((unsigned)(stage ^ a_tid[w] ^ b_tid[w]) % STAGES);
+    if constexpr (M == kNoAcc) {
+      if (k == 0) zero(acc);
+    }
+    const T* st = ring + use * S::kElems;
+    slice_mma<A_T, M>(st, st + S::kA, wm0, wn0, lane, acc);
     stage = stage == STAGES - 1 ? 0 : stage + 1;
     if (++k < k_steps) continue;
     k = 0;

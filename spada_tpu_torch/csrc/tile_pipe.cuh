@@ -17,6 +17,32 @@
 
 namespace spada {
 
+// The part a probe build of a block strips (tile_probe.cu and
+// tile_probe_mma.cuh hold the tables and run every mode; the main-path
+// kernels build kFull only).  The SIMT wide block (tile_wide.cuh) has the
+// first twelve, the tensor-core block (tile_mma.cuh) all; the values are the
+// probe entry points' `mode` argument.
+namespace mode {
+enum : int {
+  kFull = 0,
+  kNoDma,
+  kStatSlot,
+  kOneSlot,
+  kNoAcc,
+  kNoCopy,
+  kDots,
+  kStat,
+  kLoop,
+  kEmpty,
+  kEmpty0,
+  kFlat,
+  kOnePass,
+  kBigOnly,
+  kNoFold,
+  kNoBar
+};
+}  // namespace mode
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -12,8 +12,11 @@
 // accumulator in registers) with a compile-time mode that removes one part
 // at a time.  tile_spgemm.cu runs the same code in mode full only for wide
 // tiles whose tk the tensor-core block (tile_mma.cuh) does not take; its
-// usual wide path is that tensor-core block, which has no modes yet.
-// Tiles: tm, tn multiples of 128, tk of 8; f32 or bf16 (widened on load).
+// usual wide path is that tensor-core block, whose modes are
+// tile_probe_mma.cuh's.  This kernel stays for the shapes that block does
+// not take and for rerunning the SIMT block's table (the wrapper's
+// block="simt").  Tiles: tm, tn multiples of 128, tk of 8; f32 or bf16
+// (widened on load).
 //
 //   mode      GPU kernel                                    C it writes
 //   full      unchanged                                     the C of the run

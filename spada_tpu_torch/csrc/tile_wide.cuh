@@ -19,20 +19,7 @@ namespace wide {
 constexpr int kP = 128;  // piece edge
 constexpr int kBK = 8;
 
-enum : int {
-  kFull = 0,
-  kNoDma,
-  kStatSlot,
-  kOneSlot,
-  kNoAcc,
-  kNoCopy,
-  kDots,
-  kStat,
-  kLoop,
-  kEmpty,
-  kEmpty0,
-  kFlat
-};
+using namespace mode;  // kFull .. kFlat
 
 // global loads of A and B tiles
 template <int M>

@@ -1,9 +1,14 @@
-"""Element-granular (ESC) SpGEMM path for scattered structure: the host plan.
+"""Element-granular (ESC) SpGEMM path for scattered structure: the host plan,
+the fused-elementwise executor and the one-call entry point.
 
-A mirror of the plan half of :mod:`spada_tpu.ops.element`
-(``EscBucket``/``EscPlan``/``build_esc_plan``/``expansion_products``), kept
-array-for-array equal to it by ``tests/test_torch_element.py``.  The C++
-planner is the port's copy, :func:`spada_tpu_torch.native.esc_plan`.
+The host half is a mirror of :mod:`spada_tpu.ops.element`
+(``EscBucket``/``EscPlan``/``build_esc_plan``/``expansion_products``,
+``esc_operands``, the row-slab helpers ``_row_slab_bounds``/``_slice_rows``/
+``concat_row_slabs`` and ``EscSlabbedResult``), kept array-for-array equal to
+it by ``tests/test_torch_element.py``.  The C++ planner is the port's copy,
+:func:`spada_tpu_torch.native.esc_plan`.  :func:`esc_execute` is the port of
+the reference's jitted ``'xla'`` executor: plain tensor operations, as that
+one is plain XLA outside any Pallas kernel.
 
 The host expands every scalar product a[i,k]*b[k,j], sorts the products by
 output element and buckets the output chunks by product count L (a power
@@ -222,36 +227,261 @@ def _build_esc_plan_numpy(a: CsrMatrix, b: CsrMatrix, cap: int) -> EscPlan:
                    n_products=E, n_padded=n_padded)
 
 
+def esc_operands(plan: EscPlan, a: CsrMatrix, b: CsrMatrix,
+                 dtype=np.float32) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Numeric layout: gather operand values into the plan's buckets.
+
+    This is the per-value-refresh half: a pure host gather by the fixed
+    plan indices (the analog of re-filling the fiber cache for new data).
+    """
+    a_ext = np.append(a.data, 0.0).astype(dtype)
+    b_ext = np.append(b.data, 0.0).astype(dtype)
+    # the L=1 class ships FLAT [n] (not [n,1]): its chunk values are the
+    # products themselves, and an [n,1]->[n] reshape on the device would be
+    # one more pass over the class
+    return [(a_ext[bk.a_gidx[:, 0]], b_ext[bk.b_gidx[:, 0]]) if bk.L == 1
+            else (a_ext[bk.a_gidx], b_ext[bk.b_gidx])
+            for bk in plan.buckets]
+
+
+def _to_tensor(x: np.ndarray, dev):
+    import torch
+
+    x = np.ascontiguousarray(x)
+    if x.dtype.name == "bfloat16":   # ml_dtypes: torch.from_numpy has none
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(x).to(dev)
+
+
+def esc_transfer(operands, device) -> tuple:
+    """Move operand buckets to ``device`` (once per value set)."""
+    from spada_tpu_torch.convert import check_device
+
+    dev = check_device(device)
+    return tuple((_to_tensor(av, dev), _to_tensor(bv, dev))
+                 for av, bv in operands)
+
+
+def esc_execute(operands, out_dtype=None) -> tuple:
+    """Device numeric phase of the ``'xla'`` backend: products and
+    fixed-width merges as plain tensor operations, no indexed operation.
+
+    ``operands``: per-class tensor pairs from :func:`esc_transfer`, flat
+    ``[n]`` for L = 1 and ``[n, L]`` otherwise.  Products and sums are f32;
+    ``out_dtype`` (f32 by default, or ``torch.bfloat16``) narrows the store
+    of the chunk values.  Returns a tuple of per-class tensors in esc
+    (bucket) order, not one concatenated tensor: a device concatenate would
+    stream the whole output once more.
+    """
+    import torch
+
+    out_dtype = out_dtype or torch.float32
+    outs = []
+    for av, bv in operands:
+        prod = (av * bv).to(torch.float32)
+        if prod.dim() == 1:
+            outs.append(prod.to(out_dtype))
+        elif prod.shape[1] == 1:
+            outs.append(prod.reshape(-1).to(out_dtype))
+        else:
+            outs.append(prod.sum(dim=1).to(out_dtype))
+    return tuple(outs)
+
+
+def esc_values_host(values) -> np.ndarray:
+    """Flatten per-class device chunk values to one host f32 array in esc
+    (bucket-concatenated) order."""
+    from spada_tpu_torch.convert import c_tiles_to_numpy
+
+    parts = [c_tiles_to_numpy(v) for v in values]
+    return (np.concatenate(parts) if parts else np.zeros(0, np.float32))
+
+
+@dataclasses.dataclass
+class EscResult:
+    """Element-path result: C structure (host) + chunk values (device)."""
+
+    plan: EscPlan
+    values: object    # tuple of per-class tensors, esc (bucket) order
+    elapsed_s: Optional[float] = None
+
+    def to_csr(self) -> CsrMatrix:
+        data = np.zeros(self.plan.nnz_c, np.float64)
+        # oversized segments contributed several partial chunks at the same
+        # CSR position; add-at combines them (the final psum merge)
+        np.add.at(data, self.plan.esc_to_csr,
+                  esc_values_host(self.values).astype(np.float64))
+        return CsrMatrix(self.plan.shape, self.plan.indptr,
+                         self.plan.indices, data.astype(np.float32))
+
+    def todense(self) -> np.ndarray:
+        return self.to_csr().todense()
+
+
+@dataclasses.dataclass
+class EscSlabbedResult:
+    """Row-slab-streamed element result (nnz(C) and E beyond one plan).
+
+    Rows are split so each slab's expansion fits the planner range and the
+    host/device operand memory budget; slabs plan+execute independently
+    (the ESC plan is per-row separable) and concatenate exactly.  ``parts``
+    are ``EscResult`` or ``StreamResult`` objects, by the backend.
+    """
+
+    shape: Tuple[int, int]
+    parts: list
+    elapsed_s: float
+
+    @property
+    def n_products(self) -> int:
+        return sum(p.plan.n_products for p in self.parts)
+
+    @property
+    def n_padded(self) -> int:
+        return sum(p.plan.n_padded for p in self.parts)
+
+    @property
+    def nnz_c(self) -> int:
+        return sum(p.plan.nnz_c for p in self.parts)
+
+    @property
+    def n_chunks(self) -> int:
+        return sum(len(p.plan.esc_to_csr) for p in self.parts)
+
+    def operand_bytes(self, itemsize: int = 4, out_itemsize: int = 4) -> int:
+        return sum(p.plan.operand_bytes(itemsize, out_itemsize)
+                   for p in self.parts)
+
+    def to_csr(self) -> CsrMatrix:
+        return concat_row_slabs(self.shape,
+                                [p.to_csr() for p in self.parts])
+
+    def todense(self) -> np.ndarray:
+        return self.to_csr().todense()
+
+
+def concat_row_slabs(shape, csrs) -> CsrMatrix:
+    """Stack row-slab CSRs vertically into one matrix (exact: slabs
+    partition the row space)."""
+    if not csrs:
+        return CsrMatrix(shape, np.zeros(shape[0] + 1, np.int64), [], [])
+    offs = np.cumsum([0] + [c.nnz for c in csrs])[:-1]
+    indptr = np.concatenate(
+        [[0]] + [c.indptr[1:] + off for c, off in zip(csrs, offs)]
+    ).astype(np.int64)
+    return CsrMatrix(
+        shape, indptr,
+        np.concatenate([c.indices for c in csrs]),
+        np.concatenate([c.data for c in csrs]),
+    )
+
+
+def _slice_rows(m: CsrMatrix, s: int, t: int) -> CsrMatrix:
+    lo, hi = int(m.indptr[s]), int(m.indptr[t])
+    return CsrMatrix((t - s, m.shape[1]), m.indptr[s : t + 1] - lo,
+                     m.indices[lo:hi], m.data[lo:hi])
+
+
+def _row_slab_bounds(a: CsrMatrix, b: CsrMatrix, max_products: int):
+    """Row boundaries such that each slab's expansion <= max_products
+    (a single row over the limit gets its own slab — its plan must still
+    fit the 2^31 range or the planner raises loudly).  Vectorized: repeated
+    searchsorted on the cumulative expansion instead of a per-row Python
+    loop (the path only triggers for huge matrices)."""
+    blen = np.diff(b.indptr).astype(np.int64)
+    fan = blen[a.indices]
+    cs = np.concatenate([[0], np.cumsum(fan)])
+    row_e_cum = cs[a.indptr]          # [m+1] cumulative E at row starts
+    bounds = [0]
+    m = a.shape[0]
+    while bounds[-1] < m:
+        start = bounds[-1]
+        # furthest row end whose slab expansion stays under the budget
+        r = int(np.searchsorted(row_e_cum, row_e_cum[start] + max_products,
+                                side="right")) - 1
+        bounds.append(max(min(r, m), start + 1))
+    return bounds
+
+
+def resolve_element_backend(backend: str) -> str:
+    """'auto' -> 'pallas': in this package both names mean the hand-written
+    stream kernels of ``csrc/esc_stream.cu`` (measured faster than the
+    fused elementwise passes on an H100, ``PERF.md``).  Unlike the
+    reference, 'auto' does not look at the machine: an entry point runs on
+    the device it is given, and a machine without a card gets an error from
+    that device, not another executor."""
+    return "pallas" if backend == "auto" else backend
+
+
 def spgemm_element(a: CsrMatrix, b: CsrMatrix, device, cap: int = 512,
-                   max_slab_products: int = 2**28):
-    """One-call element-granular SpGEMM on ``device``: plan, stream layout,
-    operand transfer, one launch per class.
+                   plan: Optional[EscPlan] = None, dtype=np.float32,
+                   max_slab_products: int = 2**28, backend: str = "auto"):
+    """One-call element-granular SpGEMM on ``device`` (plan + operands +
+    execute).
 
     ``elapsed_s`` times the second, warm execution only (planning and the
     host-to-device transfer are a one-time format cost, like shipping BSR
-    tiles).  Expansions above ``max_slab_products`` need the row-slab
-    streaming of the JAX package, which is not ported yet.
+    tiles).  Expansions larger than ``max_slab_products`` (default 2^28,
+    about 2.1 GB of f32 operands) stream through row slabs and return an
+    :class:`EscSlabbedResult`; a given ``plan`` is used as it is, without
+    the slab split.  ``backend`` picks the numeric executor: 'auto' and
+    'pallas' the hand-written stream kernels
+    (:mod:`spada_tpu_torch.ops.element_stream`, one grouped launch; returns
+    a ``StreamResult``), 'xla' the fused elementwise operations of
+    :func:`esc_execute` (returns an :class:`EscResult`).  ``dtype`` is the
+    operands' type: the stream kernels take float32 only.
     """
     from spada_tpu_torch.convert import (check_device,
                                          stream_operands_to_torch,
                                          synchronize)
-    from spada_tpu_torch.ops.element_stream import (StreamResult,
-                                                    build_stream_layout,
-                                                    stream_execute,
-                                                    stream_operands)
 
     dev = check_device(device)
-    if a.shape[0] > 1 and expansion_products(a, b) > max_slab_products:
-        raise NotImplementedError(
-            f"element path: E > {max_slab_products} products needs row-slab "
-            f"streaming, which spada_tpu_torch does not have yet")
-    plan = build_esc_plan(a, b, cap=cap)
-    layout = build_stream_layout(plan)
-    ops = stream_operands_to_torch(stream_operands(layout, plan, a, b), dev)
-    stream_execute(layout, ops)  # first use builds and loads the kernels
+    backend = resolve_element_backend(backend)
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown element backend {backend!r}")
+    if backend == "pallas" and np.dtype(dtype) != np.float32:
+        raise TypeError(
+            f"element backend 'pallas': the stream kernels take float32 "
+            f"operands, got dtype {np.dtype(dtype).name}; use backend='xla'")
+    if (plan is None and a.shape[0] > 1
+            and expansion_products(a, b) > max_slab_products):
+        bounds = _row_slab_bounds(a, b, max_slab_products)
+        parts = []
+        elapsed = 0.0
+        for s, t in zip(bounds[:-1], bounds[1:]):
+            part = spgemm_element(_slice_rows(a, s, t), b, dev, cap=cap,
+                                  dtype=dtype,
+                                  max_slab_products=max_slab_products,
+                                  backend=backend)
+            parts.append(part)
+            elapsed += part.elapsed_s or 0.0
+        return EscSlabbedResult((a.shape[0], b.shape[1]), parts, elapsed)
+    plan = plan or build_esc_plan(a, b, cap=cap)
+
+    if backend == "pallas":
+        from spada_tpu_torch.ops.element_stream import (StreamResult,
+                                                        build_stream_layout,
+                                                        stream_execute,
+                                                        stream_operands)
+
+        layout = build_stream_layout(plan)
+        ops = stream_operands_to_torch(stream_operands(layout, plan, a, b),
+                                       dev)
+
+        def run():
+            return stream_execute(layout, ops)
+    else:
+        ops = esc_transfer(esc_operands(plan, a, b, dtype=dtype), dev)
+
+        def run():
+            return esc_execute(ops)
+
+    run()  # warm: the first use builds and loads the kernels
     synchronize(dev)
     t0 = time.perf_counter()
-    vals = stream_execute(layout, ops)
+    vals = run()
     synchronize(dev)
-    return StreamResult(plan, layout, vals,
-                        elapsed_s=time.perf_counter() - t0)
+    elapsed = time.perf_counter() - t0
+    if backend == "pallas":
+        return StreamResult(plan, layout, vals, elapsed_s=elapsed)
+    return EscResult(plan, vals, elapsed_s=elapsed)

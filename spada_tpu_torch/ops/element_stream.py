@@ -15,15 +15,19 @@ index -> 0.0 operands); pad chunks map to CSR position 0 with value 0*0 = 0,
 so ``np.add.at`` extraction stays exact.
 
 The device half replaces the Pallas ``_mul_kernel``/``_red_kernel`` with
-``csrc/esc_stream.cu`` (:func:`esc_stream_mul`, :func:`esc_stream_red`),
-one launch per class.  Beside each wrapper is its plain PyTorch version,
-which the wrapper takes only for tensors on the CPU.
+``csrc/esc_stream.cu``: :func:`esc_stream_mul` and :func:`esc_stream_red`
+launch one class, and :func:`esc_stream_group`, which :func:`stream_execute`
+calls, every class of a multiply in one launch (:func:`group_table` lays the
+classes out over the grid).  Beside each wrapper is its plain PyTorch
+version, which the wrapper takes only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import List, Optional, Tuple
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,22 +147,24 @@ def esc_stream_red_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _check_operands(a: torch.Tensor, b: torch.Tensor, kernel: str) -> None:
-    if a.shape != b.shape or a.dim() != 2:
+    # on the host's path of every multiply: each attribute is read once
+    shape, dev = a.shape, a.device
+    if shape != b.shape or len(shape) != 2:
         raise ValueError(f"{kernel}: operands must be two equal 2-D shapes, "
-                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+                         f"got {tuple(shape)} and {tuple(b.shape)}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"{kernel}: operands must be float32, got "
                         f"{a.dtype} and {b.dtype}")
-    if a.device != b.device:
-        raise ValueError(f"{kernel}: operands on {a.device} and {b.device}")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel}: unsupported device {a.device}")
-    if a.device.type == "cuda":
+    if dev != b.device:
+        raise ValueError(f"{kernel}: operands on {dev} and {b.device}")
+    if dev.type == "cuda":
         if not (a.is_contiguous() and b.is_contiguous()):
             raise ValueError(f"{kernel}: operands must be contiguous")
-        if a.shape[1] % 4 or a.data_ptr() % 16 or b.data_ptr() % 16:
+        if shape[1] % 4 or a.data_ptr() % 16 or b.data_ptr() % 16:
             raise ValueError(f"{kernel}: rows must be a multiple of 4 floats "
                              f"on 16-byte aligned storage")
+    elif dev.type != "cpu":
+        raise ValueError(f"{kernel}: unsupported device {dev}")
 
 
 def esc_stream_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -178,10 +184,48 @@ def esc_stream_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def esc_stream_red(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+# what csrc/esc_stream.cu launches: threads of a red or grouped block, the
+# most row slices of a red block, the rows a thread loads before it adds,
+# the float4s of a grouped mul block, the classes of one grouped launch
+_THREADS = 256
+_RED_MAX_SLICES = 32
+_RED_GROUP = 4
+_GROUP_MUL_FLOAT4 = 2 * _THREADS
+MAX_GROUP_CLASSES = 16
+# a class is split over row slices while it has fewer threads than this (two
+# blocks an SM): measured on the localized power-law pair's classes on an
+# H100, whole columns per thread were 8-10% faster than a split from 55,000
+# float4 columns up, and a split faster below 2,000 (PERF.md)
+_RED_TARGET_THREADS = 1 << 16
+
+
+def red_slices(L: int, n4: int) -> int:
+    """Row slices of a red block for a class of ``L`` rows by ``n4`` float4
+    columns: the rows are split, in powers of two that divide L and leave a
+    slice two rows or more, while the class has too few columns to fill the
+    card with threads."""
+    slices = 1
+    while (slices < _RED_MAX_SLICES and L % (4 * slices) == 0
+           and n4 * slices < _RED_TARGET_THREADS):
+        slices *= 2
+    return slices
+
+
+def red_group(L: int, slices: int) -> int:
+    """Rows a red thread loads before its first add (and its independent
+    sums): the largest power of two up to 4 that divides its rows."""
+    rows = L // slices
+    return next(g for g in (_RED_GROUP, 2, 1) if rows % g == 0)
+
+
+def esc_stream_red(a: torch.Tensor, b: torch.Tensor,
+                   slices: Optional[int] = None,
+                   group: Optional[int] = None) -> torch.Tensor:
     """L >= 2 class: column sums of a * b over the L rows ([L, n_pad] f32 ->
     [1, n_pad]).  CUDA tensors run ``csrc/esc_stream.cu``; CPU tensors the
-    plain version."""
+    plain version.  ``slices`` and ``group`` are the block shape
+    (:func:`red_slices`, :func:`red_group` by default); the probe sweeps
+    them (``tools/probe_pallas_stream.py``)."""
     _check_operands(a, b, "esc_stream_red")
     if a.device.type == "cpu":
         return esc_stream_red_reference(a, b)
@@ -191,25 +235,132 @@ def esc_stream_red(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     if L == 0:
         return out.zero_()
+    slices = slices or red_slices(L, n_pad // 4)
     lib = _build.load()
     status = lib.esc_stream_red(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                L, n_pad, _build.current_stream(a))
+                                L, n_pad, slices,
+                                group or red_group(L, slices),
+                                _build.current_stream(a))
     _build.check(status, "esc_stream_red")
     _build.launches["esc_stream_red"] += 1
     return out
 
 
+def group_table(classes: Sequence[Tuple[int, int]],
+                order: Optional[Sequence[int]] = None) -> Tuple[np.ndarray,
+                                                                int]:
+    """The grid of one grouped launch over ``classes``, (L, n) pairs with n
+    the elements of an L = 1 class or the chunk columns ``n_pad`` of an
+    L >= 2 class, a multiple of 4.
+
+    Returns (table, n_blocks): ``table`` is int64 [k, 6], one row per class
+    that has elements, in grid order, with the columns (class index, L, n4,
+    slices, group, first_block); a class's blocks are ``first_block`` up to
+    the next row's.  An L = 1 block multiplies ``_GROUP_MUL_FLOAT4``
+    float4s; a block of an L >= 2 class sums ``256 / slices`` float4
+    columns.  ``order`` lists class indices in grid order; by default the
+    classes keep the order they come in.  A plan's classes come by
+    ascending L, so the large classes of short blocks lead and the small
+    ones of long blocks fill in as they drain; measured on an H100 that
+    order and its reverse tie, and long blocks first is 3% slower
+    (PERF.md; ``tools/probe_pallas_stream.block_shape_sweep`` reruns it).
+    """
+    if len(classes) > MAX_GROUP_CLASSES:
+        raise ValueError(f"esc_stream_group takes at most "
+                         f"{MAX_GROUP_CLASSES} classes, got {len(classes)}")
+    rows = {}
+    for i, (L, n) in enumerate(classes):
+        if L < 1 or n < 0 or n % 4:
+            raise ValueError(f"class {i}: L={L}, n={n}; need L >= 1 and n a "
+                             f"non-negative multiple of 4")
+        if n == 0:
+            continue
+        n4 = n // 4
+        if L == 1:
+            slices, group, per = 1, 1, _GROUP_MUL_FLOAT4
+        else:
+            slices = red_slices(L, n4)
+            group, per = red_group(L, slices), _THREADS // slices
+        rows[i] = [i, L, n4, slices, group, -(-n4 // per)]
+    if order is None:
+        order = list(rows)
+    elif sorted(order) != sorted(rows):
+        raise ValueError(f"order {list(order)} is not a permutation of the "
+                         f"classes with elements, {sorted(rows)}")
+    table = np.array([rows[i] for i in order], np.int64).reshape(-1, 6)
+    n_blocks = int(table[:, 5].sum())
+    table[:, 5] = np.cumsum(table[:, 5]) - table[:, 5]
+    if n_blocks > 0x7FFFFFFF:
+        raise ValueError(f"esc_stream_group: {n_blocks} blocks exceed a grid")
+    return table, n_blocks
+
+
+@functools.lru_cache(maxsize=64)
+def _group_launch_of(classes: tuple, order: Optional[tuple]) -> tuple:
+    """(table rows as tuples, n_blocks): what a launch needs beside the
+    pointers, kept per class list so that a repeated multiply computes it
+    once."""
+    table, n_blocks = group_table(classes, order)
+    return tuple(map(tuple, table.tolist())), n_blocks
+
+
+def esc_stream_group(pairs, Ls: Sequence[int],
+                     order: Optional[Sequence[int]] = None) -> tuple:
+    """Every class of a multiply in one launch: ``pairs[i]`` are the (a, b)
+    operands of a class of ``Ls[i]`` products per chunk, [rows, cols] for
+    L = 1 (multiplied elementwise) and [L, n_pad] otherwise (summed over the
+    rows).  Returns one tensor per class, as :func:`esc_stream_mul` and
+    :func:`esc_stream_red` would, bit for bit.  CUDA tensors run
+    ``esc_stream_group`` of ``csrc/esc_stream.cu``; CPU tensors the plain
+    versions.  ``order``: see :func:`group_table`."""
+    if len(pairs) != len(Ls):
+        raise ValueError(f"esc_stream_group: {len(pairs)} operand pairs for "
+                         f"{len(Ls)} classes")
+    if not pairs:
+        return ()
+    for (a, b), L in zip(pairs, Ls):
+        _check_operands(a, b, "esc_stream_group")
+        if L != 1 and a.shape[0] != L:
+            raise ValueError(f"esc_stream_group: a class of L={L} has "
+                             f"operands {tuple(a.shape)}")
+    dev = pairs[0][0].device
+    if any(a.device != dev for a, _ in pairs):
+        raise ValueError("esc_stream_group: classes on several devices")
+    if dev.type == "cpu":
+        return tuple(esc_stream_mul_reference(a, b) if L == 1
+                     else esc_stream_red_reference(a, b)
+                     for (a, b), L in zip(pairs, Ls))
+    classes = tuple((L, a.numel() if L == 1 else a.shape[1])
+                    for (a, _), L in zip(pairs, Ls))
+    rows, n_blocks = _group_launch_of(
+        classes, None if order is None else tuple(order))
+    outs = tuple(torch.empty_like(a) if L == 1
+                 else a.new_empty((1, a.shape[1]))
+                 for (a, _), L in zip(pairs, Ls))
+    if n_blocks == 0:
+        return outs
+    args = []
+    for i, L, n4, slices, group, first in rows:
+        args += (pairs[i][0].data_ptr(), pairs[i][1].data_ptr(),
+                 outs[i].data_ptr(), L, n4, slices, group, first)
+    table = (ctypes.c_longlong * len(args))(*args)
+    status = _build.load().esc_stream_group(
+        table, len(rows), n_blocks, _build.current_stream(outs[0]))
+    _build.check(status, "esc_stream_group")
+    _build.launches["esc_stream_group"] += 1
+    return outs
+
+
 def stream_execute(layout: StreamLayout, operands) -> tuple:
-    """Per-class chunk values, one launch per class, in class order.
+    """Per-class chunk values in class order, all classes in one launch
+    (:func:`esc_stream_group`).
 
     ``operands``: a tuple of (a, b) tensor pairs in the stream layout
     (:func:`spada_tpu_torch.convert.stream_operands_to_torch`).  Returns a
-    tuple, not one concatenated tensor: a device concatenate would stream
-    the whole output once more.
+    tuple, not one concatenated tensor: the consumers take the classes one
+    by one.
     """
-    return tuple(esc_stream_mul(av, bv) if c["L"] == 1
-                 else esc_stream_red(av, bv)
-                 for c, (av, bv) in zip(layout.classes, operands))
+    return esc_stream_group(operands, [c["L"] for c in layout.classes])
 
 
 def stream_execute_reference(layout: StreamLayout, operands) -> tuple:

@@ -177,14 +177,21 @@ def _spgemm_via_element(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
                         device) -> SpGemmResult:
     from spada_tpu_torch.ops.element import spgemm_element
 
-    er = spgemm_element(a, b, device, cap=config.element_cap)
+    er = spgemm_element(a, b, device, cap=config.element_cap,
+                        backend=config.element_backend)
+    # one plan (StreamResult / EscResult) or row slabs (EscSlabbedResult)
+    n_padded = er.plan.n_padded if hasattr(er, "plan") else er.n_padded
+    n_products = (er.plan.n_products if hasattr(er, "plan")
+                  else er.n_products)
+    n_chunks = (len(er.plan.esc_to_csr) if hasattr(er, "plan")
+                else er.n_chunks)
     return SpGemmResult(
         shape=(a.shape[0], b.shape[1]), tm=1, tn=1,
         c_tiles=np.zeros((0, 1, 1), np.float32),
         c_tile_row=np.zeros(0, np.int32), c_tile_col=np.zeros(0, np.int32),
-        n_work_items=len(er.plan.esc_to_csr),
-        mxu_flops=2 * er.plan.n_padded,
-        useful_flops=2 * er.plan.n_products,
+        n_work_items=n_chunks,
+        mxu_flops=2 * n_padded,
+        useful_flops=2 * n_products,
         elapsed_s=er.elapsed_s, element=er, engine_used="element",
     )
 

@@ -15,6 +15,12 @@ TPU's block, beside one PyTorch call that computes the same function:
   path's launch and the TPU's 2^20 chunk columns per block, beside
   ``torch.linalg.vecdot(a, b, dim=0)``.
 
+:func:`block_shape_sweep` times what the design of ``esc_stream_red`` and of
+the grouped launch chose, on the operands of a real plan (``chip_smoke.py``
+hands it the locpl classes): each red class at its default block shape, with
+one serial compensated sum per thread (``group`` 1) and with other row
+splits (``slices``), and the grouped launch under other class orders.
+
 Prints ms and GB/s (bytes the call must move: each input read once, the
 output written once) beside the HBM bound:
 
@@ -34,7 +40,8 @@ import torch
 from spada_tpu_torch import _build
 from spada_tpu_torch.ops.element_stream import (_check_operands,
                                                 esc_stream_mul_reference,
-                                                esc_stream_red_reference)
+                                                esc_stream_red_reference,
+                                                red_group, red_slices)
 
 ROWS = 45904           # rows of 1024: n = 47,005,696, the locpl L=1 class
 N2 = 4478341           # chunks of the locpl L=2 class
@@ -82,9 +89,10 @@ def esc_stream_red_blocked(a: torch.Tensor, b: torch.Tensor,
         return out
     if L == 0:
         return out.zero_()
+    slices = red_slices(L, n_pad // 4)
     status = _build.load().esc_stream_red_blocked(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), L, n_pad, block,
-        _build.current_stream(a))
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), L, n_pad, slices,
+        red_group(L, slices), block, _build.current_stream(a))
     _build.check(status, "esc_stream_red_blocked")
     _build.launches["esc_stream_red_blocked"] += 1
     return out
@@ -176,6 +184,64 @@ def run(rows: int = ROWS, n2: int = N2, device="cuda",
             log(f"  {label:18s} max|d|/max|ref| {rec['relerr']:.1e} (plain "
                 f"version on the CPU, not timed)")
         out[label] = rec
+    return out
+
+
+def block_shape_sweep(pairs, Ls, log: Callable[[str], None] = print) -> dict:
+    """Device ms of the red classes of ``pairs`` (CUDA operands in the
+    stream layout, ``Ls[i]`` products per chunk) under other block shapes,
+    and of the grouped launch under other class orders.  Every variant is
+    first held to the default's values (1e-6 of max|out|; the grouped
+    orders bitwise).  Returns {"red": {L: {label: ms}}, "group": {label:
+    ms}}."""
+    from spada_tpu_torch.ops.element_stream import (esc_stream_group,
+                                                    esc_stream_red,
+                                                    group_table)
+    from spada_tpu_torch.utils.timing import cuda_time
+
+    out: dict = {"red": {}, "group": {}}
+    for (a, b), L in zip(pairs, Ls):
+        if L == 1:
+            continue
+        n4 = a.shape[1] // 4
+        s0 = red_slices(L, n4)
+        shapes = {"default": (s0, red_group(L, s0)), "group 1": (s0, 1)}
+        if red_group(L, s0) > 2:
+            shapes["group 2"] = (s0, 2)
+        for s in sorted({1, s0 // 2, min(2 * s0, 32)} - {0, s0}):
+            if L % s == 0:
+                shapes[f"slices {s}"] = (s, red_group(L, s))
+        ref = esc_stream_red(a, b)
+        scale = max(float(ref.abs().max()), 1e-30)
+        row = {}
+        for label, (s, g) in shapes.items():
+            got = esc_stream_red(a, b, slices=s, group=g)
+            err = float((got - ref).abs().max()) / scale
+            if err > 1e-6:
+                raise RuntimeError(f"esc_stream_red L={L} {label}: "
+                                   f"{err:.3e} from the default's values")
+            row[label] = cuda_time(
+                lambda: esc_stream_red(a, b, slices=s, group=g))[0] * 1e3
+        out["red"][L] = row
+        log(f"  red L={L:3d} n_pad={a.shape[1]:8d} slices {s0:2d}: "
+            + "  ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
+    classes = [(L, a.numel() if L == 1 else a.shape[1])
+               for (a, _), L in zip(pairs, Ls)]
+    table = group_table(classes)[0].tolist()
+    # rows per thread of a class's blocks, then its blocks: longest first
+    heavy = [r[0] for r in sorted(table, key=lambda r: (-(r[1] // r[3]),
+                                                        -r[2], r[0]))]
+    ref = esc_stream_group(pairs, Ls)
+    for label, order in (("as the classes come (default)", None),
+                         ("longest blocks first", heavy),
+                         ("shortest blocks first", heavy[::-1])):
+        got = esc_stream_group(pairs, Ls, order=order)
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise RuntimeError(f"esc_stream_group, {label}: not bitwise the "
+                               f"default order's values")
+        out["group"][label] = cuda_time(
+            lambda: esc_stream_group(pairs, Ls, order=order))[0] * 1e3
+        log(f"  grouped launch, {label}: {out['group'][label]:.4f} ms")
     return out
 
 

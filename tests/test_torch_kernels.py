@@ -13,10 +13,12 @@ import torch
 from spada_tpu_torch import _build
 from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
 from spada_tpu_torch.ops import engine
-from spada_tpu_torch.ops.element_stream import (esc_stream_mul,
+from spada_tpu_torch.ops.element_stream import (esc_stream_group,
+                                                esc_stream_mul,
                                                 esc_stream_mul_reference,
                                                 esc_stream_red,
-                                                esc_stream_red_reference)
+                                                esc_stream_red_reference,
+                                                red_group, red_slices)
 from spada_tpu_torch.ops.engine import run_worklist_reference, tile_spgemm
 from spada_tpu_torch.tools import probe_pallas_stream, tile_probe
 
@@ -118,6 +120,102 @@ def test_stream_red_kernel(cuda_device, L):
     torch.cuda.synchronize()
     assert got.shape == (1, 4096)
     assert _relerr(got, ref) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,n_pad", [(2, 4), (3, 132), (8, 4096), (96, 260),
+                                     (512, 1024), (64, 40000)])
+def test_stream_red_block_shapes(cuda_device, L, n_pad):
+    """Any row split and row group the kernel takes gives the plain sums to
+    1e-6 of max|out|, and the same bits when run twice."""
+    rng = np.random.default_rng(L + n_pad)
+    a = torch.from_numpy(rng.standard_normal((L, n_pad), np.float32))
+    b = torch.from_numpy(rng.standard_normal((L, n_pad), np.float32))
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    ref = esc_stream_red_reference(a, b)
+    s0 = red_slices(L, n_pad // 4)
+    shapes = {(s0, red_group(L, s0)), (1, 1), (s0, 1)}
+    shapes |= {(s, red_group(L, s)) for s in (1, 2, 4, 8, 16, 32)
+               if L % s == 0}
+    for slices, group in sorted(shapes):
+        got = esc_stream_red(a, b, slices=slices, group=group)
+        again = esc_stream_red(a, b, slices=slices, group=group)
+        torch.cuda.synchronize()
+        assert _relerr(got, ref) <= 1e-6, (slices, group)
+        assert torch.equal(got, again), (slices, group)
+    for slices, group in [(3, 1), (64, 1), (1, 8), (1, -1)]:
+        with pytest.raises(RuntimeError, match="invalid"):
+            esc_stream_red(a, b, slices=slices, group=group)
+
+
+def _group_case(rng, device, Ls, sizes):
+    pairs = []
+    for L, n in zip(Ls, sizes):
+        shape = (n // 1024, 1024) if L == 1 and n >= 1024 else (
+            (1, n) if L == 1 else (L, n))
+        pairs.append(tuple(torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(device) for _ in "ab"))
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_grouped_launch_matches_per_class_and_plain(cuda_device, seed):
+    """Random plans of 1 to 10 classes, L = 1 and L from 2 to 512, class
+    sizes from one float4 up: one launch, every class bitwise what its own
+    kernel gives (mul also bitwise a * b, red within 1e-6 of max|out| of the
+    plain sums), and the same bits when run twice."""
+    rng = np.random.default_rng(seed)
+    n_classes = [1, 2, 3, 5, 7, 10, 10, 4][seed]
+    Ls = sorted(rng.choice([1, 2, 4, 8, 16, 32, 64, 128, 256, 512],
+                           n_classes, replace=False).tolist())
+    sizes = [int(rng.choice([4, 8, 132, 1024, 4096, 40000, 300000]))
+             for _ in Ls]
+    pairs = _group_case(rng, cuda_device, Ls, sizes)
+    before = dict(_build.launches)
+    got = esc_stream_group(pairs, Ls)
+    again = esc_stream_group(pairs, Ls)
+    torch.cuda.synchronize()
+    after = dict(_build.launches)
+    assert after.get("esc_stream_group", 0) == before.get(
+        "esc_stream_group", 0) + 2
+    assert all(after.get(k, 0) == before.get(k, 0)
+               for k in ("esc_stream_mul", "esc_stream_red"))
+    assert len(got) == len(Ls)
+    for L, (x, y), g, g2 in zip(Ls, pairs, got, again):
+        assert torch.equal(g, g2)
+        if L == 1:
+            assert g.shape == x.shape
+            assert torch.equal(g, esc_stream_mul_reference(x, y))
+            assert torch.equal(g, esc_stream_mul(x, y))
+        else:
+            assert g.shape == (1, x.shape[1])
+            assert torch.equal(g, esc_stream_red(x, y))
+            assert _relerr(g, esc_stream_red_reference(x, y)) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_grouped_launch_edges(cuda_device):
+    """No classes: no launch.  A class with no elements is left out of the
+    grid and comes back empty.  More classes than the kernel's table holds
+    raise.  Any class order gives the same bits."""
+    rng = np.random.default_rng(3)
+    before = _build.launches["esc_stream_group"]
+    assert esc_stream_group([], []) == ()
+    assert _build.launches["esc_stream_group"] == before
+    Ls = [1, 2, 16]
+    pairs = _group_case(rng, cuda_device, Ls, [2048, 0, 260])
+    got = esc_stream_group(pairs, Ls)
+    assert got[1].shape == (1, 0)
+    for order in ([0, 2], [2, 0]):
+        other = esc_stream_group(pairs, Ls, order=order)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, other))
+    assert torch.equal(got[0], pairs[0][0] * pairs[0][1])
+    assert _relerr(got[2], esc_stream_red_reference(*pairs[2])) <= 1e-6
+    many = _group_case(rng, cuda_device, [2] * 17, [8] * 17)
+    with pytest.raises(ValueError, match="at most 16"):
+        esc_stream_group(many, [2] * 17)
 
 
 # the tile shapes of test_tile_kernel_matches_plain, both block shapes
@@ -323,13 +421,13 @@ def test_engine_kernels_reject_what_they_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 def test_wide_kernels_run_on_tensor_cores(cuda_device):
-    """Every tensor-core kernel of the four main-path tile kernels holds
-    HMMA instructions in the built library (cuobjdump -sass): none compiled
-    back to FFMA."""
+    """Every tensor-core kernel of the four main-path tile kernels and of
+    the probe holds HMMA instructions in the built library
+    (cuobjdump -sass): none compiled back to FFMA."""
     _build.load()
     counts = _build.sass_counts("HMMA")
     for kernel in ("tile_spgemm_mma", "tile_stream_mma", "tile_panel_mma",
-                   "tile_grid_mma"):
+                   "tile_grid_mma", "tile_probe_mma"):
         names = [n for n in counts if kernel in n]
         assert names, f"no {kernel} in the library"
         assert all(counts[n] > 0 for n in names), counts
@@ -342,12 +440,12 @@ def test_wide_kernels_run_on_tensor_cores(cuda_device):
 @pytest.mark.parametrize("mode", tile_probe.GPU_MODES)
 @pytest.mark.parametrize("tm,tk,tn", [(128, 64, 256), (256, 256, 256)])
 def test_probe_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, mode):
-    """The modes that write zeros or nothing: their plain C bitwise; the
-    rest, full and flat among them, 1e-5 of max|C|."""
+    """The FP32 SIMT block.  The modes that write zeros or nothing: their
+    plain C bitwise; the rest, full and flat among them, 1e-5 of max|C|."""
     a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
                                                         tn, dtype)
     args = (a, b, ai, bi, dev(tile_ptr_of(o_ids, n_c)), mode, 3, 2)
-    got = _launched_once("tile_probe", tile_probe.tile_probe, *args)
+    got = _launched_once("tile_probe", tile_probe.tile_probe, *args, "simt")
     ref = tile_probe.tile_probe_reference(*args)
     if mode in ("nodma", "loop", "empty", "empty0", "nocopy", "dots",
                   "stat"):
@@ -355,6 +453,66 @@ def test_probe_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, mode):
     else:
         assert _relerr(got, ref) <= 1e-5
         assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", ENGINE_RUNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", tile_probe.ALL_GPU_MODES)
+@pytest.mark.parametrize("tm,tk,tn", [(256, 256, 256), (384, 384, 384),
+                                      (128, 64, 256)])
+def test_probe_mma_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, mode,
+                                        runs):
+    """The tensor-core block, T = 256 and 384 among the shapes, short runs
+    and a 64-item run.  The modes that write zeros or nothing: their plain
+    C bitwise; onepass: the product of the operands rounded to TF32, 1e-5
+    of max|C|; nofold (sums rounded toward zero): 5e-4; the rest 1e-5.  The
+    default block for these shapes is the tensor-core one."""
+    if mode in tile_probe.F32_MODES and dtype != torch.float32:
+        with pytest.raises(ValueError, match="f32 tiles"):
+            tile_probe.tile_probe(*_engine_case(cuda_device, tm, tk, tn,
+                                                dtype)[:4],
+                                  torch.zeros(2, dtype=torch.int32,
+                                              device=cuda_device), mode)
+        return
+    a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
+                                                        tn, dtype, runs)
+    args = (a, b, ai, bi, dev(tile_ptr_of(o_ids, n_c)), mode, 3, 2)
+    got = _launched_once("tile_probe_mma", tile_probe.tile_probe, *args)
+    ref = tile_probe.tile_probe_reference(*args)
+    if mode in ("nodma", "loop", "empty", "empty0", "nobar", "nocopy",
+                "dots", "stat", "bigonly"):
+        assert torch.equal(got, ref)
+    else:
+        assert _relerr(got, ref) <= tile_probe.mode_tolerance(mode)
+        assert bool((got[empty] == 0).all())
+    if mode == "akmajor":
+        # a k-transposed copy made by the caller gives the same bits
+        own = tile_probe.tile_probe(
+            *args, a_tiles_t=a.transpose(1, 2).contiguous())
+        assert torch.equal(got, own)
+    if mode in ("full", "flat", "ring2", "ring3"):
+        # the probe's build of the block in mode full is tile_spgemm's
+        assert torch.equal(got, tile_spgemm(*args[:5]))
+
+
+@pytest.mark.cuda
+def test_probe_block_argument(cuda_device):
+    a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(
+        cuda_device, 128, 40, 128, torch.float32)
+    args = (a, b, ai, bi, dev(tile_ptr_of(o_ids, n_c)))
+    kw = dict(a_slots=3, b_slots=2)
+    # a tk the tensor-core block does not take: the SIMT block, by default
+    before = _build.launches["tile_probe"]
+    tile_probe.tile_probe(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["tile_probe"] == before + 1
+    with pytest.raises(ValueError, match="tensor-core block takes"):
+        tile_probe.tile_probe(*args, block="mma", **kw)
+    with pytest.raises(ValueError, match="mode of the tensor-core block"):
+        tile_probe.tile_probe(*args, mode="nofold", **kw)
+    with pytest.raises(ValueError, match="unknown block"):
+        tile_probe.tile_probe(*args, block="wgmma", **kw)
 
 
 @pytest.mark.cuda

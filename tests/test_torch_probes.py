@@ -65,6 +65,72 @@ def test_probe_mode_plain_versions(mode):
                                atol=1e-5 * max(np.abs(want).max(), 1.0))
 
 
+@pytest.mark.parametrize("mode", TP.MMA_MODES)
+def test_tensor_core_block_mode_plain_versions(mode):
+    """The modes of the tensor-core block alone: onepass is the product of
+    the operands rounded to TF32 (10-bit mantissa, ties away from zero),
+    bigonly writes nothing, nobar zeros, and nofold, ring2, ring3 and
+    akmajor the C of the run."""
+    (a, b, ai, bi, o, tp, runs), t = _case()
+    got = TP.tile_probe(*t, mode=mode, a_slots=3, b_slots=2).numpy()
+    assert np.array_equal(got, TP.tile_probe_reference(
+        *t, mode=mode, a_slots=3, b_slots=2).numpy())
+    full = run_worklist_reference(t[0], t[1], t[2], t[3],
+                                  torch.from_numpy(o), len(runs)).numpy()
+    if mode == "bigonly":
+        assert (got == TP.SENTINEL).all()
+    elif mode == "nobar":
+        assert (got == 0).all()
+    elif mode == "onepass":
+        def tf32(x):
+            bits = x.view(np.uint32).astype(np.uint64)
+            return ((bits + 0x1000) & ~np.uint64(0x1FFF)).astype(
+                np.uint32).view(np.float32)
+
+        ra, rb = tf32(a), tf32(b)
+        assert np.abs(ra - a).max() <= 2.0 ** -11 * np.abs(a).max()
+        want = np.zeros(got.shape)
+        np.add.at(want, o, ra.astype(np.float64)[ai] @ rb.astype(
+            np.float64)[bi])
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+        # TF32 accuracy against the f32 product, not f32 accuracy
+        gap = np.abs(got - full).max() / np.abs(full).max()
+        assert 1e-5 < gap < 2e-3
+    else:
+        assert np.array_equal(got, full)
+    assert TP.mode_tolerance(mode) == (5e-4 if mode == "nofold" else 1e-5)
+
+
+def test_probe_block_argument_on_cpu():
+    _, t = _case()
+    kw = dict(a_slots=3, b_slots=2)
+    assert TP.mma_takes(torch.float32, 128, 32, 256)
+    assert not TP.mma_takes(torch.bfloat16, 128, 32, 256)
+    assert not TP.mma_takes(torch.float32, 64, 32, 128)
+    narrow = (t[0][:, :, :40].contiguous(), t[1][:, :40].contiguous(), *t[2:])
+    for block in ("auto", "simt"):
+        TP.tile_probe(*narrow, block=block, **kw)
+    with pytest.raises(ValueError, match="tensor-core block takes"):
+        TP.tile_probe(*narrow, block="mma", **kw)
+    with pytest.raises(ValueError, match="mode of the tensor-core block"):
+        TP.tile_probe(*narrow, mode="ring2", **kw)
+    with pytest.raises(ValueError, match="mode of the tensor-core block"):
+        TP.tile_probe(*t, mode="nofold", block="simt", **kw)
+    with pytest.raises(ValueError, match="unknown block"):
+        TP.tile_probe(*t, block="wgmma", **kw)
+    with pytest.raises(ValueError, match="f32 tiles"):
+        TP.tile_probe(t[0].bfloat16(), t[1].bfloat16(), *t[2:],
+                      mode="onepass", **kw)
+    with pytest.raises(ValueError, match="a_tiles_t goes with mode akmajor"):
+        TP.tile_probe(*t, a_tiles_t=t[0].transpose(1, 2).contiguous(),
+                      **kw)
+    a_t = t[0].transpose(1, 2).contiguous()
+    assert torch.equal(TP.tile_probe(*t, mode="akmajor", a_tiles_t=a_t,
+                                     **kw),
+                       TP.tile_probe(*t, mode="full", **kw))
+
+
 def test_tpu_mode_table():
     assert set(TP.TPU_MODES.values()) == set(TP.GPU_MODES)
     assert set(probe_kernel.ALL_MODES) | set(probe_manual.ALL_MODES) == set(
@@ -81,6 +147,12 @@ def test_tpu_mode_table():
             TP.gpu_mode(f"noacc_{suffix}")
     with pytest.raises(ValueError, match="unknown probe mode"):
         TP.gpu_mode("full_wide")
+    # the tensor-core block's own modes have no TPU name and are their own
+    assert TP.ALL_GPU_MODES == TP.GPU_MODES + TP.MMA_MODES
+    assert set(TP.F32_MODES) < set(TP.MMA_MODES)
+    assert not set(TP.MMA_MODES) & set(TP.TPU_MODES)
+    for mode in TP.MMA_MODES:
+        assert TP.gpu_mode(mode) == mode
 
 
 def test_probe_wrapper_refuses():
@@ -106,6 +178,21 @@ def test_tile_probes_on_cpu(probe, modes):
     for mode, rec in res.items():
         assert rec["relerr"] == 0.0 and rec["ms"] is None
         assert rec["exact"] in (None, True)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--block", "simt", "full", "nodma"],
+    ["--block", "mma", "full", "nofold", "nobar", "ring2", "akmajor"],
+    ["--dtype", "float32", "v2full", "onepass", "bigonly", "ring3"],
+])
+def test_tile_probe_blocks_and_types_on_cpu(extra):
+    res = probe_kernel.main(SMALL + extra)
+    names = [x for x in extra if not x.startswith("--")
+             and x not in ("simt", "mma", "float32")]
+    assert set(res) == {TP.gpu_mode(m) for m in names}
+    for mode, rec in res.items():
+        assert rec["relerr"] == 0.0 and rec["ms"] is None
+        assert rec["tol"] == TP.mode_tolerance(mode)
 
 
 def test_probe_workload_counts():
