@@ -23,13 +23,20 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    <= 1e-6; ``esc_stream_group`` on plans of 1 to 10 classes bitwise its
    per-class kernels, twice the same bits);
 3. ``cari`` through the port's CLI, equal to scipy (rtol 1e-4, atol 1e-3),
-   once on the auto engine (``tile_spgemm``) and once under each
+   once on the auto engine (``tile_spgemm``), once under each
    ``--engine streaming | panel | pallas_grid``, each launching its kernel
-   and not ``tile_spgemm``;
+   and not ``tile_spgemm``, and once with ``--plan-scheme profiled``; each
+   run prints its ``device perf:`` line, whose shares of a peak must be at
+   most 100%; then the ``plan`` mode under both schemes (exit 0; the
+   profiled one launches ``tile_spgemm``);
 4. the NN pair (16384^2 block-sparse weight x 16384x4096 ReLU activations,
    f32): dispatched to the tile kernel, gated against scipy/numpy on its
    first 2048 rows (max|d|/max|ref| < 1e-4), kernel and plain version timed
-   on the launches the run made;
+   on the launches the run made; ``measure_device_perf`` on the run's
+   ``host_state`` within 10% of the sum of those kernel times, its shares
+   at most 100%; then (4b) ``spgemm_csr`` on the pair in 4 output slabs of
+   64 MB of C tiles, one ``tile_spgemm`` launch each, gated the same way,
+   its peak device memory beside a one-shot ``spgemm``'s;
 5. the localized power-law pair (65536^2, degree 32): dispatched to the
    element side, one grouped launch per multiply and no per-class launch,
    gated against scipy on 2048 rows (< 1e-3); on every class the per-class
@@ -40,6 +47,8 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    grouped launch's class orders swept; then, on a 8192^2 cut of the pair,
    ``spgemm_element(backend="xla")`` and row-slab runs of both backends
    (four slabs or more) against scipy (1e-5 of max|C|);
+   ``measure_device_perf`` of the element side within 10% of the grouped
+   launch's own time, its share of HBM SoL at most 100%;
 6. the engine override at full width: phase 4's plan of the NN pair run
    again through ``spgemm(..., plan=)`` under each ``engine`` streaming,
    panel and pallas_grid, gated against scipy/numpy (< 1e-4) and against
@@ -59,7 +68,13 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    ``torch.bmm`` of the gathered run pairs) and
    ``probe_pallas_stream`` (the stream kernels as the main path launches
    them and, through their probe-only entry points, at the TPU's block
-   sizes: mul bitwise, red 1e-6), each mode timed beside its bound.
+   sizes: mul bitwise, red 1e-6), each mode timed beside its bound;
+8. the sparse MLP (``spada_tpu_torch.models.sparse_nn``): ``entry()``'s
+   forward against a dense f64 forward of the same tiles (< 1e-5), then two
+   layers of the bench's NN weight width (16384^2, density 0.2, 128^2
+   tiles, batch 1024, f32): forward and one step's tile gradients against
+   dense f64 (< 1e-4), three SGD steps with a falling loss, and forward and
+   step times beside one dense ``torch.matmul`` layer (TF32 off).
 
 Beside each kernel's time the script computes its bound, the larger of two
 times on the datasheet placeholders of ``config.h100_config``: the useful
@@ -85,9 +100,12 @@ CUDA device, and a run that loaded JAX or any module of ``spada_tpu``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import inspect
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -423,29 +441,61 @@ ENGINE_KERNEL = {"streaming": "tile_stream", "panel": "tile_panel",
                  "pallas_grid": "tile_grid"}
 
 
-def run_cari(dev, totals: dict, engine=None) -> None:
+def run_cari(dev, totals: dict, engine=None,
+             scheme: str = "analytic") -> None:
     import scipy.io
 
     from spada_tpu_torch import cli
 
     argv = ["run", "spada", "SS", "cari", "config/default.json",
-            "--device", str(dev), "--no-result"]
+            "--device", str(dev), "--no-result", "--plan-scheme", scheme]
     if engine:
         argv += ["--engine", engine]
     kernel = ENGINE_KERNEL.get(engine, "tile_spgemm")
-    with main_path(totals) as counts:
+    out = io.StringIO()
+    with main_path(totals) as counts, contextlib.redirect_stdout(out):
         c = cli.execute(argv)
+    sys.stdout.write(out.getvalue())
+    check_device_perf_line(out.getvalue(), f"cari, engine {engine or 'auto'}"
+                           f", plan {scheme}")
     a = scipy.io.mmread(os.path.join(ROOT, "matrices", "cari.mtx")).tocsr()
     b = a if a.shape[0] == a.shape[1] else a.T.tocsr()
     ref = (a @ b).toarray()
     ok = np.allclose(c.todense(), ref, rtol=1e-4, atol=1e-3)
-    log(f"  engine {engine or 'auto'}: launches {counts}; C vs scipy: "
-        f"allclose(rtol=1e-4, atol=1e-3) = {ok}, max|d|/max|ref| = "
-        f"{relerr(c.todense(), ref):.2e}")
+    log(f"  engine {engine or 'auto'}, plan {scheme}: launches {counts}; C "
+        f"vs scipy: allclose(rtol=1e-4, atol=1e-3) = {ok}, max|d|/max|ref| "
+        f"= {relerr(c.todense(), ref):.2e}")
     require(ok, f"cari under engine {engine} differs from scipy")
     require(counts.get(kernel, 0) > 0, f"cari did not launch {kernel}")
     require(engine is None or counts.get("tile_spgemm", 0) == 0,
             f"cari under --engine {engine} launched tile_spgemm")
+
+
+def check_device_perf_line(text: str, label: str) -> None:
+    """The CLI printed one device report, its shares of a peak <= 100%."""
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("device perf: engine ")]
+    require(len(lines) == 1, f"{label}: no 'device perf: engine' line")
+    shares = [float(x) for x in re.findall(
+        r"([0-9.]+)% (?:tensor-core peak|of HBM SoL)", lines[0])]
+    require(len(shares) == 2 and all(0 <= x <= 100 for x in shares),
+            f"{label}: shares {shares} in {lines[0]!r}")
+
+
+def run_cari_plans(dev, totals: dict) -> None:
+    """The CLI's plan mode on cari under both schemes; the profiled one
+    times tile_spgemm on the card."""
+    from spada_tpu_torch import cli
+
+    for scheme in ("analytic", "profiled"):
+        with main_path(totals) as counts:
+            rc = cli.main(["plan", "spada", "SS", "cari",
+                           "config/default.json", "--device", str(dev),
+                           "--plan-scheme", scheme])
+        log(f"  plan {scheme}: exit {rc}, launches {counts}")
+        require(rc == 0, f"plan --plan-scheme {scheme} exited {rc}")
+        require(scheme == "analytic" or counts.get("tile_spgemm", 0) > 0,
+                "the profiled plan did not launch tile_spgemm")
 
 
 # --------------------------------------------------------------------------
@@ -462,6 +512,7 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
     from spada_tpu_torch.config import roofline_bound, tile_work
     from spada_tpu_torch.convert import worklist_to_torch
     from spada_tpu_torch.ops.engine import run_worklist_reference, tile_spgemm
+    from spada_tpu_torch.ops.spgemm import measure_device_perf
     from spada_tpu_torch.io.workloads import (block_sparse_csr,
                                               relu_activation_csr)
 
@@ -530,6 +581,20 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
         t_plain += tp_s
         del a_t, b_t, dwl
     times["tile_spgemm"] = (t_kernel, t_plain)
+    perf = measure_device_perf(run.a, run.b, run.config, "spada",
+                               plan=run.plan,
+                               host_state=run.result.host_state, device=dev)
+    gap = abs(perf["engine_s"] - t_kernel) / t_kernel
+    log(f"  measure_device_perf: engine {perf['engine_s'] * 1e3:.3f} ms "
+        f"(the segments' tile_spgemm times sum to {t_kernel * 1e3:.3f} ms, "
+        f"{gap:.1%} apart), {perf['flops_per_s'] / 1e12:.2f} TFLOP/s of "
+        f"whole tiles, {perf['mxu_util_pct']:.1f}% of the tensor-core peak, "
+        f"{perf['pct_hbm_sol']:.1f}% of HBM SoL ({perf['hbm_gbps']:.0f} GB/s"
+        f" modelled), on {smi_name_power()}")
+    require(gap <= 0.10, f"nn: measure_device_perf {gap:.1%} from the "
+            f"kernel times")
+    require(perf["mxu_util_pct"] <= 100 and perf["pct_hbm_sol"] <= 100,
+            f"nn: a share over 100%: {perf}")
     c = run.result.todense()
     # one dense product computes the same C: cuBLAS SGEMM (TF32 off)
     da, db = dense_of(a, dev, torch.float32), dense_of(b, dev, torch.float32)
@@ -547,6 +612,51 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
                    "library": (t_lib, "torch.matmul, dense f32")}
     torch.cuda.empty_cache()
     return run, c, ref
+
+
+def run_spgemm_csr(dev, run, ref_rows, totals: dict,
+                   budget: int = 64 << 20) -> None:
+    """spgemm_csr on the nn pair in output slabs of ``budget`` bytes of C
+    tiles, each slab a tile_spgemm launch, gated against scipy/numpy f64;
+    its peak device memory beside a one-shot spgemm of the same worklist."""
+    import torch
+
+    from spada_tpu_torch.ops.spgemm import spgemm, spgemm_csr
+
+    cfg = dataclasses.replace(run.config, dense_c_budget=budget)
+    tm = cfg.default_tm
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = spgemm(run.a, run.b, cfg, dataflow="rowwise", tm=tm, device=dev)
+    torch.cuda.synchronize(dev)
+    peak_one = torch.cuda.max_memory_allocated(dev) - base
+    n_c = int(one.c_tiles.shape[0])
+    del one
+    torch.cuda.empty_cache()
+    slab_tiles = budget // (tm * cfg.tile_n * 4)
+    n_slabs = -(-n_c // slab_tiles)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with main_path(totals) as counts:
+        csr = spgemm_csr(run.a, run.b, cfg, dataflow="rowwise", tm=tm,
+                         device=dev)
+    dt = time.perf_counter() - t0
+    peak_slab = torch.cuda.max_memory_allocated(dev) - base
+    rows = ref_rows.shape[0]
+    err = relerr(csr.to_scipy()[:rows].toarray(), ref_rows)
+    log(f"  spgemm_csr, tm={tm}, budget {budget >> 20} MB: {n_c} C tiles in "
+        f"{n_slabs} slabs of {slab_tiles}, nnz(C) {csr.nnz}, {dt:.1f} s "
+        f"host+device, launches {counts}; peak device memory "
+        f"{peak_slab / 2**20:.0f} MiB against {peak_one / 2**20:.0f} MiB one "
+        f"shot; gate vs scipy/numpy f64, rows [0, {rows}): max|d|/max|ref| = "
+        f"{err:.2e} (limit 1e-4)")
+    require(n_slabs >= 4, f"spgemm_csr ran {n_slabs} slabs, not 4 or more")
+    require(counts == {"tile_spgemm": n_slabs},
+            f"spgemm_csr: {n_slabs} slabs, launches {counts}")
+    require(err < 1e-4, f"spgemm_csr gate failed: relerr {err:.3e}")
+    del csr
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -568,6 +678,7 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
                                                     stream_execute_reference,
                                                     stream_operands)
     from spada_tpu_torch.io.workloads import localized_powerlaw_csr
+    from spada_tpu_torch.ops.spgemm import measure_device_perf
     from spada_tpu_torch.tools.probe_pallas_stream import block_shape_sweep
     from spada_tpu_torch.utils.timing import cuda_time
 
@@ -686,6 +797,17 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
         f"({by}); host enqueue per multiply: "
         + ", ".join(f"{k} {v * 1e6:.0f} us" for k, v in host.items()))
     times["esc_stream_group"] = (t_g, t_pl)
+    perf = measure_device_perf(run.a, run.b, run.config, "element",
+                               device=dev)
+    gap = abs(perf["engine_s"] - t_g) / t_g
+    log(f"  measure_device_perf: engine {perf['engine_s'] * 1e3:.3f} ms "
+        f"(the grouped launch {t_g * 1e3:.3f} ms, {gap:.1%} apart), "
+        f"{perf['pct_hbm_sol']:.1f}% of HBM SoL ({perf['hbm_gbps']:.0f} GB/s"
+        f" modelled), on {smi_name_power()}")
+    require(gap <= 0.10, f"locpl: measure_device_perf {gap:.1%} from the "
+            f"grouped launch")
+    require(perf["mxu_util_pct"] is None and perf["pct_hbm_sol"] <= 100,
+            f"locpl: {perf}")
     extra["esc_stream_group"] = {
         "bound": (b_s, by),
         "library": (t_lib, "torch.mul + torch.linalg.vecdot per class")}
@@ -785,8 +907,6 @@ def engine_pair(engine: str, a_t, b_t, wl, dev, ogroup=None):
 
 def run_engines(dev, run, c_tile, ref_rows, totals: dict, errs: dict,
                 times: dict) -> None:
-    import dataclasses
-
     import torch
 
     from spada_tpu_torch.ops.spgemm import spgemm
@@ -985,12 +1105,147 @@ def run_probes(dev, totals: dict, errs: dict, times: dict,
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 8: the sparse MLP
+# --------------------------------------------------------------------------
+
+#: SGD step size of phase 8's three steps: the loss's curvature at these
+#: widths is about 1.5e-3 (2 / (out x batch) times the largest squared
+#: singular value of a layer's input, ~(sqrt(128) + sqrt(1024))^2 x its
+#: variance), so 10 is far inside the stable range (2 / 1.5e-3)
+MLP_LR = 10.0
+
+
+def tile_index(spec, dev):
+    """int64 [n_tiles, tm, tk]: each tile element's offset in the dense
+    [n_tile_rows * tm, n_k_tiles * tk] weight."""
+    import torch
+
+    rows = torch.from_numpy(spec.tile_row.astype(np.int64)).to(dev)
+    cols = torch.from_numpy(spec.tile_col.astype(np.int64)).to(dev)
+    i = torch.arange(spec.tm, device=dev)
+    j = torch.arange(spec.tk, device=dev)
+    width = spec.n_k_tiles * spec.tk
+    return ((rows[:, None, None] * spec.tm + i[None, :, None]) * width
+            + cols[:, None, None] * spec.tk + j[None, None, :])
+
+
+def dense_weights(model, dtype):
+    """Each layer's dense weight in ``dtype``, the tiles added at their
+    places (a tile the connectivity guard moved onto an occupied place
+    adds to it, as in the model)."""
+    import torch
+
+    out = []
+    for spec, tiles in zip(model.specs, model.params):
+        w = torch.zeros(spec.n_tile_rows * spec.tm, spec.n_k_tiles * spec.tk,
+                        dtype=dtype, device=tiles.device)
+        w.view(-1).index_add_(0, tile_index(spec, tiles.device).view(-1),
+                              tiles.detach().to(dtype).view(-1))
+        out.append(w)
+    return out
+
+
+def dense_forward(model, ws, x):
+    """The model's forward on dense weights ``ws``."""
+    import torch
+
+    h = x
+    for i, w in enumerate(ws):
+        h = w @ h
+        if i + 1 < len(ws):
+            h = torch.relu(h)
+            want = model.specs[i + 1].n_k_tiles * model.specs[i + 1].tk
+            h = (torch.nn.functional.pad(h, (0, 0, 0, want - h.shape[0]))
+                 if h.shape[0] < want else h[:want])
+    return h
+
+
+def run_sparse_mlp(dev, dims=(16384, 16384, 16384), density: float = 0.2,
+                   batch: int = 1024) -> None:
+    """entry()'s forward against a dense f64 forward of the same tiles;
+    then at the width of the bench's NN layer: forward and one step's tile
+    gradients against dense f64, three SGD steps with a falling loss, and
+    forward and step times beside one dense layer's torch.matmul."""
+    import torch
+
+    from spada_tpu_torch.models.sparse_nn import (SparseMLP, entry,
+                                                  make_train_step)
+    from spada_tpu_torch.utils.timing import cuda_time
+
+    fn, (x,) = entry(dev)
+    model = fn.__self__
+    with torch.no_grad():
+        got = fn(x)
+        ref = dense_forward(model, dense_weights(model, torch.float64),
+                            x.double())
+    err = relerr(got.cpu().numpy(), ref.cpu().numpy())
+    log(f"  entry(): {tuple(got.shape)} out, vs dense f64 max|d|/max|ref| = "
+        f"{err:.2e} (limit 1e-5)")
+    require(err < 1e-5, f"entry() forward: relerr {err:.3e}")
+
+    t0 = time.perf_counter()
+    model = SparseMLP.from_density(dims, density, tm=128, tk=128, seed=0,
+                                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((model.in_pad, batch), generator=gen, device=dev)
+    y = torch.randn((model.out_pad, batch), generator=gen, device=dev)
+    n_tiles = [int(p.shape[0]) for p in model.params]
+    log(f"  SparseMLP{dims}, density {density}, 128^2 tiles {n_tiles}, "
+        f"batch {batch}: built in {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        got = model(x)
+    ws = [w.requires_grad_() for w in dense_weights(model, torch.float64)]
+    ref = dense_forward(model, ws, x.double())
+    err = relerr(got.cpu().numpy(), ref.detach().cpu().numpy())
+    log(f"  forward vs dense f64: max|d|/max|ref| = {err:.2e} (limit 1e-4)")
+    require(err < 1e-4, f"sparse MLP forward: relerr {err:.3e}")
+    del got
+    torch.mean((ref - y.double()) ** 2).backward()
+    del ref
+    model.zero_grad(set_to_none=True)
+    model.loss(x, y).backward()
+    for i, (p, w) in enumerate(zip(model.params, ws)):
+        g_ref = w.grad.view(-1)[tile_index(model.specs[i], dev)]
+        err = relerr(p.grad.cpu().numpy(), g_ref.cpu().numpy())
+        log(f"  layer {i}: tile gradients vs dense f64 read at the tiles: "
+            f"max|d|/max|ref| = {err:.2e} (limit 1e-4)")
+        require(err < 1e-4, f"sparse MLP layer {i} gradient: {err:.3e}")
+        del g_ref
+    del ws
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, lr=MLP_LR)
+    losses = [float(step(x, y)) for _ in range(3)]
+    log(f"  three SGD steps, lr {MLP_LR}: loss {losses}")
+    require(losses[0] > losses[1] > losses[2],
+            f"sparse MLP loss did not fall: {losses}")
+
+    def forward():
+        with torch.no_grad():
+            return model(x)
+
+    w32 = dense_weights(model, torch.float32)[0]
+    t_fwd, _ = cuda_time(forward, warmup=1, reps=5)
+    t_step, _ = cuda_time(lambda: step(x, y), warmup=1, reps=5)
+    t_dense, _ = cuda_time(lambda: torch.matmul(w32, x), warmup=1, reps=5)
+    flops = sum(2 * n * 128 * 128 * batch for n in n_tiles)
+    log(f"  device ms: forward {t_fwd * 1e3:.3f} ({flops / t_fwd / 1e12:.2f} "
+        f"TFLOP/s of tile products), SGD step {t_step * 1e3:.3f}; one dense "
+        f"layer, torch.matmul {tuple(w32.shape)} x {tuple(x.shape)} f32 (TF32 "
+        f"off): {t_dense * 1e3:.3f}; on {smi_name_power()}")
+    del model, step, x, y, w32
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke run needs a CUDA device")
+    t_start = time.perf_counter()
     os.chdir(ROOT)
     from spada_tpu_torch import _build
     from spada_tpu_torch.config import h100_config
@@ -1030,11 +1285,15 @@ def main() -> int:
     log("== phase 3: cari through the port's CLI")
     for engine in (None, *ENGINE_KERNEL):
         run_cari(dev, totals, engine)
+    run_cari(dev, totals, scheme="profiled")
+    run_cari_plans(dev, totals)
     cfg = h100_config(kind)
     log(f"== phase 4: nn pair, tile side (roofline profile: "
         f"{cfg.hbm_bytes_per_s / 1e12:.2f} TB/s, "
         f"{cfg.peak_flops_f32 / 1e12:.0f} TFLOP/s f32, datasheet)")
     nn_run, nn_c, nn_ref = run_nn(dev, cfg, totals, errs, times, extra)
+    log("== phase 4b: spgemm_csr on the nn pair, in output slabs")
+    run_spgemm_csr(dev, nn_run, nn_ref, totals)
     log("== phase 5: locpl pair, element side")
     run_locpl(dev, cfg, totals, errs, times, extra)
     log("== phase 6: nn pair under each engine override, phase 4's plan")
@@ -1044,6 +1303,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_probes(dev, totals, errs, times, extra)
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 8: the sparse MLP (spada_tpu_torch.models.sparse_nn)")
+    t0 = time.perf_counter()
+    run_sparse_mlp(dev)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     require("jax" not in sys.modules and "jaxlib" not in sys.modules,
             "JAX was imported")
@@ -1107,6 +1370,8 @@ def main() -> int:
             f"{b_nn * 1e3:.3f} ms ({by_nn}, {b_nn / times[name][0]:.1%} of "
             f"it), plain {times[name][1] * 1e3:.3f} ms, library {lib_name} "
             f"{lib_nn * 1e3:.3f} ms")
+    log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s, the "
+        f"kernels' build included")
     log(json.dumps({"kernels": kernels}))
     log(smi_name_power())
     print(json.dumps({"ok": True, "device": {

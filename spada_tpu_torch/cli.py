@@ -3,6 +3,8 @@
 
     python -m spada_tpu_torch.cli run spada SS cari config/default.json
     python -m spada_tpu_torch.cli run spada SS cari config/default.json --device cpu
+    python -m spada_tpu_torch.cli run spada SS cari config/default.json --plan-scheme profiled
+    python -m spada_tpu_torch.cli plan spada SS cari config/default.json
     python -m spada_tpu_torch.cli traffic spada SS cari config/default.json
 
 ``build_parser``, ``load_workload``, ``_print_gemm_stats``,
@@ -10,10 +12,14 @@
 are copies of the reference CLI's, held equal to it by
 ``tests/test_torch_host.py``.  The ``run`` mode replaces the roofline
 constants of the config by the datasheet peaks of the card
-(:mod:`spada_tpu_torch.config`).  The ``traffic`` and ``breuse`` modes run
-the functional traffic model on the host, as the reference's do.  ``plan``
-is not ported yet (its ``--plan-scheme profiled`` times device engines):
-it exits 2.
+(:mod:`spada_tpu_torch.config`) and reports the device time of the
+multiply (:func:`~spada_tpu_torch.ops.spgemm.measure_device_perf`); on the
+CPU, which has no device time, the wall time of a warm rerun.  ``plan``
+prints the panel plan without executing it; under ``--plan-scheme
+profiled`` (in ``run`` too) the planner times the tile engine on
+``--device`` (:func:`~spada_tpu_torch.plan.execute.make_profiled_measure`).
+The ``traffic`` and ``breuse`` modes run the functional traffic model on
+the host, as the reference's do.
 
 :func:`run_spada` is the adaptive main path, shared with ``chip_smoke.py``:
 tile/element dispatch -> tile-edge choice -> (optional densify) -> panel
@@ -58,10 +64,12 @@ class SpadaRun:
 
 def run_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
               device="cuda", densify: bool = False,
-              log: Callable[[str], None] = print) -> SpadaRun:
+              log: Callable[[str], None] = print,
+              scheme: str = "analytic") -> SpadaRun:
     """The adaptive ``spada`` dataflow, as ``spada_tpu.cli``'s ``run`` mode
-    sequences it: dispatch -> ``choose_tile_size`` -> ``plan_spgemm`` ->
-    ``spgemm(plan=)``.  ``config`` is copied, not changed."""
+    sequences it: dispatch -> ``choose_tile_size`` -> ``plan_spgemm`` (under
+    ``scheme``, 'analytic' or 'profiled') -> ``spgemm(plan=)``.  ``config``
+    is copied, not changed."""
     from spada_tpu_torch.plan.planner import choose_tile_size, plan_spgemm
 
     config = dataclasses.replace(config)
@@ -103,8 +111,13 @@ def run_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
             t for t in config.tm_choices if t <= t_best) + (t_best,)
     ests = ", ".join(f"{k}: {v['t_est'] * 1e3:.2f}ms" for k, v in t_det.items())
     log(f"tile size: {t_best}  (model: {ests})")
-    plan = plan_spgemm(a, b, config, scheme="analytic")
-    log(f"plan[analytic]: {len(plan.panels)} panels, "
+    measure = None
+    if scheme == "profiled":
+        from spada_tpu_torch.plan.execute import make_profiled_measure
+
+        measure = make_profiled_measure(a, b, config, dev)
+    plan = plan_spgemm(a, b, config, scheme=scheme, measure=measure)
+    log(f"plan[{scheme}]: {len(plan.panels)} panels, "
         f"tm histogram {plan.tm_histogram()}")
     res = spgemm(a, b, config, dataflow="spada", plan=plan, device=dev)
     return SpadaRun(res, "tile", config, det, plan, a, b, row_remap)
@@ -203,15 +216,14 @@ def cmd_run(args, config: SpadaConfig, w: GemmWorkload,
             device: torch.device) -> CsrMatrix:
     """Run one SpGEMM, print the report; returns C in the input row order."""
     from spada_tpu_torch.models.traffic import simulate_traffic
+    from spada_tpu_torch.ops.spgemm import measure_device_perf
 
-    if args.plan_scheme != "analytic":
-        raise NotImplementedError(
-            "--plan-scheme profiled is not ported to spada_tpu_torch yet")
     dataflow = args.dataflow
     plan = None
     if dataflow == "spada":
         run = run_spada(w.a, w.b, config, device,
-                        densify=args.densify == "auto")
+                        densify=args.densify == "auto",
+                        scheme=args.plan_scheme)
         config, plan = run.config, run.plan
         if run.row_remap is not None:
             remap = (run.row_remap if w.row_remap is None
@@ -233,15 +245,33 @@ def cmd_run(args, config: SpadaConfig, w: GemmWorkload,
     t_rb = time.perf_counter()
     c = res.to_csr()
     readback_s = time.perf_counter() - t_rb
-    # the first run built and loaded the kernels: report a warm second run
-    res2 = spgemm(w.a, w.b, config, dataflow=dataflow, plan=plan,
-                  device=device)
-    print(f"result readback+extract {readback_s:.2f} s (excluded)")
+    # the device time of the launches the run made; a failing timing fails
+    # the run.  None only where there is no device time to take (the CPU,
+    # or an element run that streamed row slabs)
+    dev = measure_device_perf(w.a, w.b, config, dataflow=dataflow, plan=plan,
+                              host_state=getattr(res, "host_state", None),
+                              device=device)
+    if dev is not None:
+        elapsed = dev["engine_s"]
+        util = ("" if dev["mxu_util_pct"] is None
+                else f"{dev['mxu_util_pct']:.1f}% tensor-core peak | ")
+        print(f"device perf: engine {dev['engine_s'] * 1e3:.3f} ms | "
+              f"{dev['flops_per_s'] / 1e9:.1f} GFLOP/s ({util}"
+              f"{dev['pct_hbm_sol']:.1f}% of HBM SoL) | "
+              f"model HBM {dev['hbm_gbps']:.0f} GB/s | "
+              f"result readback+extract {readback_s:.2f} s (excluded)")
+    else:
+        # the first run built and loaded the kernels: time a warm rerun
+        elapsed = spgemm(w.a, w.b, config, dataflow=dataflow, plan=plan,
+                         device=device).elapsed_s
+        print(f"device perf: not measured ({device}); elapsed is the wall "
+              f"time of a warm rerun | result readback+extract "
+              f"{readback_s:.2f} s (excluded)")
 
     backend = (torch.cuda.get_device_name(device) if device.type == "cuda"
                else str(device))
     perf = PerfReport(
-        workload=w.name, dataflow=dataflow, elapsed_s=res2.elapsed_s,
+        workload=w.name, dataflow=dataflow, elapsed_s=elapsed,
         useful_flops=res.useful_flops, mxu_flops=res.mxu_flops, nnz_c=c.nnz,
         hbm_bytes_model=_tile_bytes(res), n_work_items=res.n_work_items,
         backend=backend,
@@ -311,16 +341,38 @@ def cmd_breuse(args, config: SpadaConfig, w: GemmWorkload) -> int:
     return 0
 
 
+def cmd_plan(args, config: SpadaConfig, w: GemmWorkload,
+             device: torch.device) -> int:
+    """The planner's decisions, printed as the reference's ``plan`` mode
+    prints them; ``--plan-scheme profiled`` times the tile engine on
+    ``device``."""
+    from spada_tpu_torch.plan.planner import plan_spgemm
+
+    measure = None
+    if args.plan_scheme == "profiled":
+        from spada_tpu_torch.plan.execute import make_profiled_measure
+
+        measure = make_profiled_measure(w.a, w.b, config, device)
+    plan = plan_spgemm(w.a, w.b, config, scheme=args.plan_scheme,
+                       measure=measure)
+    print(f"{len(plan.panels)} panels over {w.a.shape[0]} rows "
+          f"({plan.meta['n_groups']} row groups, "
+          f"scheme {args.plan_scheme})")
+    print(f"tm histogram (height -> rows): {plan.tm_histogram()}")
+    for p in plan.panels[:20]:
+        print(f"  rows [{p.row_start}, {p.row_end})  tm={p.tm}")
+    if len(plan.panels) > 20:
+        print(f"  ... {len(plan.panels) - 20} more")
+    return 0
+
+
 def _execute(args):
     """(exit code, C in input row order or None) of one parsed command."""
-    if args.mode == "plan":
-        print("mode 'plan' is not ported to spada_tpu_torch yet: use "
-              "`python -m spada_tpu.cli plan ...`")
-        return 2, None
     config = SpadaConfig.from_json(args.config) if args.config else SpadaConfig()
     device = None
-    if args.mode == "run":
+    if args.mode in ("run", "plan"):
         device = check_device(args.device)
+    if args.mode == "run":
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else None)
         config = dataclasses.replace(config, **datasheet_peaks(name))
@@ -340,6 +392,8 @@ def _execute(args):
         return cmd_traffic(args, config, w), None
     if args.mode == "breuse":
         return cmd_breuse(args, config, w), None
+    if args.mode == "plan":
+        return cmd_plan(args, config, w, device), None
     return 0, cmd_run(args, config, w, device)
 
 
@@ -350,7 +404,7 @@ def execute(argv=None) -> Optional[CsrMatrix]:
 
 
 def main(argv=None) -> int:
-    """Exit code: 0 after a run, 2 for a mode this package does not run."""
+    """Exit code of one command: 0 when it ran."""
     return _execute(build_port_parser().parse_args(argv))[0]
 
 

@@ -208,21 +208,35 @@ def h100_config(device_name: Optional[str] = None,
     return SpadaConfig(**{**datasheet_peaks(device_name), **overrides})
 
 
+def _is_half(dtype) -> bool:
+    return str(dtype).rsplit(".", 1)[-1] in ("bfloat16", "float16")
+
+
+def matmul_peak_flops(device_name: Optional[str] = None,
+                      dtype="float32") -> float:
+    """The FLOP/s at which the tile kernels multiply ``dtype`` tiles on the
+    card named ``device_name`` (datasheet placeholders until measured):
+    bf16 and fp16 tiles at the dense tensor-core rate (their products are
+    exact in an f32 accumulator), f32 tiles at a third of the dense TF32
+    rate, since 3xTF32 on the tensor cores gives f32-level error at that
+    rate (``csrc/tile_mma.cuh``)."""
+    _, _, _, tf32, bf16 = _datasheet_row(device_name)
+    return bf16 if _is_half(dtype) else tf32 / 3
+
+
 def roofline_bound(flops: float, nbytes: float,
                    device_name: Optional[str] = None,
                    dtype="float32", matmul: bool = False) -> tuple:
     """(seconds, 'operations' | 'bytes'): the least time the card named
     ``device_name`` could take for ``flops`` operations on ``dtype``
     operands that move ``nbytes``, on its datasheet peaks (placeholders
-    until measured).  bf16 and fp16 operands count at the dense tensor-core
-    rate (their products are exact in an f32 accumulator).  f32 operands of
-    a matrix product (``matmul``) count at a third of the dense TF32 rate:
-    3xTF32 on the tensor cores gives f32-level error at that rate
-    (``csrc/tile_mma.cuh``).  Other f32 work counts at the FP32 rate outside
-    the tensor cores."""
-    _, bw, f32, tf32, bf16 = _datasheet_row(device_name)
-    half = str(dtype).rsplit(".", 1)[-1] in ("bfloat16", "float16")
-    t_op = flops / (bf16 if half else tf32 / 3 if matmul else f32)
+    until measured).  Half-precision operands, and f32 operands of a matrix
+    product (``matmul``), count at :func:`matmul_peak_flops`; other f32
+    work counts at the FP32 rate outside the tensor cores."""
+    _, bw, f32, _, _ = _datasheet_row(device_name)
+    peak = (matmul_peak_flops(device_name, dtype)
+            if matmul or _is_half(dtype) else f32)
+    t_op = flops / peak
     t_by = nbytes / bw
     return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
 

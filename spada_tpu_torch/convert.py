@@ -135,6 +135,21 @@ def from_reference(obj):
                     f"{type(obj).__name__}")
 
 
+def sparse_mlp_from_reference(model, device):
+    """The port's ``SparseMLP`` on ``device`` with the structure and the
+    parameters of ``model``, a ``SparseMLP`` of the JAX package (its specs,
+    and its params as arrays of any kind NumPy reads)."""
+    from spada_tpu_torch.models.sparse_nn import SparseLinearSpec, SparseMLP
+
+    specs = [SparseLinearSpec(int(s.n_tile_rows), int(s.n_k_tiles),
+                              int(s.tm), int(s.tk),
+                              np.asarray(s.tile_row, np.int32),
+                              np.asarray(s.tile_col, np.int32))
+             for s in model.specs]
+    return SparseMLP(specs, [np.asarray(p, np.float32) for p in model.params],
+                     device)
+
+
 def c_tiles_to_numpy(t) -> np.ndarray:
     """C tiles (a tensor on any device, or an array) -> host f32 array."""
     if isinstance(t, torch.Tensor):

@@ -41,7 +41,7 @@ splits are not copied.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -84,6 +84,16 @@ def run_worklist(wl, a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                  engine: Optional[str] = None) -> torch.Tensor:
     """C tiles [n_c_tiles, tm, tn] f32 for either package's host
     ``WorkList``, on the tiles' device."""
+    return prepare_worklist(wl, a_tiles, b_tiles, precision, engine)()
+
+
+def prepare_worklist(wl, a_tiles: torch.Tensor, b_tiles: torch.Tensor,
+                     precision: str = "highest",
+                     engine: Optional[str] = None) -> Callable[[], torch.Tensor]:
+    """The launch :func:`run_worklist` makes, as a call with no arguments:
+    the worklist is checked and its ids are uploaded to the tiles' device
+    once, here, so the call enqueues the engine's kernel and nothing else
+    (no host-to-device copy, no wait for the device)."""
     _check_precision(precision)
     eng = select_engine(wl.order) if engine in (None, "auto") else engine
     if eng not in _ENGINES:
@@ -94,17 +104,18 @@ def run_worklist(wl, a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     args = (a_tiles, b_tiles, wl.a_tid, wl.b_tid, wl.o_tid)
     n_c = int(wl.n_c_tiles)
     if eng == "streaming":
-        return run_worklist_streaming(*args, n_c, precision=precision)
+        return _streaming_call(*args, n_c)
     if eng == "panel":
-        return run_worklist_panel(*args, n_c, precision=precision)[0]
+        return _panel_call(*args, n_c)
     if eng == "pallas_grid":
-        return run_worklist_pallas(*args, wl.first, n_c, precision=precision)
+        return _grid_call(*args, wl.first, n_c)
     a, b, o = _host_ids(*args, n_c, row_major=eng == "cached")
     dev = a_tiles.device
     if eng == "cached":
-        return tile_spgemm(a_tiles, b_tiles,
-                           *_on(dev, a, b, tile_ptr_of(o, n_c)))
-    return run_worklist_reference(a_tiles, b_tiles, *_on(dev, a, b, o), n_c)
+        ids = _on(dev, a, b, tile_ptr_of(o, n_c))
+        return lambda: tile_spgemm(a_tiles, b_tiles, *ids)
+    ids = _on(dev, a, b, o)
+    return lambda: run_worklist_reference(a_tiles, b_tiles, *ids, n_c)
 
 
 def run_worklist_streaming(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
@@ -119,10 +130,17 @@ def run_worklist_streaming(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     one block, and on the nn pair that took 24-37% longer than one C tile per
     block (PERF.md); it changes no value of C."""
     _check_precision(precision)
+    return _streaming_call(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles,
+                           nbuf, ogroup)()
+
+
+def _streaming_call(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles: int,
+                    nbuf: int = 8, ogroup: int = 1):
     a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
     ptr = item_ptr_of(o, n_c_tiles, ogroup)
-    return tile_stream(a_tiles, b_tiles, *_on(a_tiles.device, a, b, o, ptr),
-                       n_c_tiles, ogroup, nbuf)
+    ids = _on(a_tiles.device, a, b, o, ptr)
+    return lambda: tile_stream(a_tiles, b_tiles, *ids, n_c_tiles, ogroup,
+                               nbuf)
 
 
 def run_worklist_panel(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
@@ -143,13 +161,19 @@ def run_worklist_panel(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
         raise NotImplementedError(
             f"run_order {run_order!r} is not ported to spada_tpu_torch yet")
     _check_precision(precision)
+    c = _panel_call(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles,
+                    out_dtype, a_tiles_t)()
+    return c, None, None, None
+
+
+def _panel_call(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles: int,
+                out_dtype: torch.dtype = torch.float32,
+                a_tiles_t: Optional[torch.Tensor] = None):
     a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
     if a_tiles_t is None:
         a_tiles_t = a_tiles.transpose(1, 2).contiguous()
-    c = tile_panel(a_tiles_t, b_tiles,
-                   *_on(b_tiles.device, a, b, tile_ptr_of(o, n_c_tiles)),
-                   out_dtype)
-    return c, None, None, None
+    ids = _on(b_tiles.device, a, b, tile_ptr_of(o, n_c_tiles))
+    return lambda: tile_panel(a_tiles_t, b_tiles, *ids, out_dtype)
 
 
 def run_worklist_pallas(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
@@ -160,14 +184,19 @@ def run_worklist_pallas(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     ``first`` must be 1 exactly where an ``o_ids`` run starts, as
     ``build_worklist`` makes it; the kernel itself does not read it."""
     _check_precision(precision)
+    return _grid_call(a_tiles, b_tiles, a_ids, b_ids, o_ids, first,
+                      n_c_tiles)()
+
+
+def _grid_call(a_tiles, b_tiles, a_ids, b_ids, o_ids, first, n_c_tiles: int):
     a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
     starts = np.r_[True, o[1:] != o[:-1]] if len(o) else np.zeros(0, bool)
     if np.shape(first) != o.shape or not np.array_equal(
             np.asarray(first) != 0, starts):
         raise ValueError("first must be 1 exactly at the starts of o_ids's "
                          "runs")
-    return tile_grid(a_tiles, b_tiles, *_on(a_tiles.device, a, b, o),
-                     n_c_tiles)
+    ids = _on(a_tiles.device, a, b, o)
+    return lambda: tile_grid(a_tiles, b_tiles, *ids, n_c_tiles)
 
 
 def _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles: int,

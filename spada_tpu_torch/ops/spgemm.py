@@ -22,7 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spada_tpu_torch.config import SpadaConfig
+from spada_tpu_torch.config import (SpadaConfig, datasheet_peaks,
+                                    matmul_peak_flops)
 from spada_tpu_torch.sparse.bsr import BsrMatrix
 from spada_tpu_torch.sparse.csr import CsrMatrix
 from spada_tpu_torch.convert import (bsr_to_torch, c_tiles_to_numpy,
@@ -56,6 +57,10 @@ class SpGemmResult:
     # todense/to_csr delegate to it
     element: Optional[object] = None
     engine_used: str = "tile"    # 'tile' | 'element'
+    # the launches this result ran, as host state ({"segments": [(wl,
+    # a_tiles_f32, b_tiles_f32, tm)], "tk", "tn"}), so that
+    # measure_device_perf times them without replanning
+    host_state: Optional[dict] = None
 
     def host_tiles(self) -> np.ndarray:
         return c_tiles_to_numpy(self.c_tiles)
@@ -240,31 +245,8 @@ def spgemm(
 
         return execute_plan(a, b, plan, config, device=dev)
 
-    if tm is None:
-        if dataflow == "op":
-            from spada_tpu_torch.plan.planner import plan_op_dataflow
-
-            tm, _ = plan_op_dataflow(a, b, config)
-        elif dataflow == "rowwise":
-            tm = _multirow_tm(config)
-        else:
-            tm = {"ip": 128}.get(dataflow, config.default_tm)
-
-    order = "k" if dataflow == "op" else "row"
-    if dataflow == "spada" and config.densify == "auto":
-        # C-invariant layout densification (k-anchor / k-perm only:
-        # C = (A Q)(Q^T B) exactly)
-        from spada_tpu_torch.plan.densify import apply_densify, choose_densify
-
-        dplan = choose_densify(a, b, tm, config.tile_k, config.tile_n,
-                               config, allow_row_perm=False)
-        if not dplan.is_identity:
-            a, b = apply_densify(a, b, dplan)
     dtype = tile_dtype(config)
-    a_bsr = BsrMatrix.from_csr(a, tm, config.tile_k, dtype=np.float32)
-    b_bsr = BsrMatrix.from_csr(b, config.tile_k, config.tile_n,
-                               dtype=np.float32)
-    wl = build_worklist(a_bsr, b_bsr, order=order)
+    a, b, tm, a_bsr, b_bsr, wl = _uniform_worklist(a, b, config, dataflow, tm)
 
     isz = dtype.itemsize
     if wl.n_items == 0:
@@ -293,7 +275,196 @@ def spgemm(
         mxu_flops=2 * wl.n_items * tm * config.tile_k * config.tile_n,
         useful_flops=_count_useful_flops(a, b),
         elapsed_s=elapsed,
+        host_state={"segments": [(wl, a_bsr.tiles, b_bsr.tiles, tm)],
+                    "tk": config.tile_k, "tn": config.tile_n},
     )
+
+
+def measure_device_perf(a: CsrMatrix, b: CsrMatrix,
+                        config: Optional[SpadaConfig] = None,
+                        dataflow: Optional[str] = None,
+                        plan=None, host_state=None,
+                        device="cuda") -> Optional[dict]:
+    """Device time of the launches :func:`spgemm` runs for ``a @ b``.
+
+    The port of the reference's function of the same name: ``engine_s`` is
+    the median device seconds of one multiply (CUDA events,
+    :func:`spada_tpu_torch.utils.timing.cuda_time`; operands, tiles and ids
+    uploaded once before, C's readback excluded), beside the modelled HBM
+    bytes over it (``hbm_gbps``, ``pct_hbm_sol``), the tile products' share
+    of the tensor-core peak the kernels run at (``mxu_util_pct``, None on
+    the element side) and ``flops_per_s``.  Peaks and bandwidth are the
+    card's datasheet values (:func:`~spada_tpu_torch.config.datasheet_peaks`),
+    not the config's.  A result's ``host_state`` gives the tile side's
+    launches directly; otherwise they are rebuilt as :func:`spgemm` builds
+    them.  Returns None on a CPU device, where there is no device time, and
+    above 2^28 products on the element side (that run streamed row slabs).
+    """
+    dev = check_device(device)
+    if dev.type != "cuda":
+        return None
+    config = config or SpadaConfig()
+    dataflow = dataflow or config.dataflow
+    name = torch.cuda.get_device_name(dev)
+
+    # resolve the engine as spgemm() does: an auto-dispatched 'spada' run
+    # may have gone to the element side
+    if (dataflow == "spada" and plan is None and host_state is None
+            and config.element_dispatch in ("auto", "always")):
+        if config.element_dispatch == "always":
+            dataflow = "element"
+        elif dispatch_dataflow(a, b, config)[0] == "element":
+            dataflow = "element"
+
+    if dataflow == "element":
+        return _time_element(a, b, config, dev, name)
+
+    if host_state is not None:
+        segments = host_state["segments"]
+        tk, tn = host_state["tk"], host_state["tn"]
+    elif dataflow == "spada" and plan is not None:
+        from spada_tpu_torch.plan.execute import iter_plan_segments
+
+        b_bsr = BsrMatrix.from_csr(b, plan.tile_k, plan.tile_n,
+                                   dtype=np.float32)
+        segments = [(wl, a_bsr.tiles, b_bsr.tiles, tm_) for tm_, _, _, a_bsr,
+                    wl in iter_plan_segments(a, b_bsr, plan)]
+        tk, tn = plan.tile_k, plan.tile_n
+    else:
+        _, _, tm, a_bsr, b_bsr, wl = _uniform_worklist(a, b, config,
+                                                       dataflow)
+        segments = [(wl, a_bsr.tiles, b_bsr.tiles, tm)] if wl.n_items else []
+        tk, tn = config.tile_k, config.tile_n
+    if not segments:
+        return None
+    return _time_segments(segments, tk, tn, config, dev, name)
+
+
+def _time_element(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
+                  dev: torch.device, name: str) -> Optional[dict]:
+    """The element side's multiply as :func:`spgemm_element` runs it: one
+    ``esc_stream_group`` launch (backends 'auto', 'pallas') or
+    :func:`esc_execute` ('xla'), on operands uploaded once."""
+    from spada_tpu_torch.convert import stream_operands_to_torch
+    from spada_tpu_torch.ops.element import (build_esc_plan, esc_execute,
+                                             esc_operands, esc_transfer,
+                                             expansion_products,
+                                             resolve_element_backend)
+    from spada_tpu_torch.utils.timing import cuda_time
+
+    if a.shape[0] > 1 and expansion_products(a, b) > 2**28:
+        # spgemm ran row slabs; one whole plan here would take the memory
+        # the slabs exist to avoid
+        return None
+    eplan = build_esc_plan(a, b, cap=config.element_cap)
+    backend = resolve_element_backend(config.element_backend)
+    if backend == "pallas":
+        from spada_tpu_torch.ops.element_stream import (build_stream_layout,
+                                                        stream_execute,
+                                                        stream_operands)
+
+        layout = build_stream_layout(eplan)
+        ops = stream_operands_to_torch(stream_operands(layout, eplan, a, b),
+                                       dev)
+        bytes_model = layout.operand_bytes()
+
+        def run():
+            return stream_execute(layout, ops)
+    elif backend == "xla":
+        ops = esc_transfer(esc_operands(eplan, a, b), dev)
+        bytes_model = eplan.operand_bytes()
+
+        def run():
+            return esc_execute(ops)
+    else:
+        raise ValueError(f"unknown element backend {config.element_backend!r}")
+    if not ops:
+        return None
+    el, _ = cuda_time(run)
+    hbm = datasheet_peaks(name)["hbm_bytes_per_s"]
+    return {
+        "engine_s": el,
+        "hbm_gbps": bytes_model / el / 1e9,
+        "pct_hbm_sol": 100.0 * bytes_model / hbm / el,
+        "mxu_util_pct": None,   # elementwise products, no tensor cores
+        "flops_per_s": 2 * eplan.n_products / el,
+    }
+
+
+def _time_segments(segments, tk: int, tn: int, config: SpadaConfig,
+                   dev: torch.device, name: str) -> dict:
+    """One multiply's tile launches (one per segment, under the engine
+    :func:`spgemm` resolves), timed together on tiles and ids uploaded
+    once.  The C tiles are returned, not summed: ``cuda_time`` keeps them
+    alive, so their stores are timed as a caller pays them."""
+    from spada_tpu_torch.ops.engine import prepare_worklist
+    from spada_tpu_torch.utils.timing import cuda_time
+
+    dtype = tile_dtype(config)
+    engine = _resolve_engine(config)
+    on_dev = {}       # host tile array -> its device copy (B is shared)
+
+    def upload(x):
+        if id(x) not in on_dev:
+            on_dev[id(x)] = (x, torch.from_numpy(
+                np.ascontiguousarray(x, np.float32)).to(dev, dtype))
+        return on_dev[id(x)][1]
+
+    calls = []
+    mxu_flops = bytes_model = 0
+    for wl, a_np, b_np, tm in segments:
+        calls.append(prepare_worklist(wl, upload(a_np), upload(b_np),
+                                      precision=config.precision,
+                                      engine=engine))
+        mxu_flops += 2 * wl.n_items * tm * tk * tn
+        bytes_model += (wl.n_items * (tm * tk + tk * tn) * dtype.itemsize
+                        + wl.n_c_tiles * tm * tn * 4)
+
+    el, _ = cuda_time(lambda: [call() for call in calls])
+    hbm = datasheet_peaks(name)["hbm_bytes_per_s"]
+    return {
+        "engine_s": el,
+        "hbm_gbps": bytes_model / el / 1e9,
+        "pct_hbm_sol": 100.0 * bytes_model / hbm / el,
+        "mxu_util_pct": 100.0 * mxu_flops / el / _peak_flops(name, dtype),
+        "flops_per_s": mxu_flops / el,
+    }
+
+
+# the reference's name: the rate the tile kernels multiply tiles of a dtype
+# at on the named card (3xTF32 for f32, the dense tensor-core rate for bf16)
+_peak_flops = matmul_peak_flops
+
+
+def _uniform_worklist(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
+                      dataflow: str, tm: Optional[int] = None):
+    """:func:`spgemm`'s uniform path up to its launch: the panel height,
+    the C-invariant densification of ``'spada'`` (k-anchor / k-perm only:
+    C = (A Q)(Q^T B) exactly) and the worklist.  Returns (a, b as run, tm,
+    a_bsr, b_bsr, wl), tiles in f32 (the device dtype is chosen at
+    upload)."""
+    if tm is None:
+        if dataflow == "op":
+            from spada_tpu_torch.plan.planner import plan_op_dataflow
+
+            tm, _ = plan_op_dataflow(a, b, config)
+        elif dataflow == "rowwise":
+            tm = _multirow_tm(config)
+        else:
+            tm = {"ip": 128}.get(dataflow, config.default_tm)
+    if dataflow == "spada" and config.densify == "auto":
+        from spada_tpu_torch.plan.densify import apply_densify, choose_densify
+
+        dplan = choose_densify(a, b, tm, config.tile_k, config.tile_n,
+                               config, allow_row_perm=False)
+        if not dplan.is_identity:
+            a, b = apply_densify(a, b, dplan)
+    a_bsr = BsrMatrix.from_csr(a, tm, config.tile_k, dtype=np.float32)
+    b_bsr = BsrMatrix.from_csr(b, config.tile_k, config.tile_n,
+                               dtype=np.float32)
+    wl = build_worklist(a_bsr, b_bsr, order="k" if dataflow == "op"
+                        else "row")
+    return a, b, tm, a_bsr, b_bsr, wl
 
 
 def _resolve_engine(config: SpadaConfig) -> Optional[str]:
@@ -310,3 +481,83 @@ def _multirow_tm(config: SpadaConfig) -> int:
     panel."""
     bs_tm = int(config.block_shape[0])
     return bs_tm if 8 <= bs_tm <= 512 else 32
+
+
+def spgemm_csr(
+    a: CsrMatrix,
+    b: CsrMatrix,
+    config: Optional[SpadaConfig] = None,
+    dataflow: Optional[str] = None,
+    tm: Optional[int] = None,
+    prune_eps: float = 0.0,
+    device="cuda",
+) -> CsrMatrix:
+    """SpGEMM with CSR output, C streamed through a bounded tile budget.
+
+    The port of the reference's function of the same name.  The f32 C
+    tiles [nC, tm, tn] of the o-sorted worklist are computed in slabs of
+    ``config.dense_c_budget // (tm * tn * 4)`` consecutive C tiles (an
+    index-range split of the worklist), each on ``device`` under the
+    config's engine, read back, pruned at ``prune_eps`` and extracted, then
+    freed before the next slab starts: only one slab's C tiles are on the
+    device at a time.  ``'element'`` and ``'op'`` (k-major: no o-slabs) run
+    in one shot.
+    """
+    config = config or SpadaConfig()
+    dataflow = dataflow or config.dataflow
+    dev = check_device(device)
+    if dataflow == "element":
+        return spgemm(a, b, config, dataflow="element", device=dev).to_csr()
+    if dataflow == "op":
+        return spgemm(a, b, config, dataflow=dataflow, tm=tm,
+                      device=dev).to_csr(prune_eps)
+    if tm is None:
+        tm = (_multirow_tm(config) if dataflow == "rowwise"
+              else {"ip": 128}.get(dataflow, config.default_tm))
+    tn = config.tile_n
+    a_bsr = BsrMatrix.from_csr(a, tm, config.tile_k, dtype=np.float32)
+    b_bsr = BsrMatrix.from_csr(b, config.tile_k, tn, dtype=np.float32)
+    wl = build_worklist(a_bsr, b_bsr, order="row")
+    shape = (a.shape[0], b.shape[1])
+    if wl.n_items == 0:
+        return CsrMatrix(shape, np.zeros(shape[0] + 1, np.int64), [], [])
+
+    from spada_tpu_torch.ops.worklist import WorkList
+
+    dtype = tile_dtype(config)
+    a_t = bsr_to_torch(a_bsr, dev, dtype)
+    b_t = bsr_to_torch(b_bsr, dev, dtype)
+    engine = _resolve_engine(config)
+    slab_tiles = max(1, int(config.dense_c_budget) // (tm * tn * 4))
+    rows, cols, vals = [], [], []
+    for o_lo in range(0, wl.n_c_tiles, slab_tiles):
+        o_hi = min(o_lo + slab_tiles, wl.n_c_tiles)
+        lo, hi = np.searchsorted(wl.o_tid, [o_lo, o_hi])
+        sub = WorkList(
+            a_tid=wl.a_tid[lo:hi], b_tid=wl.b_tid[lo:hi],
+            o_tid=wl.o_tid[lo:hi] - o_lo, first=wl.first[lo:hi].copy(),
+            c_tile_row=wl.c_tile_row[o_lo:o_hi],
+            c_tile_col=wl.c_tile_col[o_lo:o_hi],
+            n_c_tiles=o_hi - o_lo, order="row",
+        )
+        if len(sub.first):
+            sub.first[0] = 1
+        c_dev = run_worklist(sub, a_t, b_t, precision=config.precision,
+                             engine=engine)
+        tiles = c_tiles_to_numpy(c_dev)
+        del c_dev   # this slab's device C goes back to the allocator
+        t, r, c = np.nonzero(np.abs(tiles) > prune_eps)
+        rr = sub.c_tile_row[t].astype(np.int64) * tm + r
+        cc = sub.c_tile_col[t].astype(np.int64) * tn + c
+        keep = (rr < shape[0]) & (cc < shape[1])
+        rows.append(rr[keep])
+        cols.append(cc[keep])
+        vals.append(tiles[t, r, c][keep])
+    rows, cols, vals = (np.concatenate(x) for x in (rows, cols, vals))
+    # C tiles come in (tile row, tile col) order and a tile's entries in
+    # (row, col) order, so a stable sort by row alone orders the entries
+    # as (row, col); no coordinate repeats
+    order = np.argsort(rows, kind="stable")
+    indptr = np.zeros(shape[0] + 1, np.int64)
+    indptr[1:] = np.cumsum(np.bincount(rows, minlength=shape[0]))
+    return CsrMatrix(shape, indptr, cols[order], vals[order])

@@ -4,8 +4,9 @@ The port of the execution half of :mod:`spada_tpu.plan.planner`
 (``spada_tpu/plan/planner.py:197-368``).  ``_Segment``, ``PlanResult`` and
 ``_slice_rows_padded`` are copies of the reference's, held equal to it by
 ``tests/test_torch_host.py``; ``iter_plan_segments`` and ``execute_plan``
-run the port's worklist builder and tile engines.  Planning itself
-(``plan_spgemm``, ``choose_tile_size``) is in
+run the port's worklist builder and tile engines, and
+``make_profiled_measure`` times them for ``plan_spgemm(scheme='profiled')``.
+Planning itself (``plan_spgemm``, ``choose_tile_size``) is in
 :mod:`spada_tpu_torch.plan.planner`.
 """
 
@@ -125,6 +126,53 @@ def iter_plan_segments(a: CsrMatrix, b_bsr: BsrMatrix, plan: ExecutionPlan):
         if wl.n_items == 0:
             continue
         yield tm, panels, bases, a_bsr, wl
+
+
+def make_profiled_measure(a: CsrMatrix, b: CsrMatrix,
+                          config: Optional[SpadaConfig] = None,
+                          device="cuda"):
+    """The ``measure`` callback of ``plan_spgemm(scheme='profiled')``
+    (the port of the reference's function of the same name): the measured
+    latency of the reference's scheme 3 (rowwise_perf_adjust.rs:121-231),
+    collected per candidate before committing.
+
+    B's tiles are built and uploaded once.  ``measure(row_start, row_end,
+    tm)`` builds the span's tiles and worklist at panel height ``tm``,
+    uploads them once, makes one warm call and returns the seconds of the
+    auto engine on them: device seconds on CUDA events on a card
+    (:func:`~spada_tpu_torch.utils.timing.cuda_time`), wall seconds on the
+    CPU, as the reference times off its accelerator.  An empty worklist
+    takes 0.0 s.
+    """
+    from spada_tpu_torch.convert import bsr_to_torch, check_device
+    from spada_tpu_torch.ops.engine import prepare_worklist
+    from spada_tpu_torch.ops.spgemm import tile_dtype
+    from spada_tpu_torch.utils.timing import cuda_time
+
+    config = config or SpadaConfig()
+    dev = check_device(device)
+    dtype = tile_dtype(config)
+    b_bsr = BsrMatrix.from_csr(b, config.tile_k, config.tile_n,
+                               dtype=np.float32)
+    b_t = bsr_to_torch(b_bsr, dev, dtype)
+
+    def measure(row_start: int, row_end: int, tm: int) -> float:
+        sub, _ = _slice_rows_padded(
+            a, [PanelSpec(row_start, row_end, tm)], tm)
+        a_bsr = BsrMatrix.from_csr(sub, tm, config.tile_k, dtype=np.float32)
+        wl = build_worklist(a_bsr, b_bsr, order="row")
+        if wl.n_items == 0:
+            return 0.0
+        call = prepare_worklist(wl, bsr_to_torch(a_bsr, dev, dtype), b_t,
+                                precision=config.precision)
+        if dev.type == "cuda":
+            return cuda_time(call, warmup=1, reps=3)[0]
+        call()
+        t0 = time.perf_counter()
+        call()
+        return time.perf_counter() - t0
+
+    return measure
 
 
 def execute_plan(a: CsrMatrix, b: CsrMatrix, plan: ExecutionPlan,

@@ -21,8 +21,8 @@ Copy of the planning half of :mod:`spada_tpu.plan.planner` for
 spada_tpu_torch, held equal to it by ``tests/test_torch_host.py``; only
 the imports differ.  The execution half (``PlanResult``, ``_Segment``,
 ``_slice_rows_padded``, ``iter_plan_segments``, ``execute_plan``) is in
-:mod:`spada_tpu_torch.plan.execute`; ``make_profiled_measure``, which
-times the reference's device engines, is not ported yet.
+:mod:`spada_tpu_torch.plan.execute`, with ``make_profiled_measure``, which
+times the port's device engines.
 """
 
 from __future__ import annotations

@@ -37,6 +37,7 @@ def test_package_modules_listed():
                  "spada_tpu_torch.io.mtx", "spada_tpu_torch.io.workloads",
                  "spada_tpu_torch.models.nn_workloads",
                  "spada_tpu_torch.models.traffic",
+                 "spada_tpu_torch.models.sparse_nn",
                  "spada_tpu_torch.plan.groups", "spada_tpu_torch.plan.topo",
                  "spada_tpu_torch.plan.policy",
                  "spada_tpu_torch.plan.estimator",

@@ -6,6 +6,8 @@ on its own:
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -536,3 +538,57 @@ def test_stream_kernels_at_block_sizes(cuda_device, block):
         assert torch.equal(got, esc_stream_red(x, y))
     with pytest.raises(ValueError, match="block"):
         probe_pallas_stream.esc_stream_mul_blocked(a, b, 6)
+
+
+@pytest.mark.cuda
+def test_measure_device_perf_on_the_card(cuda_device):
+    """The device report of a small tile pair and a small element pair:
+    device seconds, and every share of a peak at most 100%."""
+    from spada_tpu_torch.config import h100_config
+    from spada_tpu_torch.io.workloads import (block_sparse_csr,
+                                              localized_powerlaw_csr,
+                                              relu_activation_csr)
+    from spada_tpu_torch.ops.spgemm import measure_device_perf, spgemm
+    from spada_tpu_torch.plan.planner import plan_spgemm
+
+    cfg = h100_config(torch.cuda.get_device_name(cuda_device))
+    a = block_sparse_csr(1024, 1024, 128, 0.3, seed=1, dtype=np.float32)
+    b = relu_activation_csr(1024, 512, 0.35, seed=2, dtype=np.float32)
+    res = spgemm(a, b, cfg, dataflow="ip", device=cuda_device)
+    plan = plan_spgemm(a, b, cfg)
+    # the run's launches; the same rebuilt; a plan's segments
+    for kw in ({"dataflow": "ip", "host_state": res.host_state},
+               {"dataflow": "ip"}, {"dataflow": "spada", "plan": plan}):
+        perf = measure_device_perf(a, b, cfg, device=cuda_device, **kw)
+        assert perf["engine_s"] > 0
+        assert 0 < perf["mxu_util_pct"] <= 100
+        assert 0 < perf["pct_hbm_sol"] <= 100
+    a = localized_powerlaw_csr(4096, 4096, 8.0, seed=1, dtype=np.float32)
+    b = localized_powerlaw_csr(4096, 4096, 8.0, seed=2, dtype=np.float32)
+    for backend in ("auto", "xla"):
+        perf = measure_device_perf(
+            a, b, dataclasses.replace(cfg, element_backend=backend),
+            "element", device=cuda_device)
+        assert perf["engine_s"] > 0 and perf["mxu_util_pct"] is None
+        assert 0 < perf["pct_hbm_sol"] <= 100
+
+
+@pytest.mark.cuda
+def test_spgemm_csr_slabs_equal_one_shot(cuda_device):
+    """Several output slabs, each a launch of tile_spgemm, give the one-shot
+    product's CSR bit for bit (each C tile sums the same run)."""
+    from spada_tpu_torch.config import SpadaConfig
+    from spada_tpu_torch.io.workloads import random_csr
+    from spada_tpu_torch.ops.spgemm import spgemm, spgemm_csr
+
+    a = random_csr(300, 256, 0.06, seed=70)
+    b = random_csr(256, 300, 0.06, seed=71)
+    before = _build.launches["tile_spgemm"]
+    many = spgemm_csr(a, b, SpadaConfig(dense_c_budget=3 * 32 * 128 * 4),
+                      dataflow="rowwise", tm=32, device=cuda_device)
+    assert _build.launches["tile_spgemm"] - before >= 4
+    one = spgemm(a, b, SpadaConfig(), dataflow="rowwise", tm=32,
+                 device=cuda_device).to_csr()
+    np.testing.assert_array_equal(many.indptr, one.indptr)
+    np.testing.assert_array_equal(many.indices, one.indices)
+    np.testing.assert_array_equal(many.data, one.data)

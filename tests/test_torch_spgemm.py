@@ -16,15 +16,22 @@ import torch
 
 from spada_tpu.config import SpadaConfig
 from spada_tpu.io.workloads import (block_sparse_csr, localized_powerlaw_csr,
+                                    powerlaw_csr, random_csr,
                                     relu_activation_csr)
 from spada_tpu.plan.planner import choose_tile_size, plan_spgemm
 from spada_tpu.plan.planner import execute_plan as jax_execute_plan
 from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch import cli
-from spada_tpu_torch.config import datasheet_peaks, h100_config
-from spada_tpu_torch.ops.spgemm import (dispatch_dataflow, element_plan_bytes,
-                                        estimate_element_time, spgemm)
-from spada_tpu_torch.plan.execute import execute_plan
+from spada_tpu_torch.config import (SpadaConfig as PortConfig,
+                                    datasheet_peaks, h100_config)
+from spada_tpu_torch.ops.spgemm import (_peak_flops, dispatch_dataflow,
+                                        element_plan_bytes,
+                                        estimate_element_time,
+                                        measure_device_perf, spgemm,
+                                        spgemm_csr)
+from spada_tpu_torch.plan.execute import execute_plan, make_profiled_measure
+from spada_tpu_torch.plan.planner import plan_spgemm as port_plan_spgemm
+from test_fuzz import _random_case
 
 # the module, not the function spada_tpu.ops re-exports under its name
 jax_spgemm_mod = importlib.import_module("spada_tpu.ops.spgemm")
@@ -150,8 +157,132 @@ def test_cli_run_on_cpu(capsys):
 
 
 def test_cli_host_modes_point_to_reference(capsys):
-    assert cli.main(["plan", "spada", "SS", "cari", "--device", "cpu"]) == 2
-    assert "python -m spada_tpu.cli plan" in capsys.readouterr().out
+    """The ``plan`` mode runs under both schemes and prints the plan."""
+    for scheme in ("analytic", "profiled"):
+        assert cli.main(["plan", "spada", "SS", "cari", "--device", "cpu",
+                         "--plan-scheme", scheme]) == 0
+        out = capsys.readouterr().out
+        assert f"scheme {scheme})" in out and "tm histogram" in out
+
+
+def test_cli_plan_prints_the_reference_lines(capsys):
+    from spada_tpu import cli as jax_cli
+
+    argv = ["plan", "spada", "SS", "cari", "config/default.json"]
+    assert jax_cli.main(argv) == 0
+    ref = capsys.readouterr().out.splitlines()
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines() == ref
+
+
+def test_cli_run_profiled_on_cpu(cari_workload, capsys):
+    c = cli.execute(["run", "spada", "SS", "cari", "config/default.json",
+                     "--device", "cpu", "--no-result",
+                     "--plan-scheme", "profiled"])
+    out = capsys.readouterr().out
+    assert "plan[profiled]:" in out
+    # no device time on the CPU, and the report says so
+    assert "device perf: not measured (cpu)" in out
+    _close(c.todense(), _oracle(cari_workload.a, cari_workload.b))
+
+
+def test_profiled_plan_with_default_measure():
+    """``plan_spgemm(scheme='profiled')`` with the port's measure on the
+    CPU, run through ``execute_plan``, equals scipy
+    (``tests/test_plan.py::test_profiled_scheme_with_default_measure``)."""
+    a = powerlaw_csr(200, 128, 6.0, seed=50)
+    b = random_csr(128, 160, 0.1, seed=51)
+    calls = []
+    measure = make_profiled_measure(P(a), P(b), PortConfig(), device="cpu")
+
+    def counted(s, e, tm):
+        calls.append(measure(s, e, tm))
+        return calls[-1]
+
+    plan = port_plan_spgemm(P(a), P(b), scheme="profiled", measure=counted)
+    assert plan.meta["scheme"] == "profiled"
+    assert calls and all(t >= 0.0 for t in calls)
+    res = execute_plan(P(a), P(b), plan, device="cpu")
+    np.testing.assert_allclose(res.todense(), _oracle(a, b), rtol=1e-4,
+                               atol=1e-4)
+    # a span with no products takes no time: A's nonzeros are all in
+    # k-tile 1, B's in k-tile 0
+    from spada_tpu_torch.sparse.csr import CsrMatrix
+
+    idx = np.arange(64)
+    a2 = CsrMatrix.from_coo((64, 256), idx, idx + 128, np.ones(64))
+    b2 = CsrMatrix.from_coo((256, 160), idx, idx, np.ones(64))
+    assert make_profiled_measure(a2, b2, device="cpu")(0, 64, 32) == 0.0
+
+
+def _slab_cases():
+    fa, fb = _random_case(7)[1:]
+    return {
+        # tests/test_spgemm.py: a budget of three tm=32 C tiles
+        "slabbed": (random_csr(300, 256, 0.06, seed=70),
+                    random_csr(256, 300, 0.06, seed=71),
+                    {"dense_c_budget": 3 * 32 * 128 * 4}, 32),
+        "one_shot": (powerlaw_csr(200, 160, 6.0, seed=72),
+                     random_csr(160, 220, 0.08, seed=73), {}, None),
+        # tests/test_fuzz.py: a budget of 2^18 bytes
+        "fuzz": (fa, fb, {"dense_c_budget": 1 << 18}, None),
+    }
+
+
+@pytest.mark.parametrize("case", ["slabbed", "one_shot", "fuzz"])
+def test_spgemm_csr_matches_reference_and_scipy(case):
+    a, b, over, tm = _slab_cases()[case]
+    got = spgemm_csr(P(a), P(b), PortConfig(**over), dataflow="rowwise",
+                     tm=tm, device="cpu")
+    ref = jax_spgemm_mod.spgemm_csr(a, b, SpadaConfig(**over),
+                                    dataflow="rowwise", tm=tm)
+    sp = (a.to_scipy() @ b.to_scipy()).tocsr()
+    sp.sort_indices()
+    tol = 1e-5 * max(float(np.abs(sp.data).max(initial=0.0)), 1e-30)
+    for other in (ref, P(sp)):
+        np.testing.assert_array_equal(got.indptr, other.indptr)
+        np.testing.assert_array_equal(got.indices, other.indices)
+        np.testing.assert_allclose(got.data, other.data, rtol=0, atol=tol)
+
+
+def test_spgemm_csr_slabs_equal_one_shot():
+    a, b, over, tm = _slab_cases()["slabbed"]
+    many = spgemm_csr(P(a), P(b), PortConfig(**over), dataflow="rowwise",
+                      tm=tm, device="cpu")
+    one = spgemm(P(a), P(b), PortConfig(), dataflow="rowwise", tm=tm,
+                 device="cpu").to_csr()
+    np.testing.assert_array_equal(many.indptr, one.indptr)
+    np.testing.assert_array_equal(many.indices, one.indices)
+    np.testing.assert_array_equal(many.data, one.data)
+
+
+def test_spgemm_keeps_its_launches_as_host_state(cari_workload):
+    a, b = P(cari_workload.a), P(cari_workload.b)
+    res = spgemm(a, b, h100_config(), dataflow="rowwise", device="cpu")
+    (wl, a_tiles, b_tiles, tm), = res.host_state["segments"]
+    assert (res.host_state["tk"], res.host_state["tn"]) == (res.tk, res.tn)
+    assert tm == res.tm and wl.n_items == res.n_work_items
+    assert a_tiles.dtype == b_tiles.dtype == np.float32
+
+
+def test_measure_device_perf_is_none_on_cpu(cari_workload):
+    a, b = P(cari_workload.a), P(cari_workload.b)
+    res = spgemm(a, b, h100_config(), dataflow="rowwise", device="cpu")
+    assert measure_device_perf(a, b, h100_config(), "rowwise",
+                               host_state=res.host_state,
+                               device="cpu") is None
+    assert measure_device_perf(a, b, h100_config(), "element",
+                               device="cpu") is None
+
+
+def test_peak_flops_is_the_rate_the_tiles_run_at():
+    """f32 tiles run 3xTF32: a third of dense TF32 (495 TFLOP/s on an H100
+    SXM), not the 67 TFLOP/s FP32 rate; bf16 tiles the dense bf16 rate."""
+    for name in (None, "NVIDIA H100 80GB HBM3"):
+        assert _peak_flops(name, torch.float32) == 495e12 / 3
+        assert _peak_flops(name, np.float32) == 495e12 / 3
+        assert _peak_flops(name, torch.bfloat16) == 989e12
+    assert _peak_flops("NVIDIA H100 PCIe", torch.float32) == 378e12 / 3
 
 
 def test_cuda_device_raises_without_cuda(cari_workload):
