@@ -74,7 +74,25 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    layers of the bench's NN weight width (16384^2, density 0.2, 128^2
    tiles, batch 1024, f32): forward and one step's tile gradients against
    dense f64 (< 1e-4), three SGD steps with a falling loss, and forward and
-   step times beside one dense ``torch.matmul`` layer (TF32 off).
+   step times beside one dense ``torch.matmul`` layer (TF32 off);
+9. the distributed strategies (``spada_tpu_torch.parallel``): (a) on a
+   one-rank NCCL group in this process (a ``HashStore``), the nn pair at
+   128-edge tiles through ``partition_spgemm`` and ``spgemm_sharded``
+   (``tile_spgemm``; f32 tiles against scipy < 1e-4 and equal to phase 4's
+   single-device C to 1e-5, bf16 tiles against scipy < 1e-2),
+   ``spgemm_halo`` at D = 1 (the sharded bf16 C to 1e-5), the locpl pair
+   through ``spgemm_element_dp`` (one ``esc_stream_group`` launch, scipy
+   < 1e-3), ``make_sharded_train_step`` on a (1, 1) mesh (parameters and
+   loss after one step equal to ``make_train_step``'s to 1e-5), and
+   ``run_worklist_panel`` on phase 4's plan under each run order (C equal
+   to row order's to 1e-5); (b) every rank's body of a (4, 2) psum-merge
+   and a D = 4 halo partition of the nn pair (f32 tiles, each panel
+   against scipy on its first rows and the single-device C) and of a D = 4
+   element partition of locpl (the slabs put together against scipy), one
+   after another on this card; (c) where there are two cards or more, (a)'s
+   entry points across ``min(count, 8)`` cards, one NCCL rank per card
+   (otherwise one line says why not).  Host partition seconds and device
+   ms per strategy and rank body are printed beside the nvidia-smi line.
 
 Beside each kernel's time the script computes its bound, the larger of two
 times on the datasheet placeholders of ``config.h100_config``: the useful
@@ -94,7 +112,8 @@ before each main-path run and read right after it.  The script prints one
 JSON line with each kernel's numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is not 0 and no result line is printed; so does a machine without a
-CUDA device, and a run that loaded JAX or any module of ``spada_tpu``.
+CUDA device, and a run that loaded JAX or any module of ``spada_tpu`` (in
+this process or in a rank of phase 9 (c)).
 """
 
 from __future__ import annotations
@@ -1239,6 +1258,413 @@ def run_sparse_mlp(dev, dims=(16384, 16384, 16384), density: float = 0.2,
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 9: the distributed strategies
+# --------------------------------------------------------------------------
+
+#: bf16 tiles against f64: both operands rounded to bf16 (8 bits), products
+#: exact, f32 sums; the reference's own gate for its bf16 tiles is 2e-2
+BF16_GATE = 1e-2
+
+
+def sharded_shape(world: int) -> tuple:
+    """The (dp, tp) mesh of ``world`` ranks that phase 9 runs the
+    psum-merge on: tp 2 where the world is even."""
+    return (world // 2, 2) if world % 2 == 0 else (world, 1)
+
+
+def distributed_inputs(nn_ab=None, nn_ref=None, rows: int = GATE_ROWS,
+                       m: int = 16384, n: int = 4096) -> dict:
+    """The nn and locpl pairs of phases 4-5 with the f64 references of C's
+    first ``rows`` rows (phase 4's when given)."""
+    from spada_tpu_torch.io.workloads import (block_sparse_csr,
+                                              localized_powerlaw_csr,
+                                              relu_activation_csr)
+
+    if nn_ab is None:
+        nn_ab = (block_sparse_csr(m, m, 384, 0.2, seed=5, dtype=np.float32),
+                 relu_activation_csr(m, n, 0.35, seed=6, dtype=np.float32))
+    a, b = nn_ab
+    if nn_ref is None:
+        nn_ref = (a.to_scipy()[:rows].toarray().astype(np.float64)
+                  @ b.to_scipy().toarray().astype(np.float64))
+    la = localized_powerlaw_csr(65536, 65536, 32.0, seed=1, dtype=np.float32)
+    lb = localized_powerlaw_csr(65536, 65536, 32.0, seed=2, dtype=np.float32)
+    return {"nn": nn_ab, "nn_ref": nn_ref, "locpl": (la, lb),
+            "locpl_ref": (la.to_scipy()[:rows] @ lb.to_scipy()).tocsr()}
+
+
+def body_ms(fn, *args) -> float:
+    """Device ms of one call of a rank body (``cuda_time``'s median).  The
+    launches the timing makes are taken back out of the launch counts,
+    which count the path's own."""
+    from spada_tpu_torch import _build
+    from spada_tpu_torch.utils.timing import cuda_time
+
+    saved = _build.launches.copy()
+    t = cuda_time(fn, *args, warmup=1, reps=5)[0]
+    _build.launches.clear()
+    _build.launches.update(saved)
+    return t * 1e3
+
+
+def locpl_gate(csr, ref) -> float:
+    got = csr.to_scipy()[: ref.shape[0]]
+    return float(abs(got - ref).max() / max(abs(ref).max(), 1e-30))
+
+
+def strategy_checks(dev, cfg, inputs: dict, world: int, log, totals: dict,
+                    nn_c=None) -> None:
+    """The three strategies and the sharded MLP step through their entry
+    points, this process being one rank of the default process group of
+    ``world`` ranks, each gated: the nn pair through ``spgemm_sharded``
+    (f32 and bf16 tiles) and ``spgemm_halo``, the locpl pair through
+    ``spgemm_element_dp`` (the stream kernels), the MLP's parameters after
+    one step against ``make_train_step``'s.  ``nn_c``: the single-device
+    spgemm's C, which the f32 result must equal to 1e-5 of max|C|."""
+    import torch
+
+    from spada_tpu_torch.models.sparse_nn import (SparseMLP,
+                                                  make_sharded_train_step,
+                                                  make_train_step)
+    from spada_tpu_torch.parallel import (partition_element, partition_halo,
+                                          partition_spgemm, spgemm_element_dp,
+                                          spgemm_halo, spgemm_sharded)
+    from spada_tpu_torch.parallel.element_dp import element_rank
+    from spada_tpu_torch.parallel.halo import halo_rank, halo_received
+    from spada_tpu_torch.parallel.mesh import resolve_mesh
+    from spada_tpu_torch.parallel.spgemm import sharded_rank
+    from spada_tpu_torch.utils.timing import cuda_time
+
+    a, b = inputs["nn"]
+    ref = inputs["nn_ref"]
+    rows = ref.shape[0]
+    shape = sharded_shape(world)
+    mesh = resolve_mesh(None, shape, ("dp", "tp"), dev)
+    d, t = mesh.get_coordinate()
+    rank = d * shape[1] + t           # the 1-D mesh's coordinate
+    t0 = time.perf_counter()
+    prob = partition_spgemm(a, b, *shape, cfg)
+    log(f"  nn, partition_spgemm {shape}: {time.perf_counter() - t0:.1f} s "
+        f"host; Wmax {prob.Wmax}, nCmax {prob.nCmax}, imbalance "
+        f"{prob.imbalance:.3f}")
+    c32 = None
+    for dt, gate in ((torch.float32, 1e-4), (torch.bfloat16, BF16_GATE)):
+        t0 = time.perf_counter()
+        with main_path(totals) as counts:
+            res = spgemm_sharded(prob, device=dev, engine="cached",
+                                 engine_dtype=dt)
+        wall = time.perf_counter() - t0
+        c = res.todense()
+        err = relerr(c[:rows], ref)
+        ms = body_ms(sharded_rank(prob, d, t, dev, "cached", dt))
+        line = (f"  spgemm_sharded, {str(dt)[6:]} tiles: {wall:.2f} s "
+                f"host+device, rank ({d}, {t})'s body {ms:.3f} ms device, "
+                f"launches {counts}; rows [0, {rows}) vs scipy/numpy f64 "
+                f"{err:.2e} (limit {gate:g})")
+        require(counts.get("tile_spgemm", 0) >= 1,
+                f"spgemm_sharded did not launch tile_spgemm: {counts}")
+        require(err < gate, f"spgemm_sharded {dt}: {err:.3e} vs scipy")
+        if dt == torch.float32:
+            c32 = c
+            if nn_c is not None:
+                e1 = relerr(c, nn_c)
+                line += f"; vs the single-device spgemm's C {e1:.2e}"
+                require(e1 <= 1e-5, f"spgemm_sharded f32 vs spgemm {e1:.3e}")
+        else:
+            c16 = c
+        log(line)
+    del c
+    t0 = time.perf_counter()
+    halo = partition_halo(a, b, world, cfg)
+    host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with main_path(totals) as counts:
+        res = spgemm_halo(halo, device=dev)
+    wall = time.perf_counter() - t0
+    c = res.todense()
+    err, e16 = relerr(c[:rows], ref), relerr(c, c16)
+    got = {k: torch.from_numpy(halo_received(halo, rank, k)).to(
+        dev, torch.bfloat16) for k in range(1, world)}
+    ms = body_ms(halo_rank(halo, rank, dev), got.__getitem__)
+    del got
+    log(f"  spgemm_halo D={world}, bf16 tiles: partition {host:.1f} s, run "
+        f"{wall:.2f} s host+device, rank {rank}'s body {ms:.3f} ms device, "
+        f"{halo.halo_tiles_sent} tiles sent, launches {counts}; vs scipy "
+        f"{err:.2e} (limit {BF16_GATE:g}), vs spgemm_sharded's bf16 C "
+        f"{e16:.2e} (limit 1e-5)")
+    require(counts.get("tile_spgemm", 0) >= 1, "spgemm_halo: no tile_spgemm")
+    require(err < BF16_GATE and e16 <= 1e-5, f"spgemm_halo: {err}, {e16}")
+    del c, c16, c32, res
+    torch.cuda.empty_cache()
+
+    la, lb = inputs["locpl"]
+    t0 = time.perf_counter()
+    eprob = partition_element(la, lb, world)
+    host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with main_path(totals) as counts:
+        res = spgemm_element_dp(eprob, device=dev, backend="pallas")
+    wall = time.perf_counter() - t0
+    err = locpl_gate(res.to_csr(), inputs["locpl_ref"])
+    ms = body_ms(element_rank(eprob, rank, dev, "pallas"))
+    log(f"  spgemm_element_dp D={world}: partition {host:.1f} s, run "
+        f"{wall:.2f} s host+device, rank {rank}'s body {ms:.3f} ms device, E "
+        f"per rank {eprob.e_per_shard.tolist()}, launches {counts}; rows "
+        f"[0, {inputs['locpl_ref'].shape[0]}) vs scipy {err:.2e} (limit "
+        f"1e-3)")
+    require(counts == {"esc_stream_group": 1},
+            f"spgemm_element_dp: not one grouped launch: {counts}")
+    require(err < 1e-3, f"spgemm_element_dp: {err:.3e} vs scipy")
+    del res, eprob
+    torch.cuda.empty_cache()
+
+    # the sharded MLP step against the single-device step, same model
+    dims, lr, batch = (16384, 16384, 16384), MLP_LR, 1024
+    models = [SparseMLP.from_density(dims, 0.2, tm=128, tk=128, seed=0,
+                                     device=dev) for _ in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((models[0].in_pad, batch), generator=gen, device=dev)
+    y = torch.randn((models[0].out_pad, batch), generator=gen, device=dev)
+    sstep, sp = make_sharded_train_step(models[0], mesh, lr=lr)
+    new, loss_s = sstep(sp, x, y)
+    loss_1 = make_train_step(models[1], lr=lr)(x, y)
+    worst = relerr(float(loss_s), float(loss_1))
+    for p, q in zip(new, models[1].params):
+        ix = torch.arange(t, q.shape[0], shape[1], device=dev)
+        worst = max(worst, relerr(p[: len(ix)].detach().cpu().numpy(),
+                                  q.detach()[ix].cpu().numpy()))
+    t_step, _ = cuda_time(lambda: sstep(sp, x, y), warmup=1, reps=5)
+    log(f"  make_sharded_train_step on a {shape} mesh, SparseMLP{dims} "
+        f"density 0.2, batch {batch}: params and loss after one step vs "
+        f"make_train_step max|d|/max|ref| {worst:.2e} (limit 1e-5); step "
+        f"{t_step * 1e3:.3f} ms device")
+    require(worst <= 1e-5, f"sharded MLP step vs make_train_step {worst}")
+    del models, sp, new, x, y, sstep
+    torch.cuda.empty_cache()
+
+
+def run_panel_orders(dev, run, totals: dict) -> None:
+    """run_worklist_panel on phase 4's plan under each run order: every C,
+    its permutation undone, equal to the row order's to 1e-5."""
+    import torch
+
+    from spada_tpu_torch.ops.engine import run_worklist_panel
+
+    with main_path(totals) as counts:
+        for wl, a_np, b_np, tm in run.result.host_state["segments"]:
+            a_t = torch.from_numpy(a_np).to(dev)
+            b_t = torch.from_numpy(b_np).to(dev)
+            ids = (wl.a_tid, wl.b_tid, wl.o_tid, wl.n_c_tiles)
+            row = run_worklist_panel(a_t, b_t, *ids)[0].cpu().numpy()
+            line = []
+            for order in ("col", "diag", "auto"):
+                t0 = time.perf_counter()
+                c, _, _, perm = run_worklist_panel(
+                    a_t, b_t, *ids, run_order=order, c_rows=wl.c_tile_row,
+                    c_cols=wl.c_tile_col)
+                c = c.cpu().numpy()
+                host = time.perf_counter() - t0
+                if perm is not None:
+                    inv = np.empty_like(perm)
+                    inv[perm] = np.arange(len(perm))
+                    c = c[inv]
+                err = relerr(c, row)
+                require(err <= 1e-5, f"run order {order} tm={tm}: {err:.3e}")
+                kind = "row order" if perm is None else "permuted"
+                line.append(f"{order} {err:.1e} ({kind}, {host:.2f} s)")
+            log(f"  segment tm={tm}, {wl.n_c_tiles} C tiles: vs row order "
+                + ", ".join(line))
+            del a_t, b_t
+    log(f"  launches {counts}")
+    require(counts.get("tile_panel", 0) == 4 * len(
+        run.result.host_state["segments"]), f"run orders: {counts}")
+
+
+def rank_bodies(dev, cfg, inputs: dict, nn_c, totals: dict, world: int = 4):
+    """Every rank's body of a (world, 2) psum-merge partition and a
+    ``world``-rank halo partition of the nn pair (f32 tiles), and of a
+    ``world``-rank element dp partition of locpl, one after another on this
+    card: each panel against scipy on its first rows and against the
+    single-device C; the element slabs, put together, against scipy."""
+    import torch
+
+    from spada_tpu_torch.parallel import (partition_element, partition_halo,
+                                          partition_spgemm)
+    from spada_tpu_torch.parallel.element_dp import (ElementDpResult,
+                                                     element_rank)
+    from spada_tpu_torch.parallel.halo import (halo_rank, halo_received,
+                                               halo_view)
+    from spada_tpu_torch.parallel.spgemm import ShardedResult, sharded_rank
+
+    a, b = inputs["nn"]
+    a_sp, b64 = a.to_scipy(), b.to_scipy().toarray().astype(np.float64)
+    smi = smi_name_power()
+
+    def check_panels(label, problem, c_tiles, n_panels):
+        view = problem if hasattr(problem, "n_dp") else halo_view(problem)
+        dense = ShardedResult(view, c_tiles).todense()
+        worst = 0.0
+        for d in range(n_panels):
+            r0 = int(view.row_base[d])
+            r1 = min(r0 + 256, int(view.row_base[d + 1]) if d + 1 < n_panels
+                     else a.shape[0])
+            if r1 <= r0:
+                continue
+            want = a_sp[r0:r1].toarray().astype(np.float64) @ b64
+            worst = max(worst, relerr(dense[r0:r1], want))
+        e1 = relerr(dense, nn_c)
+        log(f"  {label}: each panel's first rows vs scipy/numpy f64 max "
+            f"{worst:.2e} (limit 1e-4); the panels put together vs the "
+            f"single-device spgemm's C {e1:.2e} (limit 1e-5)")
+        require(worst < 1e-4 and e1 <= 1e-5, f"{label}: {worst}, {e1}")
+
+    f32 = torch.float32
+    with main_path(totals) as counts:
+        t0 = time.perf_counter()
+        prob = partition_spgemm(a, b, world, 2, cfg)
+        host = time.perf_counter() - t0
+        c = np.zeros((world, prob.nCmax + 1, prob.tm, prob.tn), np.float32)
+        ms = []
+        for d in range(world):
+            for t in range(2):
+                body = sharded_rank(prob, d, t, dev, "cached", f32)
+                c[d] += body().cpu().numpy()
+                ms.append(body_ms(body))
+                del body
+        work = prob.work_per_shard.ravel().tolist()
+        log(f"  psum-merge ({world}, 2) bodies, f32 tiles: partition "
+            f"{host:.1f} s host, W per rank {work}, device ms per body "
+            + ", ".join(f"{x:.3f}" for x in ms)
+            + f" (on {smi})")
+        check_panels(f"psum-merge ({world}, 2), summed over tp", prob, c,
+                     world)
+        del prob, c
+        t0 = time.perf_counter()
+        halo = partition_halo(a, b, world, cfg)
+        host = time.perf_counter() - t0
+        c = np.zeros((world, halo.nCmax + 1, halo.tm, halo.tn), np.float32)
+        ms = []
+        for r in range(world):
+            got = {k: torch.from_numpy(halo_received(halo, r, k)).to(dev)
+                   for k in range(1, world)}
+            body = halo_rank(halo, r, dev, "cached", f32)
+            c[r] = body(got.__getitem__).cpu().numpy()
+            ms.append(body_ms(body, got.__getitem__))
+            del body, got
+        log(f"  halo D={world} bodies, f32 tiles, received tiles read from "
+            f"the problem: partition {host:.1f} s host, caps {halo.caps}, "
+            f"{halo.halo_tiles_sent} tiles sent ({halo.halo_tiles_padded} "
+            f"slots), device ms per body "
+            + ", ".join(f"{x:.3f}" for x in ms))
+        check_panels(f"halo D={world}", halo, c, world)
+        del halo, c
+        torch.cuda.empty_cache()
+        la, lb = inputs["locpl"]
+        t0 = time.perf_counter()
+        eprob = partition_element(la, lb, world)
+        host = time.perf_counter() - t0
+        flat, ms = [], []
+        for r in range(world):
+            body = element_rank(eprob, r, dev, "pallas")
+            flat.append(body().cpu().numpy())
+            ms.append(body_ms(body))
+            del body
+        cuts = np.cumsum([x.shape[1] for x in eprob.a_stacked])[:-1]
+        vals = np.split(np.stack(flat), cuts, axis=1)
+        err = locpl_gate(ElementDpResult(eprob, vals).to_csr(),
+                         inputs["locpl_ref"])
+        log(f"  element dp D={world} bodies: partition {host:.1f} s host, E "
+            f"per rank {eprob.e_per_shard.tolist()}, device ms per body "
+            + ", ".join(f"{x:.3f}" for x in ms)
+            + f"; the slabs put together vs scipy {err:.2e} (limit 1e-3)")
+        require(err < 1e-3, f"element dp bodies: {err:.3e}")
+    log(f"  launches {counts}")
+    for k in ("tile_spgemm", "esc_stream_group"):
+        require(counts.get(k, 0) > 0, f"the rank bodies did not launch {k}")
+
+
+def run_distributed(dev, kind: str, nn_run, nn_c, nn_ref,
+                    totals: dict) -> None:
+    """Phase 9: (a) the entry points on a one-rank NCCL group in this
+    process, and the panel run orders; (b) every rank's body of 4-way
+    partitions on this card; (c) the entry points across cards, where there
+    are two or more."""
+    import torch
+    import torch.distributed as dist
+
+    from spada_tpu_torch.config import h100_config
+
+    cfg = h100_config(kind)
+    t0 = time.perf_counter()
+    inputs = distributed_inputs((nn_run.a, nn_run.b), nn_ref)
+    log(f"  the locpl pair and its scipy rows in "
+        f"{time.perf_counter() - t0:.1f} s; tiles {cfg.default_tm} x "
+        f"{cfg.tile_k} x {cfg.tile_n}")
+    log(" (a) a one-rank NCCL group in this process, on cuda:0:")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        strategy_checks(dev, cfg, inputs, 1, log, totals, nn_c)
+    finally:
+        dist.destroy_process_group()
+    log(" run_worklist_panel's run orders on phase 4's plan:")
+    run_panel_orders(dev, nn_run, totals)
+    log(" (b) every rank's body of 4-way partitions, on this card:")
+    rank_bodies(dev, cfg, inputs, nn_c, totals)
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f" (c) not run: this machine has {count} CUDA device; the "
+            f"entry points across cards need two or more")
+        return
+    world = min(count, 8)
+    log(f" (c) the entry points across {world} cards (NCCL, one process "
+        f"per card):")
+    run_across_cards(world)
+
+
+def run_across_cards(world: int) -> None:
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    mp.start_processes(_card_rank, args=(world, workdir), nprocs=world,
+                       join=True, start_method="spawn")
+
+
+def _card_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 9 (c): its card, an NCCL group over ``world``
+    cards, strategy_checks on it; rank 0 logs."""
+    import torch
+    import torch.distributed as dist
+
+    from spada_tpu_torch.config import h100_config
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    say = log if rank == 0 else (lambda s: None)
+    try:
+        inputs = distributed_inputs(rows=256)
+        strategy_checks(dev, h100_config(torch.cuda.get_device_name(rank)),
+                        inputs, world, say, {})
+        check_no_reference(f"rank {rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def check_no_reference(where: str) -> None:
+    require("jax" not in sys.modules and "jaxlib" not in sys.modules,
+            f"{where}: JAX was imported")
+    ref_mods = sorted(m for m in sys.modules
+                      if m == "spada_tpu" or m.startswith("spada_tpu."))
+    require(not ref_mods, f"{where}: modules of the JAX package were "
+            f"loaded: {ref_mods}")
+
+
 def main() -> int:
     import torch
 
@@ -1298,7 +1724,6 @@ def main() -> int:
     run_locpl(dev, cfg, totals, errs, times, extra)
     log("== phase 6: nn pair under each engine override, phase 4's plan")
     run_engines(dev, nn_run, nn_c, nn_ref, totals, errs, times)
-    del nn_run, nn_c, nn_ref
     log("== phase 7: the probes (spada_tpu_torch.tools)")
     t0 = time.perf_counter()
     run_probes(dev, totals, errs, times, extra)
@@ -1307,13 +1732,13 @@ def main() -> int:
     t0 = time.perf_counter()
     run_sparse_mlp(dev)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 9: the distributed strategies (spada_tpu_torch.parallel)")
+    t0 = time.perf_counter()
+    run_distributed(dev, kind, nn_run, nn_c, nn_ref, totals)
+    del nn_run, nn_c, nn_ref
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
-    require("jax" not in sys.modules and "jaxlib" not in sys.modules,
-            "JAX was imported")
-    ref_mods = sorted(m for m in sys.modules
-                      if m == "spada_tpu" or m.startswith("spada_tpu."))
-    require(not ref_mods, f"modules of the JAX package were loaded: "
-            f"{ref_mods}")
+    check_no_reference("chip_smoke")
     # kernel -> (source, the TPU kernels it carries, bound/library key)
     sources = {"tile_spgemm": ("spada_tpu_torch/csrc/tile_spgemm.cu",
                                "spada_tpu/ops/engine.py:726, "

@@ -174,13 +174,16 @@ class SpadaConfig:
 
 
 # (substring of the device name, HBM bytes/s, f32 FLOP/s outside the
-# tensor cores, dense TF32 FLOP/s, dense bf16 FLOP/s); first match wins, the
-# last row is the H100 SXM default.
+# tensor cores, dense TF32 FLOP/s, dense bf16 FLOP/s, one-way link bytes/s
+# from one GPU to one peer); first match wins, the last row is the H100 SXM
+# default.  The link: NVLink 4 through NVSwitch (18 links, 450 GB/s each
+# way) on SXM boards, the NVLink bridge on NVL cards, PCIe Gen5 x16 on PCIe
+# cards.
 _DATASHEET = (
-    ("H200", 4.8e12, 67e12, 495e12, 989e12),
-    ("H100 NVL", 3.9e12, 60e12, 418e12, 835e12),
-    ("H100 PCIe", 2.0e12, 51e12, 378e12, 756e12),
-    ("H100", 3.35e12, 67e12, 495e12, 989e12),
+    ("H200", 4.8e12, 67e12, 495e12, 989e12, 450e9),
+    ("H100 NVL", 3.9e12, 60e12, 418e12, 835e12, 300e9),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12, 756e12, 64e9),
+    ("H100", 3.35e12, 67e12, 495e12, 989e12, 450e9),
 )
 
 
@@ -195,10 +198,13 @@ def _datasheet_row(device_name: Optional[str]) -> tuple:
 def datasheet_peaks(device_name: Optional[str] = None) -> dict:
     """Published peaks for the card named ``device_name`` (as
     ``nvidia-smi``/``torch.cuda.get_device_name`` give it); H100 SXM when no
-    name is given or the name is not in the table."""
-    _, bw, f32, _, bf16 = _datasheet_row(device_name)
+    name is given or the name is not in the table.  ``ici_bytes_per_s``,
+    the reference's inter-chip link rate that the scaling model
+    (:mod:`spada_tpu_torch.parallel.scaling`) reads, is the NVLink (or PCIe)
+    rate from one GPU to one peer, one way."""
+    _, bw, f32, _, bf16, link = _datasheet_row(device_name)
     return {"hbm_bytes_per_s": bw, "peak_flops_f32": f32,
-            "peak_flops_bf16": bf16}
+            "peak_flops_bf16": bf16, "ici_bytes_per_s": link}
 
 
 def h100_config(device_name: Optional[str] = None,
@@ -220,7 +226,7 @@ def matmul_peak_flops(device_name: Optional[str] = None,
     exact in an f32 accumulator), f32 tiles at a third of the dense TF32
     rate, since 3xTF32 on the tensor cores gives f32-level error at that
     rate (``csrc/tile_mma.cuh``)."""
-    _, _, _, tf32, bf16 = _datasheet_row(device_name)
+    _, _, _, tf32, bf16, _ = _datasheet_row(device_name)
     return bf16 if _is_half(dtype) else tf32 / 3
 
 
@@ -233,7 +239,7 @@ def roofline_bound(flops: float, nbytes: float,
     until measured).  Half-precision operands, and f32 operands of a matrix
     product (``matmul``), count at :func:`matmul_peak_flops`; other f32
     work counts at the FP32 rate outside the tensor cores."""
-    _, bw, f32, _, _ = _datasheet_row(device_name)
+    _, bw, f32, _, _, _ = _datasheet_row(device_name)
     peak = (matmul_peak_flops(device_name, dtype)
             if matmul or _is_half(dtype) else f32)
     t_op = flops / peak

@@ -109,15 +109,31 @@ def stream_operands_to_torch(ops: Sequence[Tuple[np.ndarray, np.ndarray]],
 
 def from_reference(obj):
     """The port's host object equal to ``obj``, a ``CsrMatrix``,
-    ``BsrMatrix`` or ``ExecutionPlan`` (with its panels) of the JAX package.
+    ``BsrMatrix``, ``ExecutionPlan`` (with its panels), ``EscPlan``, or a
+    partitioned problem (``ShardedProblem``, ``HaloProblem``,
+    ``ElementDpProblem`` with its plans) of the JAX package.
 
     The attributes are read as NumPy arrays and numbers, so any object of
     those shapes converts; nothing of the JAX package is imported.  Arrays
     are shared, not copied, where their dtype already matches."""
+    from spada_tpu_torch.ops.element import EscBucket, EscPlan
+    from spada_tpu_torch.parallel.element_dp import ElementDpProblem
+    from spada_tpu_torch.parallel.halo import HaloProblem
+    from spada_tpu_torch.parallel.partition import ShardedProblem
     from spada_tpu_torch.plan.planner import ExecutionPlan, PanelSpec
     from spada_tpu_torch.sparse.bsr import BsrMatrix
     from spada_tpu_torch.sparse.csr import CsrMatrix
 
+    if hasattr(obj, "a_stacked"):
+        return _fields_of(ElementDpProblem, obj,
+                          plans=[from_reference(p) for p in obj.plans])
+    if hasattr(obj, "send_idx"):
+        return _fields_of(HaloProblem, obj)
+    if hasattr(obj, "work_per_shard"):
+        return _fields_of(ShardedProblem, obj)
+    if hasattr(obj, "buckets"):
+        return _fields_of(EscPlan, obj, buckets=[
+            _fields_of(EscBucket, bk) for bk in obj.buckets])
     if hasattr(obj, "panels"):
         return ExecutionPlan(
             [PanelSpec(int(p.row_start), int(p.row_end), int(p.tm))
@@ -133,6 +149,22 @@ def from_reference(obj):
                          np.asarray(obj.indices), np.asarray(obj.data))
     raise TypeError(f"from_reference: no port counterpart for "
                     f"{type(obj).__name__}")
+
+
+def _fields_of(cls, obj, **given):
+    """``cls`` (a dataclass) with each field read from ``obj``'s attribute
+    of that name, unless ``given``: arrays as NumPy arrays, lists and tuples
+    element by element, other values as they are."""
+    def plain(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(plain(v) for v in x)
+        if hasattr(x, "__array__") and not np.isscalar(x):
+            return np.asarray(x)
+        return x
+
+    return cls(**{f.name: given[f.name] if f.name in given
+                  else plain(getattr(obj, f.name))
+                  for f in dataclasses.fields(cls)})
 
 
 def sparse_mlp_from_reference(model, device):

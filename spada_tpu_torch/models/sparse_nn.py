@@ -16,8 +16,8 @@ The products are f32 as long as TF32 is off for matrix products
 reference's ``precision="highest"``.
 
 :func:`entry` is the counterpart of ``__graft_entry__.entry``: the same
-model and input, on a device.  The sharded training step
-(``make_sharded_train_step``) is not ported yet.
+model and input, on a device.  :func:`make_sharded_train_step` is the
+reference's step over a ('dp', 'tp') mesh, on torch.distributed.
 """
 
 from __future__ import annotations
@@ -87,6 +87,15 @@ def _live_k_tiles(prev_rows: Sequence[int], tm_prev: int, tk: int,
         lo, hi = r * tm_prev // tk, ((r + 1) * tm_prev - 1) // tk
         live.update(range(lo, min(hi, n_k_tiles - 1) + 1))
     return sorted(live)
+
+
+def _next_input(h: torch.Tensor, spec: SparseLinearSpec) -> torch.Tensor:
+    """``h`` padded with zero rows or trimmed to the input height of the
+    layer ``spec``."""
+    want = spec.n_k_tiles * spec.tk
+    if h.shape[0] < want:
+        return torch.nn.functional.pad(h, (0, 0, 0, want - h.shape[0]))
+    return h[:want]
 
 
 class SparseMLP(torch.nn.Module):
@@ -175,14 +184,7 @@ class SparseMLP(torch.nn.Module):
             h = spmm(self.params[i], spec, h, getattr(self, f"tile_row{i}"),
                      getattr(self, f"tile_col{i}"))
             if i + 1 < len(self.specs):
-                h = torch.relu(h)
-                # pad/trim to the next layer's expected input height
-                want = self.specs[i + 1].n_k_tiles * self.specs[i + 1].tk
-                if h.shape[0] < want:
-                    h = torch.nn.functional.pad(h, (0, 0, 0,
-                                                    want - h.shape[0]))
-                elif h.shape[0] > want:
-                    h = h[:want]
+                h = _next_input(torch.relu(h), self.specs[i + 1])
         return h
 
     def loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -203,6 +205,123 @@ def make_train_step(model: SparseMLP, lr: float = 1e-3):
         return loss.detach()
 
     return step
+
+
+class _CopyToTp(torch.autograd.Function):
+    """A layer's input, replicated over tp: identity forward; backward, the
+    all-reduce over tp of its cotangent, which on each rank holds only that
+    rank's tiles' share."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    """A layer's output: the all-reduce over tp of the ranks' partial
+    products forward; identity backward, since the loss downstream is
+    replicated over tp and each rank's cotangent is already the whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        torch.distributed.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def make_sharded_train_step(model: SparseMLP, mesh, lr: float = 1e-3):
+    """Training step over a ('dp', 'tp') mesh, this process being one rank:
+    returns ``(step, shard_params)`` as the reference does.
+
+    - The batch (columns of x and y) is split over dp: the rank at mesh
+      coordinate (d, t) trains on the d-th block of columns.
+    - Each layer's tiles are split over tp round-robin (tile i to tp rank
+      i % n_tp) and padded to an equal count, as in the reference.
+      ``shard_params`` is this rank's share, a list of [Tmax, tm, tk]
+      tensors on the model's device: the reference's ``shard_params[i][t]``.
+      Padded slots hold zero tiles aimed at tile (0, 0).
+    - Forward: each rank multiplies its tiles; the partial outputs are
+      all-reduced over tp.  Backward goes through a pair of autograd
+      functions, Megatron's: at a layer's input an identity whose backward
+      all-reduces the cotangent over tp (each rank's holds only its own
+      tiles' share), at its output the all-reduce whose backward is the
+      identity.  An all-reduce alone would give n_tp times the gradient at
+      the last layer; one whose backward is the identity would drop the
+      other ranks' share at every earlier layer.
+    - Weight gradients are averaged over dp (the loss is the mean over the
+      whole batch), and padded slots are masked out of the update: their
+      forward contribution is nil, their gradient is not.
+
+    ``step(params, x, y)`` takes this rank's params and the whole batch
+    (x [in_pad, batch], y [out_pad, batch], batch a multiple of n_dp) and
+    returns ``(new_params, loss)``, the loss over the whole batch.  A mesh
+    dimension of one rank issues no collective.
+    """
+    from spada_tpu_torch.parallel.mesh import group_of, resolve_mesh
+
+    dev = model.params[0].device
+    mesh = resolve_mesh(mesh, tuple(mesh.shape), ("dp", "tp"), dev,
+                        "make_sharded_train_step")
+    n_dp, n_tp = mesh.shape
+    d, t = mesh.get_coordinate()
+    dp_group, tp_group = group_of(mesh, "dp"), group_of(mesh, "tp")
+
+    shard_params, masks, trows, tcols = [], [], [], []
+    for spec, tiles in zip(model.specs, model.params):
+        n_tiles = tiles.shape[0]
+        ix = np.arange(t, n_tiles, n_tp)
+        tmax = max(1, -(-n_tiles // n_tp))
+        buf = tiles.new_zeros((tmax,) + tuple(tiles.shape[1:]))
+        buf[: len(ix)] = tiles.detach()[torch.from_numpy(ix).to(dev)]
+        mask = tiles.new_zeros((tmax, 1, 1))
+        mask[: len(ix)] = 1.0
+        rows = np.zeros(tmax, np.int64)
+        cols = np.zeros(tmax, np.int64)
+        rows[: len(ix)] = spec.tile_row[ix]
+        cols[: len(ix)] = spec.tile_col[ix]
+        shard_params.append(buf)
+        masks.append(mask)
+        trows.append(torch.from_numpy(rows).to(dev))
+        tcols.append(torch.from_numpy(cols).to(dev))
+
+    def step(params, x: torch.Tensor, y: torch.Tensor):
+        if x.shape[1] % n_dp:
+            raise ValueError(f"batch {x.shape[1]} is not a multiple of "
+                             f"n_dp = {n_dp}")
+        w = x.shape[1] // n_dp
+        h, yl = x[:, d * w:(d + 1) * w], y[:, d * w:(d + 1) * w]
+        ps = [p.detach().requires_grad_() for p in params]
+        for i, spec in enumerate(model.specs):
+            if tp_group is not None:
+                h = _CopyToTp.apply(h, tp_group)
+            h = spmm(ps[i], spec, h, trows[i], tcols[i])
+            if tp_group is not None:
+                h = _ReduceFromTp.apply(h, tp_group)
+            if i + 1 < len(model.specs):
+                h = _next_input(torch.relu(h), model.specs[i + 1])
+        loss = torch.mean((h - yl) ** 2)
+        grads = torch.autograd.grad(loss, ps)
+        loss = loss.detach()
+        if dp_group is not None:
+            for g in (*grads, loss):
+                torch.distributed.all_reduce(g, group=dp_group)
+                g /= n_dp
+        with torch.no_grad():
+            new = [p - lr * g * m for p, g, m in zip(params, grads, masks)]
+        return new, loss
+
+    return step, shard_params
 
 
 def entry(device="cuda"):

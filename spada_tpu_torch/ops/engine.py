@@ -109,13 +109,23 @@ def prepare_worklist(wl, a_tiles: torch.Tensor, b_tiles: torch.Tensor,
         return _panel_call(*args, n_c)
     if eng == "pallas_grid":
         return _grid_call(*args, wl.first, n_c)
-    a, b, o = _host_ids(*args, n_c, row_major=eng == "cached")
-    dev = a_tiles.device
     if eng == "cached":
-        ids = _on(dev, a, b, tile_ptr_of(o, n_c))
-        return lambda: tile_spgemm(a_tiles, b_tiles, *ids)
-    ids = _on(dev, a, b, o)
+        return prepare_cached(*args, n_c)
+    ids = _on(a_tiles.device, *_host_ids(*args, n_c, row_major=False))
     return lambda: run_worklist_reference(a_tiles, b_tiles, *ids, n_c)
+
+
+def prepare_cached(a_tiles: torch.Tensor, b_tiles: torch.Tensor, a_ids,
+                   b_ids, o_ids, n_c_tiles: int
+                   ) -> Callable[..., torch.Tensor]:
+    """The ``'cached'`` engine's launch (:func:`tile_spgemm`) of a row-major
+    worklist given as host id arrays, as a call: the ids are checked and
+    uploaded here, once.  The call takes, in place of ``b_tiles``, other B
+    tiles of the same shape, dtype and device (a halo round's received
+    tiles, whose values arrive later)."""
+    a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
+    ids = _on(a_tiles.device, a, b, tile_ptr_of(o, n_c_tiles))
+    return lambda b_now=b_tiles: tile_spgemm(a_tiles, b_now, *ids)
 
 
 def run_worklist_streaming(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
@@ -148,22 +158,89 @@ def run_worklist_panel(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                        precision: str = "default",
                        out_dtype: torch.dtype = torch.float32,
                        a_tiles_t: Optional[torch.Tensor] = None,
-                       run_order: Optional[str] = None):
-    """Panel engine; returns ``(c_tiles, None, None, None)``, the
+                       run_order: Optional[str] = None,
+                       c_rows=None, c_cols=None):
+    """Panel engine; returns ``(c_tiles, None, None, run_perm)``, the
     reference's ``(c_tiles, a_plan, b_plan, run_perm)``: its two slot plans
-    are VMEM machinery with no counterpart here, and C tiles stay in row
-    order.  ``a_tiles_t`` [nA, tk, tm] passes A k-transposed already;
-    otherwise ``a_tiles`` is transposed once on its device.  ``out_dtype``
-    float32 or bfloat16 (one rounding of the f32 sum).  A ``run_order``
-    other than None / 'row' needs the reference's panel planner
-    (``spada_tpu/ops/panelplan.py``), not ported yet."""
-    if run_order not in (None, "row"):
-        raise NotImplementedError(
-            f"run_order {run_order!r} is not ported to spada_tpu_torch yet")
+    are VMEM machinery with no counterpart here.  ``a_tiles_t`` [nA, tk,
+    tm] passes A k-transposed already; otherwise ``a_tiles`` is transposed
+    once on its device.  ``out_dtype`` float32 or bfloat16 (one rounding of
+    the f32 sum).
+
+    ``run_order`` ('row' | 'col' | 'diag' | 'auto'; needs ``c_rows`` and
+    ``c_cols``, the C tiles' coordinates) is the order in which the C tiles
+    are computed and returned: output position p holds original C tile
+    ``run_perm[p]`` (None: the identity, row order).  The relabelled o ids
+    stay sorted, so the kernel runs unchanged.  'auto' takes the order with
+    the fewest loads that the reference's panel planner
+    (:mod:`~spada_tpu_torch.ops.panelplan`) plans under the slot counts of
+    the reference's 12 MiB VMEM fit (:func:`panel_plan_slots`), so it
+    chooses what the reference chooses; where the planner deadlocks at
+    those counts (the reference raises there), under the reference's
+    unclamped counts, 12 and 16.  Those slot counts are a planning model
+    only: the CUDA kernel has no slots, and L2 serves its reuse."""
+    from spada_tpu_torch.ops.panelplan import (_RUN_ORDERS, choose_run_order,
+                                               order_runs, permute_runs)
+
+    if run_order not in (None, "auto") + _RUN_ORDERS:
+        raise ValueError(f"unknown run order {run_order!r}")
     _check_precision(precision)
+    run_perm = None
+    if run_order not in (None, "row") and len(o_ids) and n_c_tiles:
+        if c_rows is None or c_cols is None:
+            raise ValueError("run_order needs c_rows and c_cols")
+        a_ids, b_ids, o_ids = (np.asarray(x) for x in (a_ids, b_ids, o_ids))
+        run_ptr = np.searchsorted(o_ids, np.arange(n_c_tiles + 1)).astype(
+            np.int64)
+        if run_order == "auto":
+            plan = (a_ids, b_ids, run_ptr, c_rows, c_cols)
+            try:
+                run_order, run_perm, _ = choose_run_order(
+                    *plan, *panel_plan_slots(a_tiles.shape[1],
+                                             a_tiles.shape[2],
+                                             b_tiles.shape[2],
+                                             a_tiles.element_size()))
+            except RuntimeError as err:
+                # the planner finds no safe window at the fit's slot counts
+                # (long runs at T = 512, where the reference raises this
+                # error): rank under the reference's unclamped counts
+                if "deadlock" not in str(err):
+                    raise
+                run_order, run_perm, _ = choose_run_order(
+                    *plan, *_PANEL_SLOTS)
+        else:
+            run_perm = order_runs(c_rows, c_cols, run_order)
+        if run_order == "row":
+            run_perm = None
+        else:
+            _, o_ids, a_ids, b_ids = permute_runs(run_perm, run_ptr, a_ids,
+                                                  b_ids)
     c = _panel_call(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles,
                     out_dtype, a_tiles_t)()
-    return c, None, None, None
+    return c, None, None, run_perm
+
+
+#: the reference panel kernel's (a_slots, b_slots, depth, max_panel)
+_PANEL_SLOTS = (12, 16, 4, 4)
+
+
+def panel_plan_slots(tm: int, tk: int, tn: int, itemsize: int) -> tuple:
+    """(a_slots, b_slots, depth, max_panel) of the reference's panel kernel
+    for these tiles: its defaults (12, 16, 4, 4, ogroup 8) shrunk to its 12
+    MiB VMEM fit (``spada_tpu/ops/engine.py:1362-1374``).  A planning model
+    for ``run_order='auto'``, not a property of the CUDA kernel."""
+    (a_slots, b_slots, depth, max_panel), ogroup = _PANEL_SLOTS, 8
+    total = 12 * 1024 * 1024
+    while ogroup > 1 and 2 * ogroup * tm * tn * 4 > total // 2:
+        ogroup //= 2
+    budget = total - 2 * ogroup * tm * tn * 4
+    need = (a_slots * tk * tm + b_slots * tk * tn) * itemsize
+    floor = max_panel + depth + 2
+    if need > budget:
+        scale = budget / need
+        a_slots = max(floor, int(a_slots * scale))
+        b_slots = max(floor, int(b_slots * scale))
+    return a_slots, b_slots, depth, max_panel
 
 
 def _panel_call(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles: int,

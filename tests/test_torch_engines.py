@@ -146,8 +146,18 @@ def test_panel_takes_pretransposed_a():
         torch.zeros_like(a_t), b_t, *ids,
         a_tiles_t=a_t.transpose(1, 2).contiguous())
     torch.testing.assert_close(pre, c, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="run_order"):
-        engine.run_worklist_panel(a_t, b_t, *ids, run_order="col")
+    # column order: the reference's run_perm, and its C in that order
+    rc = dict(c_rows=wl.c_tile_row, c_cols=wl.c_tile_col)
+    col, _, _, perm = engine.run_worklist_panel(a_t, b_t, *ids,
+                                                run_order="col", **rc)
+    ref, _, _, ref_perm = jax_engine.run_worklist_panel(
+        ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
+        n_c_tiles=wl.n_c_tiles, interpret=True, precision="highest",
+        ogroup=1, run_order="col", **rc)
+    np.testing.assert_array_equal(perm, ref_perm)
+    assert _relerr(c_tiles_to_numpy(col), np.asarray(ref)) <= 1e-5
+    torch.testing.assert_close(col, c[torch.from_numpy(perm)], rtol=0,
+                               atol=0)
 
 
 def _check_panel_bf16_output(ab, bb, wl):

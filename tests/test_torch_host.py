@@ -298,3 +298,137 @@ def test_from_reference(pairs, name):
     _same(_plan_tuple(plan), _plan_tuple(port_planner.plan_spgemm(pa, pb, pc)))
     with pytest.raises(TypeError, match="no port counterpart"):
         from_reference(object())
+
+
+# ---- the distributed strategies' host side --------------------------------
+
+from spada_tpu.parallel import element_dp as ref_edp  # noqa: E402
+from spada_tpu.parallel import halo as ref_halo  # noqa: E402
+from spada_tpu.parallel import partition as ref_part  # noqa: E402
+from spada_tpu.parallel import scaling as ref_scaling  # noqa: E402
+from spada_tpu_torch.parallel import element_dp as port_edp  # noqa: E402
+from spada_tpu_torch.parallel import halo as port_halo  # noqa: E402
+from spada_tpu_torch.parallel import partition as port_part  # noqa: E402
+from spada_tpu_torch.parallel import scaling as port_scaling  # noqa: E402
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_partition_spgemm_equal(pairs, name):
+    (ra, rb), (pa, pb) = pairs(name)
+    for n_dp, n_tp in ((2, 2), (3, 1)):
+        ref = ref_part.partition_spgemm(ra, rb, n_dp, n_tp, tm=64)
+        got = port_part.partition_spgemm(pa, pb, n_dp, n_tp, tm=64)
+        _same(ref, got)
+        assert ref.imbalance == got.imbalance
+        _same(from_reference(ref), got)
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_partition_halo_equal(pairs, name):
+    (ra, rb), (pa, pb) = pairs(name)
+    ref = ref_halo.partition_halo(ra, rb, 4, tm=64)
+    got = port_halo.partition_halo(pa, pb, 4, tm=64)
+    _same(ref, got)
+    _same(from_reference(ref), got)
+
+
+@pytest.mark.parametrize("name", ["lap5_32", "banded", "nn", "locpl", "fem"])
+def test_partition_element_equal(pairs, name):
+    (ra, rb), (pa, pb) = pairs(name)
+    ref = ref_edp.partition_element(ra, rb, 3)
+    got = port_edp.partition_element(pa, pb, 3)
+    _same(ref, got)
+    np.testing.assert_array_equal(ref.e_per_shard, got.e_per_shard)
+    _same(from_reference(ref), got)
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_choose_parallel_strategy_equal(pairs, name):
+    (ra, rb), (pa, pb) = pairs(name)
+    rc, pc = _configs()
+    for n_dev in (2, 4):
+        _same(ref_part.choose_parallel_strategy(ra, rb, n_dev, rc, tm=64),
+              port_part.choose_parallel_strategy(pa, pb, n_dev, pc, tm=64))
+
+
+@pytest.mark.parametrize("name", ["cari", "banded", "nn"])
+def test_scaling_estimates_equal(pairs, name):
+    """At the reference's config values, and at the card's link rate."""
+    (ra, rb), (pa, pb) = pairs(name)
+    halo = (ref_halo.partition_halo(ra, rb, 4, tm=64),
+            port_halo.partition_halo(pa, pb, 4, tm=64))
+    red = (ref_part.partition_spgemm(ra, rb, 2, 2, tm=64),
+           port_part.partition_spgemm(pa, pb, 2, 2, tm=64))
+    for rc, pc in ((RefConfig(), PortConfig()), _configs()):
+        _same(ref_scaling.estimate_halo_scaling(halo[0], rc),
+              port_scaling.estimate_halo_scaling(halo[1], pc))
+        _same(ref_scaling.estimate_reduce_scaling(red[0], rc),
+              port_scaling.estimate_reduce_scaling(red[1], pc))
+        assert (port_scaling.estimate_halo_scaling(halo[1], pc).as_dict()
+                == ref_scaling.estimate_halo_scaling(halo[0], rc).as_dict())
+
+
+def test_datasheet_link_rate():
+    assert datasheet_peaks()["ici_bytes_per_s"] == 450e9
+    assert datasheet_peaks("NVIDIA H100 PCIe")["ici_bytes_per_s"] == 64e9
+    assert datasheet_peaks("NVIDIA H100 NVL")["ici_bytes_per_s"] == 300e9
+    assert datasheet_peaks("NVIDIA H200")["ici_bytes_per_s"] == 450e9
+
+
+# ---- the panel planner ------------------------------------------------------
+
+from spada_tpu.ops import panelplan as ref_pp  # noqa: E402
+from spada_tpu.ops.worklist import build_worklist as ref_worklist  # noqa: E402
+from spada_tpu_torch.ops import panelplan as port_pp  # noqa: E402
+
+
+def _panel_streams():
+    """(ids, run_ptr) streams: both operands of a banded worklist, and
+    random runs of distinct tiles (the fuzz of tests/test_panel.py)."""
+    a = ref_wl.banded_csr(512, 512, bandwidth=96, seed=0, dtype=np.float32)
+    A = ref_bsr.BsrMatrix.from_csr(a, 64, 64, dtype=np.float32)
+    wl = ref_worklist(A, A, order="row")
+    ptr = np.searchsorted(wl.o_tid, np.arange(wl.n_c_tiles + 1)).astype(
+        np.int64)
+    out = [(wl.a_tid, ptr), (wl.b_tid, ptr)]
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        lens = rng.integers(1, 8, 40)
+        ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        ids = np.concatenate([rng.choice(25, n, replace=False) for n in lens])
+        out.append((ids.astype(np.int64), ptr))
+    return out, wl
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_plan_panel_cache_equal(monkeypatch, native):
+    if not native:
+        # both packages' NumPy planners
+        monkeypatch.setattr(ref_native, "plan_panel_cache",
+                            lambda *a: None)
+        monkeypatch.setattr(port_native, "plan_panel_cache",
+                            lambda *a: None)
+    else:
+        assert port_native.load() is not None
+    streams, _ = _panel_streams()
+    for ids, ptr in streams:
+        for slots, depth, max_panel in ((12, 3, 4), (16, 0, 2), (8, 2, 1)):
+            _same(ref_pp.plan_panel_cache(ids, ptr, slots, depth, max_panel),
+                  port_pp.plan_panel_cache(ids, ptr, slots, depth, max_panel))
+
+
+def test_run_orders_equal():
+    _, wl = _panel_streams()
+    ptr = np.searchsorted(wl.o_tid, np.arange(wl.n_c_tiles + 1))
+    for order in ("row", "col", "diag"):
+        perm = port_pp.order_runs(wl.c_tile_row, wl.c_tile_col, order)
+        _same(ref_pp.order_runs(wl.c_tile_row, wl.c_tile_col, order), perm)
+        _same(ref_pp.permute_runs(perm, ptr, wl.a_tid, wl.b_tid),
+              port_pp.permute_runs(perm, ptr, wl.a_tid, wl.b_tid))
+    for slots in ((12, 16), (16, 12)):
+        _same(ref_pp.choose_run_order(wl.a_tid, wl.b_tid, ptr, wl.c_tile_row,
+                                      wl.c_tile_col, *slots),
+              port_pp.choose_run_order(wl.a_tid, wl.b_tid, ptr,
+                                       wl.c_tile_row, wl.c_tile_col, *slots))
+    with pytest.raises(ValueError, match="unknown run order"):
+        port_pp.order_runs(wl.c_tile_row, wl.c_tile_col, "zigzag")

@@ -43,6 +43,14 @@ def test_package_modules_listed():
                  "spada_tpu_torch.plan.estimator",
                  "spada_tpu_torch.plan.densify",
                  "spada_tpu_torch.plan.planner",
+                 "spada_tpu_torch.ops.panelplan",
+                 "spada_tpu_torch.parallel",
+                 "spada_tpu_torch.parallel.partition",
+                 "spada_tpu_torch.parallel.scaling",
+                 "spada_tpu_torch.parallel.mesh",
+                 "spada_tpu_torch.parallel.spgemm",
+                 "spada_tpu_torch.parallel.halo",
+                 "spada_tpu_torch.parallel.element_dp",
                  "spada_tpu_torch.utils.trace",
                  "spada_tpu_torch.utils.metrics",
                  # the probe tools
