@@ -30,11 +30,15 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    most 100%; then the ``plan`` mode under both schemes (exit 0; the
    profiled one launches ``tile_spgemm``);
 4. the NN pair (16384^2 block-sparse weight x 16384x4096 ReLU activations,
-   f32): dispatched to the tile kernel, gated against scipy/numpy on its
-   first 2048 rows (max|d|/max|ref| < 1e-4), kernel and plain version timed
-   on the launches the run made; ``measure_device_perf`` on the run's
-   ``host_state`` within 10% of the sum of those kernel times, its shares
-   at most 100%; then (4b) ``spgemm_csr`` on the pair in 4 output slabs of
+   f32) through ``run_spada`` twice: under ``h100_config`` (the card's
+   per-item fit; the main path) and under the reference's per-item terms
+   (its T = 512 plan runs the tensor-core block at full width whatever the
+   fit picks; the run fails if neither plan reaches that block): each
+   dispatched to the tile kernel, gated against scipy/numpy on its first
+   2048 rows (max|d|/max|ref| < 1e-4), on every plan segment kernel and
+   plain version compared (<= 1e-5) and timed, each labelled with the block
+   it runs on; ``measure_device_perf`` on the run's ``host_state`` within
+   10% of the sum of those kernel times, its shares at most 100%; then (4b) ``spgemm_csr`` on the pair in 4 output slabs of
    64 MB of C tiles, one ``tile_spgemm`` launch each, gated the same way,
    its peak device memory beside a one-shot ``spgemm``'s;
 5. the localized power-law pair (65536^2, degree 32): dispatched to the
@@ -49,12 +53,14 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    (four slabs or more) against scipy (1e-5 of max|C|);
    ``measure_device_perf`` of the element side within 10% of the grouped
    launch's own time, its share of HBM SoL at most 100%;
-6. the engine override at full width: phase 4's plan of the NN pair run
-   again through ``spgemm(..., plan=)`` under each ``engine`` streaming,
-   panel and pallas_grid, gated against scipy/numpy (< 1e-4) and against
-   phase 4's ``tile_spgemm`` result (<= 1e-5), each kernel timed beside its
-   plain version on the launches the run made (``tile_stream`` also at
-   ogroup 1 against 8, in one timing);
+6. the engine override at full width: phase 4's fitted plan of the NN pair
+   run again through ``spgemm(..., plan=)`` under each ``engine``
+   streaming, panel and pallas_grid, gated against scipy/numpy (< 1e-4) and
+   against phase 4's ``tile_spgemm`` result (<= 1e-5), each kernel timed
+   beside its plain version on the launches the run made (``tile_stream``
+   also at ogroup 1 against 8, in one timing); then each of the three
+   kernels against its plain version (<= 1e-5), timed, on every segment of
+   phase 4's other plan;
 7. the probes (``spada_tpu_torch.tools``) at their tools' sizes: every mode
    of ``tile_probe`` on the banded 65536^2 / T=256 / bf16 workload of
    ``probe_kernel`` and ``probe_manual``, on the FP32 SIMT block
@@ -92,7 +98,20 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    after another on this card; (c) where there are two cards or more, (a)'s
    entry points across ``min(count, 8)`` cards, one NCCL rank per card
    (otherwise one line says why not).  Host partition seconds and device
-   ms per strategy and rank body are printed beside the nvidia-smi line.
+   ms per strategy and rank body are printed beside the nvidia-smi line;
+10. the planner's calibration and evaluation tools
+   (``spada_tpu_torch.tools``) at reduced depth, every C gated against
+   scipy on its first 2048 rows: (a) ``probe_item_overhead`` on the banded
+   32768^2 pair, T = 128..512, f32 and bf16 tiles, the per-item fit
+   printed; (b) ``probe_dispatch_crossover`` at fills 48 and 12 under the
+   reference's per-item terms and the card's fit, and at fill 192 the
+   dispatch and the tile side only (its element side, 9.4e8 products and
+   two minutes of host planning, is left to the tool; no verdict); (c)
+   ``eval_adaptive`` at n = 8192 (``--quick``) on the row sets banded,
+   loc-powerlaw, nn-bert-ffn1-blk32 and the graded FEM, which cover every
+   row type; (d) ``bench_value_refresh`` with 2 batches; (e) phase 4's two
+   plans side by side: T, tm histogram, W, blocks and
+   ``measure_device_perf``.
 
 Beside each kernel's time the script computes its bound, the larger of two
 times on the datasheet placeholders of ``config.h100_config``: the useful
@@ -521,45 +540,41 @@ def run_cari_plans(dev, totals: dict) -> None:
 # phase 4: the tile side at the bench's size
 # --------------------------------------------------------------------------
 
-def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
-           m: int = 16384, n: int = 4096):
-    """Returns the run, its dense C and the f64 reference of C's first
-    rows, for phase 6."""
+#: phase 4's two plans of the nn pair: under the card's fit (``h100_config``,
+#: the main path's config) and under the reference's per-item terms, whose T =
+#: 512 plan holds the tensor-core block at full width whatever the fit picks
+NN_PLANS = ("fit", "v5e terms")
+
+
+def tile_block(tm: int, tk: int, tn: int, dtype) -> str:
+    """The block the four tile kernels run tm x tk x tn tiles of ``dtype``
+    on (``csrc/tile_spgemm.cu``'s launch rule)."""
+    if tm % 128 == 0 and tn % 128 == 0:
+        if tk % (64 if "bfloat16" in str(dtype) else 32) == 0:
+            return "mma (tile_mma.cuh)"
+        return "wide SIMT (tile_wide.cuh)"
+    return f"narrow BM={min(tm, 64)} (tile_pipe.cuh)"
+
+
+def plan_blocks(run) -> str:
+    tk, tn = run.result.host_state["tk"], run.result.host_state["tn"]
+    return ", ".join(sorted({
+        f"tm {tm}: {tile_block(tm, tk, tn, a_np.dtype)}"
+        for _, a_np, _, tm in run.result.host_state["segments"]}))
+
+
+def nn_segments(dev, run, kind, errs: dict, label: str) -> tuple:
+    """Phase 4's tile_spgemm against its plain version on every segment of
+    ``run``'s plan, each timed beside it.  Returns (kernel s, plain s,
+    [(bound s, by)])."""
     import torch
 
-    from spada_tpu_torch.cli import run_spada
     from spada_tpu_torch.config import roofline_bound, tile_work
     from spada_tpu_torch.convert import worklist_to_torch
     from spada_tpu_torch.ops.engine import run_worklist_reference, tile_spgemm
-    from spada_tpu_torch.ops.spgemm import measure_device_perf
-    from spada_tpu_torch.io.workloads import (block_sparse_csr,
-                                              relu_activation_csr)
-
-    t0 = time.perf_counter()
-    a = block_sparse_csr(m, m, 384, 0.2, seed=5, dtype=np.float32)
-    b = relu_activation_csr(m, n, 0.35, seed=6, dtype=np.float32)
-    log(f"  A {a.shape} nnz {a.nnz}, B {b.shape} nnz {b.nnz} "
-        f"(generated in {time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    with main_path(totals) as counts:
-        run = run_spada(a, b, cfg, dev, log=lambda s: log("  " + s))
-    log(f"  run_spada: {time.perf_counter() - t0:.1f} s host+device, "
-        f"engine {run.choice}, launches {counts}")
-    require(run.choice == "tile", f"nn dispatched to {run.choice}, not tile")
-    require(counts.get("tile_spgemm", 0) > 0, "nn did not launch tile_spgemm")
-
-    rows = min(GATE_ROWS, m)
-    got = run.result.todense()[:rows]
-    ref = (a.to_scipy()[:rows].toarray().astype(np.float64)
-           @ b.to_scipy().toarray().astype(np.float64))
-    err = relerr(got, ref)
-    log(f"  gate vs scipy/numpy f64, rows [0, {rows}): "
-        f"max|d|/max|ref| = {err:.2e} (limit 1e-4)")
-    require(err < 1e-4, f"nn gate failed: relerr {err:.3e}")
 
     t_kernel = t_plain = 0.0
     bounds = []
-    kind = torch.cuda.get_device_name(dev)
     a_sp, b_sp = run.a.to_scipy(), run.b.to_scipy()
     tk, tn = run.result.host_state["tk"], run.result.host_state["tn"]
     for wl, a_np, b_np, tm in run.result.host_state["segments"]:
@@ -576,7 +591,8 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
 
         g, r = kernel(), plain()
         e = relerr(g.cpu().numpy(), r.cpu().numpy())
-        require(e <= 1e-5, f"nn segment tm={tm}: kernel vs plain {e:.3e}")
+        require(e <= 1e-5, f"nn [{label}] segment tm={tm}: kernel vs plain "
+                f"{e:.3e}")
         errs["tile_spgemm"] = max(errs["tile_spgemm"],
                                   float((g - r).abs().max()))
         del g, r
@@ -589,8 +605,9 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
         b_s, by = roofline_bound(flops, nbytes, kind, a_np.dtype,
                                  matmul=True)
         bounds.append((b_s, by))
-        log(f"  segment tm={tm} tk=tn={tk}: W={wl.n_items} nC={wl.n_c_tiles}"
-            f", {flops / 1e9:.1f} GFLOP of products in "
+        log(f"  [{label}] segment tm={tm} tk=tn={tk} on the "
+            f"{tile_block(tm, tk, tn, a_np.dtype)} block: W={wl.n_items} "
+            f"nC={wl.n_c_tiles}, {flops / 1e9:.1f} GFLOP of products in "
             f"{tile_flops / 1e9:.1f} of whole tiles, {nbytes / 1e9:.3f} GB"
             f"  kernel {tk_s * 1e3:.3f} ms ({tile_flops / tk_s / 1e12:.2f} "
             f"tile TFLOP/s)  plain {tp_s * 1e3:.3f} ms "
@@ -599,22 +616,87 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
         t_kernel += tk_s
         t_plain += tp_s
         del a_t, b_t, dwl
-    times["tile_spgemm"] = (t_kernel, t_plain)
-    perf = measure_device_perf(run.a, run.b, run.config, "spada",
-                               plan=run.plan,
-                               host_state=run.result.host_state, device=dev)
-    gap = abs(perf["engine_s"] - t_kernel) / t_kernel
-    log(f"  measure_device_perf: engine {perf['engine_s'] * 1e3:.3f} ms "
-        f"(the segments' tile_spgemm times sum to {t_kernel * 1e3:.3f} ms, "
-        f"{gap:.1%} apart), {perf['flops_per_s'] / 1e12:.2f} TFLOP/s of "
-        f"whole tiles, {perf['mxu_util_pct']:.1f}% of the tensor-core peak, "
-        f"{perf['pct_hbm_sol']:.1f}% of HBM SoL ({perf['hbm_gbps']:.0f} GB/s"
-        f" modelled), on {smi_name_power()}")
-    require(gap <= 0.10, f"nn: measure_device_perf {gap:.1%} from the "
-            f"kernel times")
-    require(perf["mxu_util_pct"] <= 100 and perf["pct_hbm_sol"] <= 100,
-            f"nn: a share over 100%: {perf}")
-    c = run.result.todense()
+    return t_kernel, t_plain, bounds
+
+
+def run_nn(dev, kind: str, totals: dict, errs: dict, times: dict,
+           extra: dict, m: int = 16384, n: int = 4096):
+    """Phase 4: the nn pair through run_spada under each of NN_PLANS' terms,
+    each gated against scipy, every segment's tile_spgemm held to its plain
+    version and timed, measure_device_perf against those times.  The fit's
+    run is the main path (``times`` and ``extra["nn"]``); the other plan's
+    times go to ``extra["nn_plans"]``.  Returns ({label: run}, the fit run's
+    dense C, the f64 reference of C's first rows), for phases 6, 9 and 10."""
+    import torch
+
+    from spada_tpu_torch.cli import run_spada
+    from spada_tpu_torch.config import h100_config
+    from spada_tpu_torch.io.workloads import (block_sparse_csr,
+                                              relu_activation_csr)
+    from spada_tpu_torch.ops.spgemm import measure_device_perf
+    from spada_tpu_torch.tools.harness import reference_item_terms
+
+    t0 = time.perf_counter()
+    a = block_sparse_csr(m, m, 384, 0.2, seed=5, dtype=np.float32)
+    b = relu_activation_csr(m, n, 0.35, seed=6, dtype=np.float32)
+    log(f"  A {a.shape} nnz {a.nnz}, B {b.shape} nnz {b.nnz} "
+        f"(generated in {time.perf_counter() - t0:.1f} s)")
+    rows = min(GATE_ROWS, m)
+    ref = (a.to_scipy()[:rows].toarray().astype(np.float64)
+           @ b.to_scipy().toarray().astype(np.float64))
+    cfgs = {"fit": h100_config(kind),
+            "v5e terms": h100_config(kind, **reference_item_terms())}
+    runs = {}
+    extra["nn_plans"] = {}
+    for label in NN_PLANS:
+        t0 = time.perf_counter()
+        with main_path(totals) as counts:
+            run = run_spada(a, b, cfgs[label], dev,
+                            log=lambda s: log("  " + s))
+        runs[label] = run
+        log(f"  [{label}] run_spada: {time.perf_counter() - t0:.1f} s "
+            f"host+device, engine {run.choice}, launches {counts}")
+        require(run.choice == "tile",
+                f"nn [{label}] dispatched to {run.choice}, not tile")
+        require(counts.get("tile_spgemm", 0) > 0,
+                f"nn [{label}] did not launch tile_spgemm")
+        log(f"  [{label}] plan: T={run.config.tile_k}, tm histogram "
+            f"{run.plan.tm_histogram()}, W={run.result.n_work_items}; "
+            f"blocks: {plan_blocks(run)}")
+        err = relerr(run.result.todense()[:rows], ref)
+        log(f"  [{label}] gate vs scipy/numpy f64, rows [0, {rows}): "
+            f"max|d|/max|ref| = {err:.2e} (limit 1e-4)")
+        require(err < 1e-4, f"nn [{label}] gate failed: relerr {err:.3e}")
+        t_kernel, t_plain, bounds = nn_segments(dev, run, kind, errs, label)
+        perf = measure_device_perf(run.a, run.b, run.config, "spada",
+                                   plan=run.plan,
+                                   host_state=run.result.host_state,
+                                   device=dev)
+        gap = abs(perf["engine_s"] - t_kernel) / t_kernel
+        log(f"  [{label}] measure_device_perf: engine "
+            f"{perf['engine_s'] * 1e3:.3f} ms (the segments' tile_spgemm "
+            f"times sum to {t_kernel * 1e3:.3f} ms, {gap:.1%} apart), "
+            f"{perf['flops_per_s'] / 1e12:.2f} TFLOP/s of whole tiles, "
+            f"{perf['mxu_util_pct']:.1f}% of the tensor-core peak, "
+            f"{perf['pct_hbm_sol']:.1f}% of HBM SoL ({perf['hbm_gbps']:.0f} "
+            f"GB/s modelled), on {smi_name_power()}")
+        require(gap <= 0.10, f"nn [{label}]: measure_device_perf {gap:.1%} "
+                f"from the kernel times")
+        require(perf["mxu_util_pct"] <= 100 and perf["pct_hbm_sol"] <= 100,
+                f"nn [{label}]: a share over 100%: {perf}")
+        # the bound is the sum of the segments', bound by what bounds the
+        # larger
+        bound = (sum(s for s, _ in bounds), max(bounds)[1])
+        extra["nn_plans"][label] = {
+            "perf_ms": perf["engine_s"] * 1e3, "bound": bound,
+            "blocks": plan_blocks(run),
+            "times": {"tile_spgemm": (t_kernel, t_plain)}}
+        if label == NN_PLANS[0]:
+            times["tile_spgemm"] = (t_kernel, t_plain)
+            extra["nn"] = {"bound": bound}
+    blocks = " ".join(p["blocks"] for p in extra["nn_plans"].values())
+    require("mma" in blocks, f"no nn plan ran the tensor-core block: {blocks}")
+    c = runs[NN_PLANS[0]].result.todense()
     # one dense product computes the same C: cuBLAS SGEMM (TF32 off)
     da, db = dense_of(a, dev, torch.float32), dense_of(b, dev, torch.float32)
     t_lib = library_time(lambda: torch.matmul(da, db))
@@ -625,12 +707,10 @@ def run_nn(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
     require(e_lib < 1e-4, f"nn: the dense product differs from the run's C "
             f"by {e_lib:.3e}")
     del da, db
-    # the four tile kernels compute this same C from these same inputs; the
-    # bound is the sum of the segments', bound by what bounds the larger
-    extra["nn"] = {"bound": (sum(s for s, _ in bounds), max(bounds)[1]),
-                   "library": (t_lib, "torch.matmul, dense f32")}
+    # the four tile kernels compute this same C from these same inputs
+    extra["nn"]["library"] = (t_lib, "torch.matmul, dense f32")
     torch.cuda.empty_cache()
-    return run, c, ref
+    return runs, c, ref
 
 
 def run_spgemm_csr(dev, run, ref_rows, totals: dict,
@@ -924,13 +1004,73 @@ def engine_pair(engine: str, a_t, b_t, wl, dev, ogroup=None):
     return (lambda: kernel(*args)), (lambda: plain(*args))
 
 
-def run_engines(dev, run, c_tile, ref_rows, totals: dict, errs: dict,
-                times: dict) -> None:
+def engine_segments(dev, engine: str, kernel: str, host_state: dict,
+                    errs: dict, label: str) -> tuple:
+    """``kernel`` against its plain version on every segment of a plan's
+    ``host_state``, each timed beside it (and the streaming kernel at
+    ogroup 1 against 8).  Returns (kernel s, plain s)."""
     import torch
 
+    t_kernel = t_plain = 0.0
+    t_og = [0.0, 0.0]  # tile_stream at ogroup 1 and 8
+    tk, tn = host_state["tk"], host_state["tn"]
+    for wl, a_np, b_np, tm in host_state["segments"]:
+        a_t = torch.from_numpy(a_np).to(dev)
+        b_t = torch.from_numpy(b_np).to(dev)
+        kernel_fn, plain_fn = engine_pair(engine, a_t, b_t, wl, dev)
+        g, r = kernel_fn(), plain_fn()
+        r_np = r.cpu().numpy()
+        e = relerr(g.cpu().numpy(), r_np)
+        require(e <= 1e-5, f"{kernel} nn [{label}] segment tm={tm}: kernel "
+                f"vs plain {e:.3e}")
+        errs[kernel] = max(errs[kernel], float((g - r).abs().max()))
+        del g, r
+        tk_s, tp_s = time_pair(kernel_fn, plain_fn)
+        flops = 2 * wl.n_items * tm * tk * tn
+        log(f"  [{label}] {kernel} segment tm={tm} tk=tn={tk} on the "
+            f"{tile_block(tm, tk, tn, a_np.dtype)} block: W={wl.n_items} "
+            f"nC={wl.n_c_tiles}  kernel {tk_s * 1e3:.3f} ms "
+            f"({flops / tk_s / 1e12:.2f} TFLOP/s)  plain "
+            f"{tp_s * 1e3:.3f} ms ({flops / tp_s / 1e12:.2f} TFLOP/s)  "
+            f"kernel vs plain max|d|/max|ref| {e:.2e}")
+        t_kernel += tk_s
+        t_plain += tp_s
+        if engine == "streaming":
+            # ogroup 1 (item_ptr = tile_ptr) against the reference's 8,
+            # interleaved in one timing
+            og = [engine_pair(engine, a_t, b_t, wl, dev, ogroup=k)[0]
+                  for k in (1, 8)]
+            for k, fn in zip((1, 8), og):
+                e_k = relerr(fn().cpu().numpy(), r_np)
+                require(e_k <= 1e-5, f"tile_stream ogroup {k} nn [{label}] "
+                        f"segment tm={tm}: kernel vs plain {e_k:.3e}")
+            t1, t8 = time_pair(*og)
+            t_og[0] += t1
+            t_og[1] += t8
+            log(f"  [{label}] tile_stream segment tm={tm}: ogroup 1 "
+                f"{t1 * 1e3:.3f} ms ({flops / t1 / 1e12:.2f} TFLOP/s), "
+                f"ogroup 8 {t8 * 1e3:.3f} ms ({flops / t8 / 1e12:.2f} "
+                f"TFLOP/s)")
+            del og
+        del a_t, b_t, r_np, kernel_fn, plain_fn
+    if engine == "streaming":
+        log(f"  [{label}] tile_stream on nn, one timing: ogroup 1 "
+            f"{t_og[0] * 1e3:.3f} ms, ogroup 8 {t_og[1] * 1e3:.3f} ms")
+    torch.cuda.empty_cache()
+    return t_kernel, t_plain
+
+
+def run_engines(dev, runs: dict, c_tile, ref_rows, totals: dict,
+                errs: dict, times: dict, extra: dict) -> None:
+    """Phase 6: the fit's plan through spgemm(plan=) under each engine
+    override (the main path), gated, each kernel held to its plain version
+    and timed on every segment; then the same kernels against their plain
+    versions on every segment of the other plan of NN_PLANS."""
     from spada_tpu_torch.ops.spgemm import spgemm
 
     rows = ref_rows.shape[0]
+    main_label = NN_PLANS[0]
+    run = runs[main_label]
     for engine, kernel in ENGINE_KERNEL.items():
         cfg = dataclasses.replace(run.config, engine=engine)
         t0 = time.perf_counter()
@@ -953,52 +1093,14 @@ def run_engines(dev, run, c_tile, ref_rows, totals: dict, errs: dict,
         require(e_tile <= 1e-5,
                 f"nn under engine {engine}: vs tile_spgemm {e_tile:.3e}")
         del got
-
-        t_kernel = t_plain = 0.0
-        t_og = [0.0, 0.0]  # tile_stream at ogroup 1 and 8
-        tk, tn = res.host_state["tk"], res.host_state["tn"]
-        for wl, a_np, b_np, tm in res.host_state["segments"]:
-            a_t = torch.from_numpy(a_np).to(dev)
-            b_t = torch.from_numpy(b_np).to(dev)
-            kernel_fn, plain_fn = engine_pair(engine, a_t, b_t, wl, dev)
-            g, r = kernel_fn(), plain_fn()
-            r_np = r.cpu().numpy()
-            e = relerr(g.cpu().numpy(), r_np)
-            require(e <= 1e-5, f"{kernel} nn segment tm={tm}: kernel vs "
-                    f"plain {e:.3e}")
-            errs[kernel] = max(errs[kernel], float((g - r).abs().max()))
-            del g, r
-            tk_s, tp_s = time_pair(kernel_fn, plain_fn)
-            flops = 2 * wl.n_items * tm * tk * tn
-            log(f"  {kernel} segment tm={tm} tk=tn={tk}: W={wl.n_items} "
-                f"nC={wl.n_c_tiles}  kernel {tk_s * 1e3:.3f} ms "
-                f"({flops / tk_s / 1e12:.2f} TFLOP/s)  plain "
-                f"{tp_s * 1e3:.3f} ms ({flops / tp_s / 1e12:.2f} TFLOP/s)  "
-                f"kernel vs plain max|d|/max|ref| {e:.2e}")
-            t_kernel += tk_s
-            t_plain += tp_s
-            if engine == "streaming":
-                # ogroup 1 (item_ptr = tile_ptr) against the reference's 8,
-                # interleaved in one timing
-                og = [engine_pair(engine, a_t, b_t, wl, dev, ogroup=k)[0]
-                      for k in (1, 8)]
-                for k, fn in zip((1, 8), og):
-                    e_k = relerr(fn().cpu().numpy(), r_np)
-                    require(e_k <= 1e-5, f"tile_stream ogroup {k} nn "
-                            f"segment tm={tm}: kernel vs plain {e_k:.3e}")
-                t1, t8 = time_pair(*og)
-                t_og[0] += t1
-                t_og[1] += t8
-                log(f"  tile_stream segment tm={tm}: ogroup 1 {t1 * 1e3:.3f}"
-                    f" ms ({flops / t1 / 1e12:.2f} TFLOP/s), ogroup 8 "
-                    f"{t8 * 1e3:.3f} ms ({flops / t8 / 1e12:.2f} TFLOP/s)")
-                del og
-            del a_t, b_t, r_np, kernel_fn, plain_fn
-        times[kernel] = (t_kernel, t_plain)
-        if engine == "streaming":
-            log(f"  tile_stream on nn, one timing: ogroup 1 "
-                f"{t_og[0] * 1e3:.3f} ms, ogroup 8 {t_og[1] * 1e3:.3f} ms")
-        torch.cuda.empty_cache()
+        times[kernel] = engine_segments(dev, engine, kernel, res.host_state,
+                                        errs, main_label)
+        extra["nn_plans"][main_label]["times"][kernel] = times[kernel]
+    for label in NN_PLANS[1:]:
+        for engine, kernel in ENGINE_KERNEL.items():
+            extra["nn_plans"][label]["times"][kernel] = engine_segments(
+                dev, engine, kernel, runs[label].result.host_state, errs,
+                label)
 
 
 # --------------------------------------------------------------------------
@@ -1656,6 +1758,105 @@ def _card_rank(rank: int, world: int, workdir: str) -> None:
         dist.destroy_process_group()
 
 
+# --------------------------------------------------------------------------
+# phase 10: the planner's calibration and evaluation
+# --------------------------------------------------------------------------
+
+#: the eval's row sets that phase 10 (c) runs at n = 8192, with the graded
+#: FEM: between them every row type (tm32, tm<T>, panel, densify, spada, the
+#: dispatched element side)
+EVAL_SUBSET = ("banded", "loc-powerlaw", "nn-bert-ffn1-blk32")
+
+
+def crossover_tile_only(fill: int, dev, say, n: int = 32768) -> None:
+    """Phase 10 (b) at a fill whose element side the smoke leaves to the
+    tool (fill 192: 9.4e8 products, two minutes of host planning): the
+    dispatch under both sets of terms and the tile side each T runs,
+    gated and timed; no verdict, since one side is not measured."""
+    from spada_tpu_torch.ops.spgemm import dispatch_dataflow
+    from spada_tpu_torch.tools import probe_dispatch_crossover as X
+    from spada_tpu_torch.tools.harness import (card_name, first_rows_ref,
+                                               fmt_ms)
+
+    band = 384
+    a = X.banded_fill_csr(n, band, fill, seed=fill)
+    b = X.banded_fill_csr(n, band, fill, seed=fill + 1)
+    ref = first_rows_ref(a, b, GATE_ROWS)
+    tile = {}
+    for k, cfg in X.configs(card_name(dev)).items():
+        choice, det = dispatch_dataflow(a, b, cfg)
+        T = det["tile_T"]
+        if T not in tile:
+            tile[T] = X.tile_side(a, b, T, dev, ref, GATE_ROWS)
+        t_s, w, err = tile[T]
+        say(f"fill={fill} [{k}]: dispatch={choice} T={T} modeled tile "
+            f"{det['tile'][T]['t_est'] * 1e3:.3f} elem "
+            f"{det['element']['t_est'] * 1e3:.3f} ms; measured tile "
+            f"{fmt_ms(t_s)} ms W={w} gate {err:.1e}; element side not "
+            f"measured here (E={det['element']['e_products']}), verdict -")
+
+
+def run_calibration(dev, runs: dict, nn_ref, extra: dict,
+                    totals: dict) -> None:
+    """Phase 10: the four tools of spada_tpu_torch.tools at reduced depth,
+    then (e) phase 4's two plans of the nn pair side by side."""
+    from spada_tpu_torch.tools import (bench_value_refresh,
+                                       eval_adaptive,
+                                       probe_dispatch_crossover,
+                                       probe_item_overhead)
+    from spada_tpu_torch.tools.harness import card_name
+
+    def say(s):
+        for line in s.splitlines() or [""]:
+            log("    " + line)
+
+    def quick_eval():
+        sets = eval_adaptive.workloads(8192)
+        results = []
+        for name, (a, b) in sets.items():
+            if name in EVAL_SUBSET or name.startswith("fem-graded-"):
+                T, rows = eval_adaptive.eval_workload(name, a, b, dev,
+                                                      GATE_ROWS, say)
+                results.append((name, T, rows))
+        say(eval_adaptive.report(results, 8192, card_name(dev)))
+
+    steps = (
+        ("(a) probe_item_overhead, banded 32768^2", "tile_spgemm",
+         lambda: probe_item_overhead.run(n=32768, device=dev, log=say)),
+        ("(b) probe_dispatch_crossover, fills 48, 12; fill 192's tile side",
+         "esc_stream_group",
+         lambda: (probe_dispatch_crossover.run((48, 12), device=dev,
+                                               log=say),
+                  crossover_tile_only(192, dev, say))),
+        (f"(c) eval_adaptive at n = 8192 (--quick), row sets "
+         f"{', '.join(EVAL_SUBSET)} and the graded FEM", "tile_panel",
+         quick_eval),
+        ("(d) bench_value_refresh, 2 batches", "esc_stream_group",
+         lambda: bench_value_refresh.run(dev, n_batches=2, log=say)),
+    )
+    for label, kernel, step in steps:
+        t0 = time.perf_counter()
+        log(f"  {label}:")
+        with main_path(totals) as counts:
+            step()
+        log(f"  {label.split(',')[0]}: launches {counts}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(counts.get("tile_spgemm", 0) > 0 and counts.get(kernel, 0)
+                > 0, f"{label}: launches {counts}")
+    log("  (e) phase 4's plans of the nn pair, under the card's fit and "
+        "under the reference's per-item terms:")
+    rows = nn_ref.shape[0]
+    for label, run in runs.items():
+        p = extra["nn_plans"][label]
+        log(f"    {label:9s}: T={run.config.tile_k}, tm histogram "
+            f"{run.plan.tm_histogram()}, W={run.result.n_work_items}, "
+            f"blocks {p['blocks']}, measure_device_perf {p['perf_ms']:.3f} "
+            f"ms, gate {relerr(run.result.todense()[:rows], nn_ref):.1e}")
+    fit, v5e = (extra["nn_plans"][k]["perf_ms"] for k in NN_PLANS)
+    log(f"    the fitted plan takes {fit / v5e:.3f}x the v5e-terms plan's "
+        f"time, on {smi_name_power()}")
+
+
 def check_no_reference(where: str) -> None:
     require("jax" not in sys.modules and "jaxlib" not in sys.modules,
             f"{where}: JAX was imported")
@@ -1717,13 +1918,14 @@ def main() -> int:
     log(f"== phase 4: nn pair, tile side (roofline profile: "
         f"{cfg.hbm_bytes_per_s / 1e12:.2f} TB/s, "
         f"{cfg.peak_flops_f32 / 1e12:.0f} TFLOP/s f32, datasheet)")
-    nn_run, nn_c, nn_ref = run_nn(dev, cfg, totals, errs, times, extra)
+    nn_runs, nn_c, nn_ref = run_nn(dev, kind, totals, errs, times, extra)
+    nn_run = nn_runs[NN_PLANS[0]]
     log("== phase 4b: spgemm_csr on the nn pair, in output slabs")
     run_spgemm_csr(dev, nn_run, nn_ref, totals)
     log("== phase 5: locpl pair, element side")
     run_locpl(dev, cfg, totals, errs, times, extra)
-    log("== phase 6: nn pair under each engine override, phase 4's plan")
-    run_engines(dev, nn_run, nn_c, nn_ref, totals, errs, times)
+    log("== phase 6: nn pair under each engine override, phase 4's plans")
+    run_engines(dev, nn_runs, nn_c, nn_ref, totals, errs, times, extra)
     log("== phase 7: the probes (spada_tpu_torch.tools)")
     t0 = time.perf_counter()
     run_probes(dev, totals, errs, times, extra)
@@ -1735,8 +1937,13 @@ def main() -> int:
     log("== phase 9: the distributed strategies (spada_tpu_torch.parallel)")
     t0 = time.perf_counter()
     run_distributed(dev, kind, nn_run, nn_c, nn_ref, totals)
-    del nn_run, nn_c, nn_ref
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 10: the planner's calibration and evaluation "
+        "(spada_tpu_torch.tools)")
+    t0 = time.perf_counter()
+    run_calibration(dev, nn_runs, nn_ref, extra, totals)
+    del nn_runs, nn_run, nn_c, nn_ref
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
     check_no_reference("chip_smoke")
     # kernel -> (source, the TPU kernels it carries, bound/library key)
@@ -1787,14 +1994,18 @@ def main() -> int:
                         "plain_ms": times[name][1] * 1e3,
                         "bound_ms": b_s * 1e3, "bound_by": by,
                         "library_ms": lib_s * 1e3})
-    (b_nn, by_nn), (lib_nn, lib_name) = (extra["nn"]["bound"],
-                                         extra["nn"]["library"])
-    log("== the tensor-core kernels on nn (csrc/tile_mma.cuh)")
-    for name in ("tile_spgemm", "tile_stream", "tile_panel", "tile_grid"):
-        log(f"  {name}: {times[name][0] * 1e3:.3f} ms, bound "
-            f"{b_nn * 1e3:.3f} ms ({by_nn}, {b_nn / times[name][0]:.1%} of "
-            f"it), plain {times[name][1] * 1e3:.3f} ms, library {lib_name} "
-            f"{lib_nn * 1e3:.3f} ms")
+    lib_nn, lib_name = extra["nn"]["library"]
+    log(f"== the four tile kernels on nn, phase 4's plans (the kernels "
+        f"line holds the {NN_PLANS[0]} plan's); library {lib_name} "
+        f"{lib_nn * 1e3:.3f} ms")
+    for label, p in extra["nn_plans"].items():
+        b_s, by = p["bound"]
+        log(f"  [{label}] blocks {p['blocks']}; bound {b_s * 1e3:.3f} ms "
+            f"({by})")
+        for name in ("tile_spgemm", *ENGINE_KERNEL.values()):
+            k_s, p_s = p["times"][name]
+            log(f"    {name}: {k_s * 1e3:.3f} ms ({b_s / k_s:.1%} of the "
+                f"bound), plain {p_s * 1e3:.3f} ms")
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s, the "
         f"kernels' build included")
     log(json.dumps({"kernels": kernels}))

@@ -11,9 +11,10 @@
 ``_print_first_rows``, ``_tile_bytes``, ``cmd_traffic`` and ``cmd_breuse``
 are copies of the reference CLI's, held equal to it by
 ``tests/test_torch_host.py``.  The ``run`` mode replaces the roofline
-constants of the config by the datasheet peaks of the card
-(:mod:`spada_tpu_torch.config`) and reports the device time of the
-multiply (:func:`~spada_tpu_torch.ops.spgemm.measure_device_perf`); on the
+constants and the per-item terms of the config by the card's profile (its
+datasheet peaks and the per-item fit for the tile dtype,
+:func:`spada_tpu_torch.config.card_profile`) and reports the device time
+of the multiply (:func:`~spada_tpu_torch.ops.spgemm.measure_device_perf`); on the
 CPU, which has no device time, the wall time of a warm rerun.  ``plan``
 prints the panel plan without executing it; under ``--plan-scheme
 profiled`` (in ``run`` too) the planner times the tile engine on
@@ -37,7 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from spada_tpu_torch.config import SpadaConfig, datasheet_peaks
+from spada_tpu_torch.config import SpadaConfig, card_profile
 from spada_tpu_torch.convert import check_device
 from spada_tpu_torch.io.workloads import GemmWorkload, load_pickled_gemms
 from spada_tpu_torch.ops.spgemm import dispatch_dataflow, spgemm
@@ -372,10 +373,6 @@ def _execute(args):
     device = None
     if args.mode in ("run", "plan"):
         device = check_device(args.device)
-    if args.mode == "run":
-        name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-                else None)
-        config = dataclasses.replace(config, **datasheet_peaks(name))
     config.dataflow = args.dataflow
     if args.fast:
         config.engine_dtype = "bfloat16"
@@ -386,6 +383,11 @@ def _execute(args):
         config.engine_dtype = args.dtype
         if args.dtype == "bfloat16":
             config.precision = "default"
+    if args.mode == "run":
+        name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else None)
+        config = dataclasses.replace(
+            config, **card_profile(name, config.engine_dtype))
     w = load_workload(args, config)
     _print_gemm_stats(w)
     if args.mode == "traffic":

@@ -23,8 +23,12 @@ so the port sets them from NVIDIA's data sheets for the SKU the card names.
 These are PLACEHOLDERS: published peaks (dense, without sparsity, at the
 full power limit), not rates measured on the card.  A benchmark PR is to
 measure them.  The per-item overhead terms (``engine_item_overhead_s``,
-``engine_acc_s_per_elem``, ``engine_item_fixed_s``) keep the defaults of
-``SpadaConfig``: they are not fitted on a GPU yet.
+``engine_acc_s_per_elem``, ``engine_item_fixed_s``), which the planner adds
+per work item beyond those rates, are fitted on an H100 SXM
+(:func:`item_fit`, ``tools/probe_item_overhead.py``), one set per tile
+dtype, with ``acc`` and ``fixed`` held non-negative
+(:func:`fit_item_terms`); the other SKUs take the same values until they
+are measured.
 """
 
 from __future__ import annotations
@@ -207,11 +211,83 @@ def datasheet_peaks(device_name: Optional[str] = None) -> dict:
             "peak_flops_bf16": bf16, "ici_bytes_per_s": link}
 
 
+# The planner's per-item overhead fitted on the card, by tile dtype: seconds
+# per work item by tile edge T, the time of one tile_spgemm launch on
+# banded_csr(65536, 65536, 384) at T x T tiles beyond choose_tile_size's own
+# term for it, over W.  Measured by spada_tpu_torch/tools/probe_item_overhead.py
+# on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, 2026-10-17.
+_ITEM_FIT = {
+    "float32": {128: 6.131e-08, 256: 5.541e-07, 384: 1.983e-06,
+                512: 4.577e-06},
+    "bfloat16": {128: 1.075e-08, 256: 1.099e-07, 384: 4.187e-07,
+                 512: 9.926e-07},
+}
+
+
+def fit_item_terms(points: dict) -> Tuple[float, float]:
+    """(acc, fixed): the least-squares fit of ``overhead ~= acc * T^2 +
+    fixed`` to ``{T: seconds per item}`` with both terms held >= 0.
+
+    The estimator and the densify scorer charge ``acc * tm * tn + fixed``
+    per item for every panel height.  The card's overhead grows about as
+    T^3, so the unconstrained fit (the reference's ``np.linalg.lstsq``)
+    puts a negative fixed term under it, a negative cost per thin item,
+    and the planner then prefers the thinnest panels.  With two terms the
+    constrained optimum is the best feasible of the fits on each subset of
+    the terms."""
+    t = np.asarray(list(points), np.float64)
+    y = np.asarray(list(points.values()), np.float64)
+    lhs = np.stack([t ** 2, np.ones_like(t)], axis=1)
+    best = None
+    for cols in ((0, 1), (0,), (1,), ()):
+        coef = np.zeros(2)
+        if cols:
+            coef[list(cols)] = np.linalg.lstsq(lhs[:, list(cols)], y,
+                                               rcond=None)[0]
+        if (coef < 0).any():
+            continue
+        sse = float(np.sum((y - lhs @ coef) ** 2))
+        if best is None or sse < best[0]:
+            best = (sse, coef)
+    return float(best[1][0]), float(best[1][1])
+
+
+def item_fit(engine_dtype: str = "float32") -> dict:
+    """The per-item fields of ``SpadaConfig`` fitted on the card for tiles
+    of ``engine_dtype`` ('float32' or 'bfloat16'): the measured overhead by
+    T, and ``acc`` and ``fixed`` from :func:`fit_item_terms`."""
+    if engine_dtype not in _ITEM_FIT:
+        raise ValueError(f"unknown engine_dtype {engine_dtype!r}")
+    per_t = _ITEM_FIT[engine_dtype]
+    acc, fixed = fit_item_terms(per_t)
+    return {"engine_item_overhead_s": dict(per_t),
+            "engine_acc_s_per_elem": acc, "engine_item_fixed_s": fixed}
+
+
+def card_profile(device_name: Optional[str] = None,
+                 engine_dtype: str = "float32") -> dict:
+    """The ``SpadaConfig`` fields that describe the card named
+    ``device_name``: its datasheet peaks (:func:`datasheet_peaks`) and the
+    per-item terms fitted for ``engine_dtype`` tiles (:func:`item_fit`)."""
+    return {**datasheet_peaks(device_name), **item_fit(engine_dtype)}
+
+
 def h100_config(device_name: Optional[str] = None,
                 **overrides) -> SpadaConfig:
-    """``SpadaConfig`` with the card's datasheet roofline (placeholders until
-    measured), then ``overrides``."""
-    return SpadaConfig(**{**datasheet_peaks(device_name), **overrides})
+    """``SpadaConfig`` with the card's profile (:func:`card_profile`: the
+    datasheet roofline, placeholders until measured, and the per-item terms
+    fitted for the tile dtype, ``overrides``' ``engine_dtype`` or
+    'float32'), then ``overrides``.
+
+    Under these terms ``choose_tile_size`` takes T = 128 on most pairs (the
+    card's per-item overhead grows about as T^3).  The per-row-group
+    planner then takes tm = T on dense rows (the bench's nn pair: one
+    tm-128 segment), but tm 32-64 panels on sparse ones (banded, power-law,
+    rmat), which run several times slower on the card than tm = T: the
+    terms are fitted on square tiles and charge a thin item no fixed
+    cost."""
+    dtype = overrides.get("engine_dtype", "float32")
+    return SpadaConfig(**{**card_profile(device_name, dtype), **overrides})
 
 
 def _is_half(dtype) -> bool:

@@ -1,0 +1,334 @@
+"""Adaptive against fixed dataflows, on the card (port of
+``tools/eval_adaptive.py``).
+
+For each workload the tile edge T is ``choose_tile_size``'s under the bf16
+profile, ``h100_config(engine_dtype="bfloat16", precision="default")``
+(the reference's ``SpadaConfig.fast()`` on the card's rates and fit), and
+these rows are timed on CUDA events, engine time only:
+
+- ``tm32`` and ``tm<T>``: one fixed panel height, one ``tile_spgemm``
+  launch of the uniform row worklist;
+- ``panel``: the ``tm<T>`` worklist on ``tile_panel`` (``run_worklist_
+  panel``; the same prepared launch, ``prepare_worklist(engine="panel")``,
+  is timed);
+- ``tm<T>+densify <cand>``: the densify planner's layout at T, where it is
+  not the identity;
+- ``spada``: the adaptive per-row-group plan (``plan_spgemm``), the sum of
+  its per-segment ``tile_spgemm`` times as the reference sums them, with
+  ``choose_tile_size``'s ``t_est`` at T beside it;
+- ``element (dispatched)``: where ``dispatch_dataflow`` picks the element
+  side, its one ``esc_stream_group`` launch.
+
+The workloads are the reference's eight at n = 16384 (``--quick``: 8192),
+its generators and seeds, and C = A·A of the graded Q1 FEM
+``fem_q1_graded_csr(round(sqrt(n)) + 1, ...)`` at the default grading 1.05:
+(129, 129), 16,384 nodes (``--quick``: (92, 92), 8,281), the structure the
+per-row-group planner exists for.  The reference's SMEM launch splits and
+``skip(slabs)`` have no counterpart: the kernel takes any worklist.  A row
+whose tiles and C would not fit in the card's free memory prints
+``skip(memory)`` with the bytes it needs; no smaller problem is timed in its
+place.  Every timed C is gated against scipy on its first 2048 rows (bf16
+tiles: 1e-2 of max|C|; the element side 1e-3).  The markdown table goes to
+stdout.  On the CPU the plain versions run and are gated, untimed.
+
+    python -m spada_tpu_torch.tools.eval_adaptive [--quick]
+    python -m spada_tpu_torch.tools.eval_adaptive --device cpu --n 1024
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+
+from spada_tpu_torch.tools.harness import (card_name, device_s,
+                                           element_entry, first_rows_ref,
+                                           fmt_ms, gate, tile_rows)
+
+#: the gate on C's first rows for bf16 tiles, max|d| / max|ref|
+TILE_GATE = 1e-2
+
+
+def fem_edges(n: int) -> int:
+    """Elements per side of the graded FEM row set at eval size ``n``, so
+    that its (edges - 1)^2 interior nodes come nearest n: 129 at 16384
+    (16,384 nodes), 92 at 8192 (8,281)."""
+    return int(round(np.sqrt(n))) + 1
+
+
+def tile_bytes(a_bsr, b_bsr, wl, itemsize: int) -> int:
+    """Device bytes of one tile launch: A and B tiles at ``itemsize``, the
+    f32 C tiles, two ids per item and one pointer per C tile."""
+    tm, tk = a_bsr.tiles.shape[1], a_bsr.tiles.shape[2]
+    tn = b_bsr.tiles.shape[2]
+    return ((a_bsr.tiles.shape[0] * tm * tk + b_bsr.tiles.shape[0] * tk * tn)
+            * itemsize + wl.n_c_tiles * tm * tn * 4
+            + 4 * (2 * wl.n_items + wl.n_c_tiles + 1))
+
+
+def fits(dev, nbytes: int) -> bool:
+    """Whether ``nbytes`` fit in 90% of the card's free memory (always on
+    the CPU)."""
+    if dev.type != "cuda":
+        return True
+    import torch
+
+    torch.cuda.empty_cache()
+    return nbytes <= 0.9 * torch.cuda.mem_get_info(dev)[0]
+
+
+def workloads(n: int) -> Dict[str, tuple]:
+    """{name: (A, B)}: the reference eval's eight pairs at size ``n``, its
+    generators and seeds, then the graded FEM's A·A."""
+    import scipy.sparse as sp
+
+    from spada_tpu_torch.io.workloads import (banded_csr, banded_offset_csr,
+                                              fem_q1_graded_csr,
+                                              localized_powerlaw_csr,
+                                              powerlaw_csr, rmat_csr)
+    from spada_tpu_torch.models.nn_workloads import make_nn_gemms
+    from spada_tpu_torch.sparse.csr import CsrMatrix
+
+    f32 = np.float32
+    # top half banded (fat panels), bottom half power-law (thin panels)
+    mixed_a = CsrMatrix.from_scipy(sp.vstack([
+        banded_csr(n // 2, n, 192, seed=10, dtype=f32).to_scipy(),
+        localized_powerlaw_csr(n // 2, n, 32.0, window_frac=0.01,
+                               hub_frac=0.02, seed=11, dtype=f32).to_scipy(),
+    ]).tocsr())
+    out = {
+        "banded": (banded_csr(n, n, 192, seed=0, dtype=f32),
+                   banded_csr(n, n, 192, seed=1, dtype=f32)),
+        "loc-powerlaw": (
+            localized_powerlaw_csr(n, n, 32.0, window_frac=0.01,
+                                   hub_frac=0.02, seed=2, dtype=f32),
+            localized_powerlaw_csr(n, n, 32.0, window_frac=0.01,
+                                   hub_frac=0.02, seed=3, dtype=f32)),
+        "uni-powerlaw": (powerlaw_csr(n, n, 16.0, seed=4, dtype=f32),
+                         powerlaw_csr(n, n, 16.0, seed=5, dtype=f32)),
+        "mixed": (mixed_a,
+                  localized_powerlaw_csr(n, n, 24.0, window_frac=0.01,
+                                         hub_frac=0.02, seed=12, dtype=f32)),
+        "banded-offset": (banded_offset_csr(n, n, 192, 96, seed=6, dtype=f32),
+                          banded_offset_csr(n, n, 192, 96, seed=7,
+                                            dtype=f32)),
+        "rmat": (rmat_csr(n, 12.0, seed=8, dtype=f32),
+                 rmat_csr(n, 12.0, seed=9, dtype=f32)),
+    }
+    for label, blk in (("nn-bert-ffn1", None), ("nn-bert-ffn1-blk32", 32)):
+        g = make_nn_gemms(density=0.1, structured_block=blk,
+                          layers={"bert_ffn1": ((3072, 768), 512)})
+        wa, wb = g["bert_ffn1"]
+        out[label] = (CsrMatrix.from_scipy(wa.astype(f32)),
+                      CsrMatrix.from_scipy(wb.astype(f32)))
+    edges = fem_edges(n)
+    fem = fem_q1_graded_csr(edges, edges, dtype=f32)
+    out[f"fem-graded-{edges}"] = (fem, fem)
+    return out
+
+
+def bf16_config(name: Optional[str], T: Optional[int] = None):
+    """The eval's profile on the card named ``name``; with ``T``, the
+    reference's settings for a chosen tile edge (tk = tn = default_tm = T,
+    the tm choices up to T)."""
+    from spada_tpu_torch.config import h100_config
+
+    if T is None:
+        return h100_config(name, engine_dtype="bfloat16", precision="default")
+    return h100_config(
+        name, engine_dtype="bfloat16", precision="default", tile_k=T,
+        tile_n=T, default_tm=T,
+        tm_choices=tuple(t for t in (32, 64, 128, 256, 384, 512)
+                         if t < T) + (T,))
+
+
+class _Rows:
+    """One workload's rows: {label: (seconds | None | 'skip(memory) ...',
+    work items, model s or None)}."""
+
+    def __init__(self, name: str, log):
+        self.name, self.log = name, log
+        self.rows: Dict[str, tuple] = {}
+
+    def add(self, label: str, s, w: int, model=None, note: str = ""):
+        self.rows[label] = (s, w, model)
+        shown = s if isinstance(s, str) else f"{fmt_ms(s)} ms"
+        self.log(f"{self.name} {label}: {shown} W={w} {note}".rstrip())
+
+
+def _tiles_on(bsr, dev):
+    import torch
+
+    from spada_tpu_torch.convert import bsr_to_torch
+
+    return bsr_to_torch(bsr, dev, torch.bfloat16)
+
+
+def _skip_memory(nbytes: int) -> str:
+    return f"skip(memory): {nbytes / 1e9:.2f} GB"
+
+
+def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
+                  log: Callable[[str], None] = print) -> tuple:
+    """(T, rows) of one workload (see the module docstring)."""
+    import torch
+
+    from spada_tpu_torch.io.workloads import GemmWorkload
+    from spada_tpu_torch.ops.engine import prepare_worklist, run_worklist_panel
+    from spada_tpu_torch.ops.spgemm import dispatch_dataflow
+    from spada_tpu_torch.ops.worklist import build_worklist
+    from spada_tpu_torch.plan.execute import iter_plan_segments
+    from spada_tpu_torch.plan.planner import choose_tile_size, plan_spgemm
+    from spada_tpu_torch.sparse.bsr import BsrMatrix
+
+    card = card_name(dev)
+    T, det = choose_tile_size(a, b, bf16_config(card))
+    cfg = bf16_config(card, T)
+    ref = first_rows_ref(a, b, gate_rows)
+    c_shape = (a.shape[0], b.shape[1])
+    b_bsr = BsrMatrix.from_csr(b, T, T, dtype=np.float32)
+    out = _Rows(name, log)
+
+    def launch(a_bsr, wl, engine="cached"):
+        return prepare_worklist(wl, _tiles_on(a_bsr, dev),
+                                _tiles_on(b_bsr, dev), engine=engine)
+
+    for label, tm in (("tm32", 32), (f"tm{T}", T)):
+        a_bsr = BsrMatrix.from_csr(a, tm, T, dtype=np.float32)
+        wl = build_worklist(a_bsr, b_bsr, order="row")
+        need = tile_bytes(a_bsr, b_bsr, wl, 2)
+        if not fits(dev, need + (need if tm == T else 0)):
+            out.add(label, _skip_memory(need), wl.n_items)
+            continue
+        call = launch(a_bsr, wl)
+        err = gate(tile_rows(call(), wl.c_tile_row, wl.c_tile_col, tm, T,
+                             c_shape, gate_rows), ref, TILE_GATE,
+                   f"{name} {label}")
+        out.add(label, device_s(call, dev), wl.n_items,
+                note=f"gate {err:.1e}")
+        del call
+        if tm == T:
+            a_t, b_t = _tiles_on(a_bsr, dev), _tiles_on(b_bsr, dev)
+            c = run_worklist_panel(a_t, b_t, wl.a_tid, wl.b_tid, wl.o_tid,
+                                   wl.n_c_tiles)[0]
+            err = gate(tile_rows(c, wl.c_tile_row, wl.c_tile_col, T, T,
+                                 c_shape, gate_rows), ref, TILE_GATE,
+                       f"{name} panel")
+            del c
+            call = prepare_worklist(wl, a_t, b_t, engine="panel")
+            out.add("panel", device_s(call, dev), wl.n_items,
+                    note=f"gate {err:.1e}")
+            del call, a_t, b_t
+
+    w2, dplan = GemmWorkload(name, a, b).preprocess_densified(
+        cfg, tm=T, tk=T, tn=T)
+    if dplan.is_identity:
+        log(f"{name} densify: identity (already aligned)")
+    else:
+        label = f"tm{T}+densify {dplan.candidate}"
+        a2 = BsrMatrix.from_csr(w2.a, T, T, dtype=np.float32)
+        b2 = BsrMatrix.from_csr(w2.b, T, T, dtype=np.float32)
+        wl = build_worklist(a2, b2, order="row")
+        need = tile_bytes(a2, b2, wl, 2)
+        if not fits(dev, need):
+            out.add(label, _skip_memory(need), wl.n_items)
+        else:
+            call = prepare_worklist(wl, _tiles_on(a2, dev),
+                                    _tiles_on(b2, dev), engine="cached")
+            err = gate(tile_rows(call(), wl.c_tile_row, wl.c_tile_col, T, T,
+                                 (w2.a.shape[0], w2.b.shape[1]), gate_rows),
+                       first_rows_ref(w2.a, w2.b, gate_rows), TILE_GATE,
+                       f"{name} {label}")
+            out.add(label, device_s(call, dev), wl.n_items,
+                    note=f"gate {err:.1e}")
+            del call
+
+    plan = plan_spgemm(a, b, cfg)
+    segs = list(iter_plan_segments(a, b_bsr, plan))
+    need = sum(tile_bytes(a_bsr, b_bsr, wl, 2) for *_, a_bsr, wl in segs)
+    W = sum(wl.n_items for *_, wl in segs)
+    if not fits(dev, need):
+        out.add("spada", _skip_memory(need), W, det[T]["t_est"])
+    else:
+        total, got = 0.0, None
+        for tm, _, bases, a_bsr, wl in segs:
+            call = launch(a_bsr, wl)
+            part = tile_rows(call(), wl.c_tile_row, wl.c_tile_col, tm, T,
+                             c_shape, gate_rows, bases)
+            got = part if got is None else got + part
+            s = device_s(call, dev)
+            total = None if s is None else total + s
+            del call
+        err = gate(got, ref, TILE_GATE, f"{name} spada")
+        out.add("spada", total, W, det[T]["t_est"],
+                note=f"(tm hist {plan.tm_histogram()}) gate {err:.1e}")
+
+    choice, ddet = dispatch_dataflow(a, b, cfg)
+    if choice == "element":
+        calls, csr = element_entry(a, b, dev, cap=cfg.element_cap)
+        err = gate(csr[:gate_rows], ref, 1e-3, f"{name} element")
+        e = ddet["element"]["e_products"]
+        out.add("element (dispatched)",
+                device_s(lambda: [c() for c in calls], dev), e,
+                note=f"E={e} gate {err:.1e}")
+        del calls, csr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return T, out.rows
+
+
+def run(n: int = 16384, device="cuda", gate_rows: int = 2048,
+        log: Callable[[str], None] = print) -> list:
+    """[(workload, T, rows)] of every workload at size ``n``; prints the
+    markdown table."""
+    from spada_tpu_torch.convert import check_device
+
+    dev = check_device(device)
+    t0 = time.perf_counter()
+    sets = workloads(n)
+    log(f"workloads at n={n} generated in {time.perf_counter() - t0:.1f} s;"
+        f" card {card_name(dev) or 'none (cpu)'}")
+    results = []
+    for name, (a, b) in sets.items():
+        t0 = time.perf_counter()
+        T, rows = eval_workload(name, a, b, dev, gate_rows, log)
+        results.append((name, T, rows))
+        log(f"{name}: {time.perf_counter() - t0:.1f} s host+device")
+    log(report(results, n, card_name(dev)))
+    return results
+
+
+def report(results, n: int, card: Optional[str]) -> str:
+    """The reference's markdown, one table per workload, with the model's
+    ms beside ``spada``."""
+    lines = [f"# EVAL — adaptive planner vs fixed panel heights "
+             f"({card or 'CPU: not timed'})", "",
+             f"n={n}; engine time (bf16 tiles, f32 C), CUDA events; W = tile "
+             "products issued (element: scalar products).", ""]
+    for name, T, rows in results:
+        lines += [f"## {name}  (tile={T})", "",
+                  "| setting | engine ms | work items | model ms |",
+                  "|---|---|---|---|"]
+        for label, (s, w, model) in rows.items():
+            shown = s if isinstance(s, str) else fmt_ms(s)
+            lines.append(f"| {label} | {shown} | {w} | "
+                         f"{'' if model is None else fmt_ms(model)} |")
+        lines.append("")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--quick", action="store_true", help="n = 8192")
+    p.add_argument("--n", type=int, default=None, help="matrix size")
+    args = p.parse_args(argv)
+    run(args.n or (8192 if args.quick else 16384), device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -58,7 +58,13 @@ def test_package_modules_listed():
                  "spada_tpu_torch.tools.probe_kernel",
                  "spada_tpu_torch.tools.probe_manual",
                  "spada_tpu_torch.tools.probe_panel3d",
-                 "spada_tpu_torch.tools.probe_pallas_stream"):
+                 "spada_tpu_torch.tools.probe_pallas_stream",
+                 # the planner's calibration and evaluation tools
+                 "spada_tpu_torch.tools.harness",
+                 "spada_tpu_torch.tools.probe_item_overhead",
+                 "spada_tpu_torch.tools.probe_dispatch_crossover",
+                 "spada_tpu_torch.tools.eval_adaptive",
+                 "spada_tpu_torch.tools.bench_value_refresh"):
         assert name in mods
 
 

@@ -299,11 +299,38 @@ def test_h100_profile():
             cfg.peak_flops_bf16) == (3.35e12, 67e12, 989e12)
     assert datasheet_peaks("NVIDIA H100 PCIe")["hbm_bytes_per_s"] == 2.0e12
     assert datasheet_peaks("NVIDIA H200")["hbm_bytes_per_s"] == 4.8e12
-    # everything else keeps the SpadaConfig defaults
-    base = dataclasses.asdict(h100_config(tile_k=256))
+    # the per-item terms are the card's fit for the tile dtype
+    # (tools/probe_item_overhead.py on an H100 80GB HBM3 at 700 W), acc and
+    # fixed held >= 0 (the lstsq fit's fixed term is negative)
+    assert cfg.engine_item_overhead_s == {128: 6.131e-08, 256: 5.541e-07,
+                                          384: 1.983e-06, 512: 4.577e-06}
+    assert cfg.engine_acc_s_per_elem == pytest.approx(1.6096162e-11,
+                                                      rel=1e-7)
+    assert cfg.engine_item_fixed_s == 0.0
+    bf16 = h100_config(engine_dtype="bfloat16")
+    assert bf16.engine_item_overhead_s == {128: 1.075e-08, 256: 1.099e-07,
+                                           384: 4.187e-07, 512: 9.926e-07}
+    assert bf16.engine_acc_s_per_elem == pytest.approx(3.4655986e-12,
+                                                       rel=1e-7)
+    assert bf16.engine_item_fixed_s == 0.0
+    # an explicit override wins; everything else keeps the SpadaConfig
+    # defaults
+    mine = {128: 1e-7}
+    over = h100_config(tile_k=256, engine_item_overhead_s=mine,
+                       engine_item_fixed_s=5e-8)
+    assert over.engine_item_overhead_s == mine
+    assert over.engine_item_fixed_s == 5e-8
+    assert over.engine_acc_s_per_elem == cfg.engine_acc_s_per_elem
+    base = dataclasses.asdict(over)
     assert base["tile_k"] == 256
-    assert base["engine_item_overhead_s"] == dataclasses.asdict(
-        SpadaConfig())["engine_item_overhead_s"]
+    for key, value in dataclasses.asdict(SpadaConfig()).items():
+        if key not in ("tile_k", "hbm_bytes_per_s", "peak_flops_f32",
+                       "peak_flops_bf16", "ici_bytes_per_s",
+                       "engine_item_overhead_s", "engine_acc_s_per_elem",
+                       "engine_item_fixed_s"):
+            assert base[key] == value, key
+    with pytest.raises(ValueError, match="engine_dtype"):
+        h100_config(engine_dtype="float16")
 
 
 def test_cuda_time_needs_a_device():
