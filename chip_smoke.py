@@ -11,11 +11,13 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
 
 1. environment: versions, the card's name and power limit, nvcc, build time,
    and the HMMA (tensor-core) instructions of the tensor-core kernels of
-   ``tile_spgemm``, ``tile_stream``, ``tile_panel``, ``tile_grid`` and
-   ``tile_probe_mma`` (``cuobjdump -sass``): a kernel with none, or a
+   ``tile_spgemm`` (its wide and its thin block), ``tile_stream``,
+   ``tile_panel``, ``tile_grid`` and ``tile_probe_mma``
+   (``cuobjdump -sass``): a kernel with none, or a
    toolkit without cuobjdump, fails the run;
 2. each kernel against its plain PyTorch version on the card
-   (``tile_spgemm``, both block shapes, and ``tile_stream`` with ogroup 1
+   (``tile_spgemm`` at tm 8-512, tn = tk in {128, 512}: its wide and thin
+   tensor-core blocks; ``tile_stream`` with ogroup 1
    and 8, ``tile_panel`` with f32 and bf16 output, ``tile_grid``:
    max|d|/max|ref| <= 1e-5, the bf16 output its own f32 output rounded
    once and within one bf16 ulp plus 1e-5 of max|ref| of the plain value,
@@ -40,7 +42,14 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    it runs on; ``measure_device_perf`` on the run's ``host_state`` within
    10% of the sum of those kernel times, its shares at most 100%; then (4b) ``spgemm_csr`` on the pair in 4 output slabs of
    64 MB of C tiles, one ``tile_spgemm`` launch each, gated the same way,
-   its peak device memory beside a one-shot ``spgemm``'s;
+   its peak device memory beside a one-shot ``spgemm``'s; then (4c) the
+   thin-panel sweep (``tools/sweep_thin``): the banded 32768^2 pair
+   (band 384) at T = 128 in uniform row panels of tm 8, 16, 32, 64 and
+   128, f32 and bf16 tiles, one ``tile_spgemm`` launch per case, each
+   against its plain version (<= 1e-5) and scipy (f32 < 1e-4, bf16 <
+   1e-2), printed with its block, ms, W, ns per item, bound, and one
+   ``torch.bmm`` of 16384 gathered item pairs as ns per item (for the f32
+   tm-64 case of the kernels line also one of all W pairs, in ms);
 5. the localized power-law pair (65536^2, degree 32): dispatched to the
    element side, one grouped launch per multiply and no per-class launch,
    gated against scipy on 2048 rows (< 1e-3); on every class the per-class
@@ -123,8 +132,9 @@ f32 products 67 TFLOP/s outside the tensor cores), and the bytes it must
 move (inputs read once, output written once) over 3.35 TB/s.  It also times one PyTorch call that computes the same
 function: ``torch.matmul`` of the dense operands for the tile kernels
 (cuBLAS; f32 with TF32 off for nn, bf16 in and f32 out for the probe's
-banded pair), ``torch.mul`` and ``torch.linalg.vecdot`` for the stream
-kernels.
+banded pair), ``torch.bmm`` of the W gathered item pairs of the sweep's
+f32 tm-64 case for the thin block, ``torch.mul`` and
+``torch.linalg.vecdot`` for the stream kernels.
 
 Every kernel wrapper counts its launches; the counts are cleared right
 before each main-path run and read right after it.  The script prints one
@@ -251,9 +261,10 @@ def host_enqueue_s(fn, reps: int = 5) -> float:
 
 
 #: the kernels that must run on tensor cores: the wide path of the four
-#: main-path tile kernels and the probe's build of it (csrc/tile_mma.cuh)
-MMA_KERNELS = ("tile_spgemm_mma", "tile_stream_mma", "tile_panel_mma",
-               "tile_grid_mma", "tile_probe_mma")
+#: main-path tile kernels and the probe's build of it (csrc/tile_mma.cuh),
+#: and tile_spgemm's thin path (csrc/tile_mma_thin.cuh)
+MMA_KERNELS = ("tile_spgemm_mma", "tile_spgemm_thin", "tile_stream_mma",
+               "tile_panel_mma", "tile_grid_mma", "tile_probe_mma")
 
 
 def check_tensor_cores() -> None:
@@ -284,7 +295,8 @@ def check_kernels(dev, errs: dict) -> None:
                                                     esc_stream_mul_reference,
                                                     esc_stream_red,
                                                     esc_stream_red_reference)
-    from spada_tpu_torch.ops.engine import run_worklist_reference, tile_spgemm
+    from spada_tpu_torch.ops.engine import (run_worklist_reference,
+                                            tile_block, tile_spgemm)
 
     rng = np.random.default_rng(0)
     runs = np.array([3, 0, 1, 4, 2, 0])     # items per C tile; 0 = empty run
@@ -292,7 +304,7 @@ def check_kernels(dev, errs: dict) -> None:
     o_ids = np.repeat(np.arange(n_c), runs).astype(np.int32)
     empty = torch.from_numpy(runs == 0)
     for tk in (128, 512):
-        for tm in (8, 32, 64, 128, 512):
+        for tm in (8, 16, 32, 64, 128, 512):
             for dtype in (torch.float32, torch.bfloat16):
                 a = torch.from_numpy(rng.standard_normal(
                     (5, tm, tk), np.float32)).to(dev, dtype)
@@ -309,14 +321,17 @@ def check_kernels(dev, errs: dict) -> None:
                 torch.cuda.synchronize()
                 g, r = got.cpu().numpy(), ref.cpu().numpy()
                 err = relerr(g, r)
+                block = tile_block(tm, tk, tk, dtype)
                 log(f"  tile_spgemm tm={tm:3d} tk=tn={tk} "
-                    f"{str(dtype)[6:]:8s} max|d|/max|ref|={err:.2e}")
+                    f"{str(dtype)[6:]:8s} on {block:8s} "
+                    f"max|d|/max|ref|={err:.2e}")
                 require(err <= 1e-5, f"tile_spgemm tm={tm} tk={tk} {dtype}: "
                         f"relerr {err:.3e} > 1e-5")
                 require(bool((got[empty.to(dev)] == 0).all()),
                         "tile_spgemm: an empty run gave a nonzero tile")
-                errs["tile_spgemm"] = max(errs["tile_spgemm"],
-                                          float(np.abs(g - r).max()))
+                key = ("tile_spgemm_thin" if block == "mma_thin"
+                       else "tile_spgemm")
+                errs[key] = max(errs[key], float(np.abs(g - r).max()))
 
     check_engine_kernels(dev, errs, rng)
 
@@ -546,17 +561,10 @@ def run_cari_plans(dev, totals: dict) -> None:
 NN_PLANS = ("fit", "v5e terms")
 
 
-def tile_block(tm: int, tk: int, tn: int, dtype) -> str:
-    """The block the four tile kernels run tm x tk x tn tiles of ``dtype``
-    on (``csrc/tile_spgemm.cu``'s launch rule)."""
-    if tm % 128 == 0 and tn % 128 == 0:
-        if tk % (64 if "bfloat16" in str(dtype) else 32) == 0:
-            return "mma (tile_mma.cuh)"
-        return "wide SIMT (tile_wide.cuh)"
-    return f"narrow BM={min(tm, 64)} (tile_pipe.cuh)"
-
-
 def plan_blocks(run) -> str:
+    """The block tile_spgemm runs each tm of ``run``'s plan on."""
+    from spada_tpu_torch.ops.engine import tile_block
+
     tk, tn = run.result.host_state["tk"], run.result.host_state["tn"]
     return ", ".join(sorted({
         f"tm {tm}: {tile_block(tm, tk, tn, a_np.dtype)}"
@@ -571,7 +579,8 @@ def nn_segments(dev, run, kind, errs: dict, label: str) -> tuple:
 
     from spada_tpu_torch.config import roofline_bound, tile_work
     from spada_tpu_torch.convert import worklist_to_torch
-    from spada_tpu_torch.ops.engine import run_worklist_reference, tile_spgemm
+    from spada_tpu_torch.ops.engine import (run_worklist_reference,
+                                            tile_block, tile_spgemm)
 
     t_kernel = t_plain = 0.0
     bounds = []
@@ -756,6 +765,50 @@ def run_spgemm_csr(dev, run, ref_rows, totals: dict,
     require(err < 1e-4, f"spgemm_csr gate failed: relerr {err:.3e}")
     del csr
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# phase 4c: the thin-panel sweep
+# --------------------------------------------------------------------------
+
+#: the phase 4c case whose numbers the kernels line gives for
+#: tile_spgemm_thin: cari's panel height (T = 128, tm 64) and the main
+#: path's tile dtype
+THIN_LINE_CASE = ("float32", 64)
+
+
+def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
+                   extra: dict) -> None:
+    """tools/sweep_thin on the banded 32768^2 pair at T = 128: one
+    tile_spgemm launch per (dtype, tm), each gated and timed; every tm
+    below 128 on the thin block, tm 128 on the wide one."""
+    from spada_tpu_torch.tools import sweep_thin
+
+    def say(text):
+        for line in text.splitlines():
+            log("  " + line)
+
+    t0 = time.perf_counter()
+    with main_path(totals) as counts:
+        rows = sweep_thin.run(n=32768, device=dev, gate_rows=GATE_ROWS,
+                              lib_whole=(THIN_LINE_CASE,), log=say)
+    thin = [r for r in rows if r["tm"] < 128]
+    require(all(r["block"] == "mma_thin" for r in thin)
+            and all(r["block"] == "mma" for r in rows if r["tm"] == 128),
+            f"phase 4c: blocks {[(r['tm'], r['block']) for r in rows]}")
+    require(counts.get("tile_spgemm", 0) == len(rows)
+            and counts.get("tile_spgemm_thin", 0) == len(thin),
+            f"phase 4c: {len(rows)} cases, {len(thin)} thin, launches "
+            f"{counts}")
+    errs["tile_spgemm_thin"] = max(errs["tile_spgemm_thin"],
+                                   max(r["plain_abs_err"] for r in thin))
+    r = next(r for r in rows if (r["dtype"], r["tm"]) == THIN_LINE_CASE)
+    times["tile_spgemm_thin"] = (r["ms"] * 1e-3, r["plain_ms"] * 1e-3)
+    extra["thin"] = {"bound": (r["bound_ms"] * 1e-3, r["bound_by"]),
+                     "library": (r["lib_ms"] * 1e-3,
+                                 "torch.bmm of the W gathered item pairs")}
+    log(f"  phase 4c: launches {counts}, {time.perf_counter() - t0:.1f} s, "
+        f"on {smi_name_power()}")
 
 
 # --------------------------------------------------------------------------
@@ -1011,6 +1064,8 @@ def engine_segments(dev, engine: str, kernel: str, host_state: dict,
     ogroup 1 against 8).  Returns (kernel s, plain s)."""
     import torch
 
+    from spada_tpu_torch.ops.engine import tile_block
+
     t_kernel = t_plain = 0.0
     t_og = [0.0, 0.0]  # tile_stream at ogroup 1 and 8
     tk, tn = host_state["tk"], host_state["tn"]
@@ -1028,8 +1083,8 @@ def engine_segments(dev, engine: str, kernel: str, host_state: dict,
         tk_s, tp_s = time_pair(kernel_fn, plain_fn)
         flops = 2 * wl.n_items * tm * tk * tn
         log(f"  [{label}] {kernel} segment tm={tm} tk=tn={tk} on the "
-            f"{tile_block(tm, tk, tn, a_np.dtype)} block: W={wl.n_items} "
-            f"nC={wl.n_c_tiles}  kernel {tk_s * 1e3:.3f} ms "
+            f"{tile_block(tm, tk, tn, a_np.dtype, kernel)} block: "
+            f"W={wl.n_items} nC={wl.n_c_tiles}  kernel {tk_s * 1e3:.3f} ms "
             f"({flops / tk_s / 1e12:.2f} TFLOP/s)  plain "
             f"{tp_s * 1e3:.3f} ms ({flops / tp_s / 1e12:.2f} TFLOP/s)  "
             f"kernel vs plain max|d|/max|ref| {e:.2e}")
@@ -1899,7 +1954,8 @@ def main() -> int:
             log("    " + line.strip())
     check_tensor_cores()
 
-    errs = dict.fromkeys(("tile_spgemm", "tile_stream", "tile_panel",
+    errs = dict.fromkeys(("tile_spgemm", "tile_spgemm_thin", "tile_stream",
+                          "tile_panel",
                           "tile_grid", "esc_stream_mul", "esc_stream_red",
                           "esc_stream_group", "tile_probe", "tile_probe_mma",
                           "esc_stream_mul_blocked",
@@ -1922,6 +1978,9 @@ def main() -> int:
     nn_run = nn_runs[NN_PLANS[0]]
     log("== phase 4b: spgemm_csr on the nn pair, in output slabs")
     run_spgemm_csr(dev, nn_run, nn_ref, totals)
+    log("== phase 4c: the thin-panel sweep (tile_spgemm, T = 128, tm "
+        "8-128)")
+    run_thin_sweep(dev, totals, errs, times, extra)
     log("== phase 5: locpl pair, element side")
     run_locpl(dev, cfg, totals, errs, times, extra)
     log("== phase 6: nn pair under each engine override, phase 4's plans")
@@ -1950,6 +2009,8 @@ def main() -> int:
     sources = {"tile_spgemm": ("spada_tpu_torch/csrc/tile_spgemm.cu",
                                "spada_tpu/ops/engine.py:726, "
                                "tools/probe_panel3d.py:101", "nn"),
+               "tile_spgemm_thin": ("spada_tpu_torch/csrc/tile_spgemm.cu",
+                                    "spada_tpu/ops/engine.py:726", "thin"),
                "tile_stream": ("spada_tpu_torch/csrc/tile_stream.cu",
                                "spada_tpu/ops/engine.py:363", "nn"),
                "tile_panel": ("spada_tpu_torch/csrc/tile_panel.cu",

@@ -43,11 +43,10 @@ build_log: Optional[str] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c, tm, tk, tn, stream
-    "tile_spgemm_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_int, _P],
-    "tile_spgemm_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, _P],
+    # a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c, tm, tk, tn,
+    # block (int* out: the block the launch ran on), stream
+    "tile_spgemm_f32": [_P] * 6 + [_I] * 4 + [_P, _P],
+    "tile_spgemm_bf16": [_P] * 6 + [_I] * 4 + [_P, _P],
     # a, b, out, n, stream
     "esc_stream_mul": [_P, _P, _P, ctypes.c_longlong, _P],
     # a, b, out, L, n_pad, slices, group, stream

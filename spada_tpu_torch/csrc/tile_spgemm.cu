@@ -25,26 +25,38 @@
 // through shared memory, and keeps its part of the accumulator in registers
 // for the whole run, so C is written
 // exactly once and never read.  Tile reuse across C tiles is left to the
-// 50 MB L2 instead of a host slot plan.  Three block shapes:
+// 50 MB L2 instead of a host slot plan.  Four block shapes, tried in this
+// order (ops.engine.tile_block mirrors the rule):
 //   mma    (tm a multiple of 128, tn of 128, tk of 32 f32 / 64 bf16): the
 //          tensor-core block of tile_mma.cuh over the item range
 //          tile_ptr[c] .. tile_ptr[c+1], a 4-stage cp.async ring; f32 tiles
 //          run 3xTF32 (f32-level error), bf16 tiles bf16 mma with f32 sums.
-//          This is the planner's usual shape.
+//          The planner's shape where rows are dense.
+//   thin   (tm in {8, 16, 32} or a multiple of 64 that mma does not take, tn
+//          a multiple of 128, tk of 32 f32 / 64 bf16): the thin tensor-core
+//          block of tile_mma_thin.cuh, a BM x 128 piece (BM = min(tm, 64),
+//          tm = 8 on a 16-row piece), the same arithmetic, a 2-stage (f32)
+//          or 3-stage (bf16) ring.  The row panels the per-row-group
+//          planner picks on sparse rows.
 //   wide   (tm and tn multiples of 128, tk of 8 but not of the mma BK): the
 //          FP32 SIMT block of tile_wide.cuh (128 x 128, 8 x 8 per thread),
 //          which tile_probe.cu also runs; every product and sum an f32 FMA.
-//   narrow (tm in {8, 16, 32} or a multiple of 64, tn a multiple of 64, tk
-//          of 16): BM = min(tm, 64) rows x 64 columns per block, RM x 4 per
-//          thread, BK = 16, one stage, f32 FMAs.
+//   narrow (every other tm in {8, 16, 32} or a multiple of 64, tn a multiple
+//          of 64, tk of 16): BM = min(tm, 64) rows x 64 columns per block,
+//          RM x 4 per thread, BK = 16, one stage, f32 FMAs.
 //
 // Launch: tile_spgemm_f32 / tile_spgemm_bf16 (plain C interface for ctypes)
-// enqueue one kernel on the given stream and return cudaGetLastError().
+// enqueue one kernel on the given stream, write the block it runs on to
+// *block (0 mma, 1 thin, 2 wide, 3 narrow) and return cudaGetLastError().
 
 #include "tile_mma.cuh"
+#include "tile_mma_thin.cuh"
 #include "tile_wide.cuh"
 
 namespace {
+
+// what *block reports: the block a launch ran on
+enum : int { kBlockMma = 0, kBlockThin = 1, kBlockWide = 2, kBlockNarrow = 3 };
 
 using spada::to_f32;
 
@@ -67,6 +79,20 @@ __global__ void __launch_bounds__(spada::mma::kThreads, 1)
       tile_ptr[c + 1], c, c + 1,
       spada::mma::Store<float>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn,
       p.row0, p.col0, smem);
+}
+
+// ---- thin: BM x 128 of one C tile per block, tensor cores -----------------
+template <typename T, int BM>
+__global__ void __launch_bounds__(32 * spada::thin::kWarpsN)
+    tile_spgemm_thin(const T* __restrict__ a_tiles,
+                     const T* __restrict__ b_tiles,
+                     const int32_t* __restrict__ a_tid,
+                     const int32_t* __restrict__ b_tid,
+                     const int32_t* __restrict__ tile_ptr,
+                     float* __restrict__ c_tiles, int tm, int tk, int tn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  spada::thin::tile_piece<T, BM>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr,
+                                 c_tiles, tm, tk, tn, smem);
 }
 
 // ---- wide: 128 x 128 of one C tile per block, 256 threads -----------------
@@ -164,7 +190,7 @@ __global__ void __launch_bounds__((BM / RM) * (kNarrowBN / kNarrowTN))
 template <typename T>
 int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
            const void* b_tid, const void* tile_ptr, void* c_tiles, int n_c,
-           int tm, int tk, int tn, void* stream) {
+           int tm, int tk, int tn, int* block, void* stream) {
   if (n_c <= 0 || tm <= 0 || tk <= 0 || tn <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -175,6 +201,7 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
   const int32_t* tp = static_cast<const int32_t*>(tile_ptr);
   float* c = static_cast<float*>(c_tiles);
   if (spada::mma::takes<T>(tm, tk, tn)) {
+    *block = kBlockMma;
     const size_t smem = kStages * spada::mma::Stage<T>::kBytes;
     const int err = spada::allow_smem(tile_spgemm_mma<T>, smem);
     if (err) return err;
@@ -182,7 +209,22 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
                          smem, s>>>(a, b, ai, bi, tp, c, tm, tk, tn);
     return (int)cudaGetLastError();
   }
+  if (spada::thin::takes<T>(tm, tk, tn)) {
+    *block = kBlockThin;
+    return spada::thin::with_rows(tm, [&](auto rows) {
+      constexpr int BM = decltype(rows)::value;
+      using S = spada::thin::Shape<T, BM>;
+      const size_t smem = spada::thin::kStages<T> * S::kBytes;
+      const int err = spada::allow_smem(tile_spgemm_thin<T, BM>, smem);
+      if (err) return err;
+      tile_spgemm_thin<T, BM>
+          <<<spada::thin::grid(n_c, tm, tn), S::kThreads, smem, s>>>(
+              a, b, ai, bi, tp, c, tm, tk, tn);
+      return (int)cudaGetLastError();
+    });
+  }
   if (tm % kWide == 0 && tn % kWide == 0 && tk % kWideBK == 0) {
+    *block = kBlockWide;
     const dim3 grid(n_c, tm / kWide, tn / kWide);
     tile_spgemm_wide<T><<<grid, 256, 0, s>>>(a, b, ai, bi, tp, c, tm, tk, tn);
     return (int)cudaGetLastError();
@@ -193,6 +235,7 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
   const int bm = tm < 64 ? tm : 64;
   if (tm % bm != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(n_c, tm / bm, tn / kNarrowBN);
+  *block = kBlockNarrow;
   switch (bm) {
     case 8:
       tile_spgemm_narrow<T, 8, 1>
@@ -221,17 +264,19 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
 extern "C" int tile_spgemm_f32(const void* a_tiles, const void* b_tiles,
                                const void* a_tid, const void* b_tid,
                                const void* tile_ptr, void* c_tiles, int n_c,
-                               int tm, int tk, int tn, void* stream) {
+                               int tm, int tk, int tn, int* block,
+                               void* stream) {
   return launch<float>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c,
-                       tm, tk, tn, stream);
+                       tm, tk, tn, block, stream);
 }
 
 extern "C" int tile_spgemm_bf16(const void* a_tiles, const void* b_tiles,
                                 const void* a_tid, const void* b_tid,
                                 const void* tile_ptr, void* c_tiles, int n_c,
-                                int tm, int tk, int tn, void* stream) {
+                                int tm, int tk, int tn, int* block,
+                                void* stream) {
   return launch<__nv_bfloat16>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr,
-                               c_tiles, n_c, tm, tk, tn, stream);
+                               c_tiles, n_c, tm, tk, tn, block, stream);
 }
 
 // The name of a CUDA error code, for the Python wrappers' exceptions.

@@ -31,8 +31,11 @@ tile dtype (``SpadaConfig.engine_dtype``) is what selects bf16.  In all
 four kernels the wide tiles (tm and tn multiples of 128, tk of 32 f32 / 64
 bf16) run on tensor cores (``csrc/tile_mma.cuh``): f32 tiles as 3xTF32
 (each operand split into two TF32 parts, three products summed in f32,
-small terms first), bf16 tiles as bf16 ``mma`` with f32 sums.  Their other
-shapes widen bf16 and run FP32 FMAs; the plain versions run f32 ``bmm``
+small terms first), bf16 tiles as bf16 ``mma`` with f32 sums;
+:func:`tile_spgemm` runs the planner's thin row panels (tm 8-64) the same
+way (``csrc/tile_mma_thin.cuh``).  :func:`tile_block` names the block a
+shape runs on.  The other shapes widen bf16 and run FP32 FMAs; the plain
+versions run f32 ``bmm``
 (TF32 off).  On a CUDA device an engine runs its kernel or raises: none
 falls back to another engine or to the CPU.  The reference's TPU reroutes
 (``precision='highest'`` to XLA, large ids to streaming) and its item
@@ -41,6 +44,7 @@ splits are not copied.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Optional
 
 import numpy as np
@@ -52,15 +56,46 @@ from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
 _PRECISIONS = ("highest", "default")
 _ENGINES = ("cached", "streaming", "panel", "pallas_grid", "xla")
 _TILE_DTYPES = (torch.float32, torch.bfloat16)
+#: the block csrc/tile_spgemm.cu's launch() reports, by its number
+_SPGEMM_BLOCKS = ("mma", "mma_thin", "wide_simt", "narrow_simt")
 
 
-def _kernel_takes(tm: int, tk: int, tn: int) -> bool:
-    """The tile shapes one of the kernels' block shapes covers
-    (``csrc/tile_pipe.cuh``: wide 128 x 128 blocks, narrow BM x 64)."""
-    if tm % 128 == 0 and tn % 128 == 0 and tk % 8 == 0:
-        return True
-    return ((tm in (8, 16, 32) or tm % 64 == 0) and tm > 0
-            and tn % 64 == 0 and tk % 16 == 0)
+def tile_block(tm: int, tk: int, tn: int, dtype,
+               kernel: str = "tile_spgemm") -> str:
+    """The block a tile kernel runs tm x tk x tn tiles of ``dtype`` (f32 or
+    bf16, as a torch or numpy dtype or its name) on, tried in this order:
+
+    - ``"mma"``: the tensor-core block (``csrc/tile_mma.cuh``): tm and tn
+      multiples of 128, tk of 32 (f32) or 64 (bf16);
+    - ``"mma_thin"``: the thin tensor-core block
+      (``csrc/tile_mma_thin.cuh``), ``tile_spgemm`` only: tm in {8, 16, 32}
+      or a multiple of 64 that ``"mma"`` does not take, tn a multiple of
+      128, tk of 32 / 64;
+    - ``"wide_simt"``: the FP32 SIMT block (``csrc/tile_wide.cuh``): tm and
+      tn multiples of 128, tk of 8;
+    - ``"narrow_simt"``: FP32 SIMT blocks of min(tm, 64) rows: tm in {8, 16,
+      32} or a multiple of 64, tn a multiple of 64, tk of 16.
+
+    ``kernel`` is ``"tile_spgemm"`` (``csrc/tile_spgemm.cu``'s ``launch``)
+    or one of ``"tile_stream"``, ``"tile_panel"``, ``"tile_grid"``, which
+    run the thin shapes on their SIMT blocks.  Raises ``ValueError`` for a
+    shape no block takes."""
+    bk = 64 if "bfloat16" in str(dtype) else 32
+    rows = tm in (8, 16, 32) or (tm > 0 and tm % 64 == 0)
+    if tm > 0 and tn > 0 and tk > 0:
+        if tn % 128 == 0 and tk % bk == 0:
+            if tm % 128 == 0:
+                return "mma"
+            if rows and kernel == "tile_spgemm":
+                return "mma_thin"
+        if tm % 128 == 0 and tn % 128 == 0 and tk % 8 == 0:
+            return "wide_simt"
+        if rows and tn % 64 == 0 and tk % 16 == 0:
+            return "narrow_simt"
+    raise ValueError(
+        f"{kernel} takes tm, tn multiples of 128 and tk of 8, or tm in "
+        f"{{8, 16, 32}} or a multiple of 64, tn a multiple of 64 and tk "
+        f"of 16; got tm={tm} tk={tk} tn={tn}")
 
 
 def select_engine(order: str = "row", use_pallas: Optional[bool] = None
@@ -385,9 +420,14 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     ``a_tiles`` [nA, tm, tk] and ``b_tiles`` [nB, tk, tn] (f32 or bf16),
     ``a_tid``/``b_tid`` int32 [W], ``tile_ptr`` int32 [nC + 1] (C tile c's
     items are ``tile_ptr[c]:tile_ptr[c+1]``; an empty run gives a zero
-    tile).  CUDA tensors run ``csrc/tile_spgemm.cu``: wide tiles on tensor
-    cores (f32 as 3xTF32, bf16 as bf16 ``mma``, f32 sums), other shapes on
-    FP32 FMAs.
+    tile).  CUDA tensors run ``csrc/tile_spgemm.cu`` on the block
+    :func:`tile_block` names: wide tiles (``"mma"``) and the planner's thin
+    row panels, tm 8-64 (``"mma_thin"``), on tensor cores (f32 as 3xTF32,
+    bf16 as bf16 ``mma``, f32 sums); tk not a multiple of the tensor-core
+    k-slice (32 f32, 64 bf16) or tn not of 128 on FP32 FMAs.  Every launch
+    counts as ``"tile_spgemm"`` in ``_build.launches``, and a launch of
+    the thin block also as ``"tile_spgemm_thin"``: the kernel reports the
+    block it ran on, and a block other than :func:`tile_block`'s raises.
     """
     _check_tile_args("tile_spgemm", a_tiles, b_tiles, 2, a_tid=a_tid,
                      b_tid=b_tid, tile_ptr=tile_ptr)
@@ -399,15 +439,24 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
             _run_o_ids(tile_ptr, a_tid.shape[0]), n_c)
     c = torch.empty((n_c, tm, tn), dtype=torch.float32,
                     device=a_tiles.device)
-    if not _has_work("tile_spgemm", n_c, a_tid.shape[0], tm, tk, tn):
+    block = _has_work("tile_spgemm", n_c, a_tid.shape[0], tm, tk, tn,
+                      a_tiles.dtype)
+    if block is None:
         return c.zero_()
     lib = _build.load()
     fn = (lib.tile_spgemm_f32 if a_tiles.dtype == torch.float32
           else lib.tile_spgemm_bf16)
+    ran = ctypes.c_int(-1)
     _launched("tile_spgemm", fn(
         a_tiles.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
         b_tid.data_ptr(), tile_ptr.data_ptr(), c.data_ptr(), n_c, tm, tk, tn,
-        _build.current_stream(a_tiles)))
+        ctypes.byref(ran), _build.current_stream(a_tiles)))
+    if _SPGEMM_BLOCKS[ran.value] != block:
+        raise RuntimeError(
+            f"tile_spgemm: tm={tm} tk={tk} tn={tn} ran on the "
+            f"{_SPGEMM_BLOCKS[ran.value]} block, tile_block names {block}")
+    if block == "mma_thin":
+        _build.launches["tile_spgemm_thin"] += 1
     return c
 
 
@@ -523,17 +572,13 @@ def tile_grid(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
 
 
 def _has_work(kernel: str, n_c: int, n_items: int, tm: int, tk: int,
-              tn: int) -> bool:
-    """Whether a launch is needed; raises for tiles no block shape takes.
-    An empty grid is a launch error, and no items means zero tiles."""
+              tn: int, dtype=torch.float32) -> Optional[str]:
+    """The block a launch runs on (:func:`tile_block`), or None where no
+    launch is needed; raises for tiles no block shape takes.  An empty grid
+    is a launch error, and no items means zero tiles."""
     if n_c == 0 or n_items == 0 or 0 in (tm, tk, tn):
-        return False
-    if not _kernel_takes(tm, tk, tn):
-        raise ValueError(
-            f"{kernel} takes tm, tn multiples of 128 and tk of 8, or tm in "
-            f"{{8, 16, 32}} or a multiple of 64, tn a multiple of 64 and tk "
-            f"of 16; got tm={tm} tk={tk} tn={tn}")
-    return True
+        return None
+    return tile_block(tm, tk, tn, dtype, kernel)
 
 
 def _launched(kernel: str, status: int) -> None:

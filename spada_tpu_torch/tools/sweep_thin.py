@@ -1,0 +1,208 @@
+"""The thin-panel sweep: ``tile_spgemm`` on uniform row panels of height 8
+to 128, the heights the per-row-group planner picks among
+(``config.tm_choices``).
+
+Input: ``banded_csr(n, n, 384, seed=0 / 1)`` (the pair of
+``probe_item_overhead``), B in T x T tiles, A in tm x T tiles for each tm
+of :data:`TMS`, one row worklist per tm, f32 and bf16 tiles.  Each case is
+one ``tile_spgemm`` launch (:func:`~spada_tpu_torch.ops.engine.prepare_cached`),
+gated against its plain version (1e-5 of max|C|) and against scipy on C's
+first 2048 rows (f32 tiles 1e-4, bf16 1e-2), then timed on CUDA events
+(``utils.timing.cuda_time``) beside:
+
+- the block it ran on (:func:`~spada_tpu_torch.ops.engine.tile_block`);
+- W, the ns per item, and the bound (``config.roofline_bound`` on
+  ``config.tile_work``: the pair's useful products, each tile read once, C
+  written once);
+- the plain version's time;
+- the library call: ``torch.bmm`` of :data:`LIB_ITEMS` (A, B) item pairs
+  gathered beforehand, in the tile dtype (cuBLAS, TF32 off), as ns per item;
+  for the cases of ``lib_whole`` also one ``torch.bmm`` of all W pairs, in
+  ms.
+
+Timing launches are taken back out of ``_build.launches``, so a run counts
+one ``tile_spgemm`` launch per case.  On the CPU the plain versions run and
+are gated, not timed.
+
+    python -m spada_tpu_torch.tools.sweep_thin
+    python -m spada_tpu_torch.tools.sweep_thin --device cpu --n 2048
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from spada_tpu_torch import _build
+from spada_tpu_torch.tools.harness import (card_name, device_s,
+                                           first_rows_ref, gate, tile_rows)
+
+TMS = (8, 16, 32, 64, 128)
+DTYPES = ("float32", "bfloat16")
+#: the gate on C's first rows, max|d| / max|ref|, by tile dtype
+GATE = {"float32": 1e-4, "bfloat16": 1e-2}
+#: the gate of a kernel against its plain version, of max|C|
+PLAIN_TOL = 1e-5
+#: the item pairs of the library call's per-item time
+LIB_ITEMS = 16384
+
+
+def _uncounted_s(call: Callable, dev) -> Optional[float]:
+    """``device_s(call)`` with its launches taken back out of the counts."""
+    saved = _build.launches.copy()
+    try:
+        return device_s(call, dev)
+    finally:
+        _build.launches.clear()
+        _build.launches.update(saved)
+
+
+def relerr(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
+def run(n: int = 32768, band: int = 384, T: int = 128,
+        tms: Sequence[int] = TMS, dtypes: Sequence[str] = DTYPES,
+        device="cuda", gate_rows: int = 2048,
+        lib_whole: Sequence[tuple] = (),
+        log: Callable[[str], None] = print) -> List[dict]:
+    """Every (dtype, tm) case, gated and (on a card) timed.  Returns one
+    dict per case: dtype, tm, block, W, n_c, ms, ns_item, plain_ms,
+    bound_ms, bound_by, lib_ns_item, lib_ms (the bmm of all W pairs, for
+    the (dtype, tm) cases of ``lib_whole``, else None), plain_err (of
+    max|C|), plain_abs_err, gate_err."""
+    from spada_tpu_torch.config import roofline_bound, tile_work
+    from spada_tpu_torch.convert import (bsr_to_torch, check_device,
+                                         worklist_to_torch)
+    from spada_tpu_torch.io.workloads import banded_csr
+    from spada_tpu_torch.ops.engine import (prepare_cached,
+                                            run_worklist_reference,
+                                            tile_block)
+    from spada_tpu_torch.ops.worklist import build_worklist
+    from spada_tpu_torch.sparse.bsr import BsrMatrix
+    from spada_tpu_torch.utils.timing import cuda_time
+
+    dev = check_device(device)
+    name = card_name(dev)
+    t0 = time.perf_counter()
+    a = banded_csr(n, n, bandwidth=band, seed=0, dtype=np.float32)
+    b = banded_csr(n, n, bandwidth=band, seed=1, dtype=np.float32)
+    ref = first_rows_ref(a, b, gate_rows)
+    b_bsr = BsrMatrix.from_csr(b, T, T, dtype=np.float32)
+    log(f"banded {n}^2, band {band}, T = {T}: nnz {a.nnz} / {b.nnz} "
+        f"({time.perf_counter() - t0:.1f} s host); card {name or 'none (cpu)'}")
+    rows = []
+    for tm in tms:
+        t0 = time.perf_counter()
+        a_bsr = BsrMatrix.from_csr(a, tm, T, dtype=np.float32)
+        wl = build_worklist(a_bsr, b_bsr, order="row")
+        dwl = worklist_to_torch(wl, dev)
+        host_s = time.perf_counter() - t0
+        for dt in dtypes:
+            tdt = getattr(torch, dt)
+            a_t = bsr_to_torch(a_bsr, dev, tdt)
+            b_t = bsr_to_torch(b_bsr, dev, tdt)
+            call = prepare_cached(a_t, b_t, wl.a_tid, wl.b_tid, wl.o_tid,
+                                  wl.n_c_tiles)
+
+            def plain():
+                return run_worklist_reference(a_t, b_t, dwl.a_tid,
+                                              dwl.b_tid, dwl.o_tid,
+                                              dwl.n_c_tiles)
+
+            c, p = call(), plain()
+            p_err, p_abs = relerr(c, p), float((c - p).abs().max())
+            del p
+            if not p_err <= PLAIN_TOL:
+                raise RuntimeError(f"{dt} tm={tm}: tile_spgemm vs plain "
+                                   f"{p_err:.3e} > {PLAIN_TOL:g}")
+            g_err = gate(tile_rows(c, wl.c_tile_row, wl.c_tile_col, tm, T,
+                                   (n, n), gate_rows), ref, GATE[dt],
+                         f"{dt} tiles, tm={tm}")
+            del c
+            W = int(wl.n_items)
+            flops, nbytes = tile_work(a_t, b_t, W, wl.n_c_tiles, a, b)
+            bound_s, by = roofline_bound(flops, nbytes, name, dt,
+                                         matmul=True)
+            row = {"dtype": dt, "tm": tm, "W": W, "n_c": int(wl.n_c_tiles),
+                   "block": tile_block(tm, T, T, tdt),
+                   "ms": None, "ns_item": None, "plain_ms": None,
+                   "bound_ms": bound_s * 1e3, "bound_by": by,
+                   "lib_ns_item": None, "lib_ms": None, "plain_err": p_err,
+                   "plain_abs_err": p_abs,
+                   "gate_err": g_err}
+            if dev.type == "cuda":
+                k_s = _uncounted_s(call, dev)
+                p_s = cuda_time(plain, warmup=1, reps=3)[0]
+
+                def bmm_s(k):
+                    """one bmm of the first k item pairs, gathered first"""
+                    ag = a_t[dwl.a_tid[:k].long()]
+                    bg = b_t[dwl.b_tid[:k].long()]
+                    return device_s(lambda: torch.bmm(ag, bg), dev)
+
+                k = min(LIB_ITEMS, W)
+                row.update(ms=k_s * 1e3, ns_item=k_s / W * 1e9,
+                           plain_ms=p_s * 1e3, lib_ns_item=bmm_s(k) / k * 1e9)
+                if (dt, tm) in lib_whole:
+                    row["lib_ms"] = bmm_s(W) * 1e3
+            rows.append(row)
+            log(case_line(row) + f"  (BSR + worklist {host_s:.1f} s)")
+            del a_t, b_t, call
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    log(report(rows, name))
+    return rows
+
+
+def _f(x, fmt: str) -> str:
+    return "not timed" if x is None else format(x, fmt)
+
+
+def case_line(r: dict) -> str:
+    return (f"  {r['dtype']:8s} tm={r['tm']:3d} on {r['block']:11s} "
+            f"W={r['W']:7d} nC={r['n_c']:6d}  {_f(r['ms'], '.3f')} ms, "
+            f"{_f(r['ns_item'], '.1f')} ns/item  plain "
+            f"{_f(r['plain_ms'], '.3f')} ms  bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})  bmm {_f(r['lib_ns_item'], '.1f')} ns/item"
+            + ("" if r["lib_ms"] is None else
+               f", of all W pairs {r['lib_ms']:.3f} ms")
+            + f"  vs plain {r['plain_err']:.1e}, vs scipy {r['gate_err']:.1e}")
+
+
+def report(rows: List[dict], card: Optional[str]) -> str:
+    """Markdown: one line per case."""
+    lines = [f"thin-panel sweep on {card or 'the CPU (not timed)'}:",
+             "| tiles | tm | block | W | ms | ns/item | plain ms | bound ms "
+             "| bmm ns/item |", "|---|---|---|---|---|---|---|---|---|"]
+    for r in rows:
+        lines.append(
+            f"| {r['dtype']} | {r['tm']} | {r['block']} | {r['W']} | "
+            f"{_f(r['ms'], '.3f')} | {_f(r['ns_item'], '.1f')} | "
+            f"{_f(r['plain_ms'], '.3f')} | {r['bound_ms']:.3f} "
+            f"({r['bound_by']}) | {_f(r['lib_ns_item'], '.1f')} |")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--n", type=int, default=32768, help="matrix size")
+    p.add_argument("--band", type=int, default=384, help="band half-width")
+    p.add_argument("--T", type=int, default=128, help="tk = tn")
+    p.add_argument("--tms", default=",".join(map(str, TMS)))
+    p.add_argument("--dtypes", default=",".join(DTYPES))
+    args = p.parse_args(argv)
+    run(args.n, args.band, args.T, [int(x) for x in args.tms.split(",")],
+        args.dtypes.split(","), args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

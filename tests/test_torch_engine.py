@@ -8,6 +8,8 @@ same values, only the summation order differs.  The CUDA kernel itself is
 held to the plain version on the card by ``tests/test_torch_kernels.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +23,8 @@ from spada_tpu_torch import _build
 from spada_tpu_torch.convert import (bsr_to_torch, c_tiles_to_numpy,
                                      tile_ptr_of, worklist_to_torch)
 from spada_tpu_torch.ops.engine import (run_worklist, run_worklist_reference,
-                                        select_engine, tile_spgemm)
+                                        select_engine, tile_block,
+                                        tile_spgemm)
 from spada_tpu_torch.ops.worklist import build_worklist
 
 
@@ -37,7 +40,7 @@ def _relerr(got, ref):
     return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-30))
 
 
-@pytest.mark.parametrize("tm", [8, 32, 64])
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
 def test_plain_tile_engine_matches_xla_and_cached(tm):
     ab, bb, wl = _case(tm)
     a_t, b_t = bsr_to_torch(ab, "cpu"), bsr_to_torch(bb, "cpu")
@@ -82,12 +85,13 @@ def test_empty_runs_give_zero_tiles():
     assert _relerr(got, xla) <= 1e-5
 
 
-def test_bf16_tiles_match_reference_in_f32():
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
+def test_bf16_tiles_match_reference_in_f32(tm):
     """bf16 tiles: the port and the reference round the same f32 values to
     bf16 and accumulate in f32; compare in f32."""
     import jax.numpy as jnp
 
-    ab, bb, wl = _case(32, seed=21)
+    ab, bb, wl = _case(tm, seed=21)
     a16 = np.asarray(jnp.asarray(ab.tiles).astype(jnp.bfloat16))
     b16 = np.asarray(jnp.asarray(bb.tiles).astype(jnp.bfloat16))
     a_t = bsr_to_torch(ab, "cpu", torch.bfloat16)
@@ -99,6 +103,67 @@ def test_bf16_tiles_match_reference_in_f32():
         a16.astype(np.float32), b16.astype(np.float32), wl.a_tid, wl.b_tid,
         wl.o_tid, n_c_tiles=wl.n_c_tiles, precision="highest"))
     assert _relerr(got, ref) <= 1e-5
+
+
+def _expected_block(tm, tk, tn, dtype, kernel):
+    """The launch rule of csrc/tile_spgemm.cu, written out case by case:
+    tensor cores where the k-slice (32 f32, 64 bf16) divides tk and 128
+    divides tn, wide pieces for tm % 128 == 0, thin ones (tile_spgemm only)
+    for the planner's panel heights; FP32 SIMT blocks otherwise."""
+    k_slice = {torch.float32: 32, torch.bfloat16: 64}[dtype]
+    panel = tm in (8, 16, 32) or tm % 64 == 0
+    if tn % 128 == 0 and tk % k_slice == 0 and tm % 128 == 0:
+        return "mma"
+    if (tn % 128 == 0 and tk % k_slice == 0 and panel
+            and kernel == "tile_spgemm"):
+        return "mma_thin"
+    if tm % 128 == 0 and tn % 128 == 0 and tk % 8 == 0:
+        return "wide_simt"
+    if panel and tn % 64 == 0 and tk % 16 == 0:
+        return "narrow_simt"
+    return None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tk", [40, 128])
+@pytest.mark.parametrize("tn", [64, 128, 512])
+@pytest.mark.parametrize("tm", [8, 16, 32, 64, 128, 192, 512])
+def test_tile_block_mirrors_the_launch_rule(tm, tn, tk, dtype):
+    """tile_block names the block tile_spgemm's launch() picks; the other
+    tile kernels run the thin shapes on their SIMT blocks; a shape no block
+    takes (tk = 40 below tm, tn = 128) raises."""
+    for kernel in ("tile_spgemm", "tile_stream"):
+        want = _expected_block(tm, tk, tn, dtype, kernel)
+        if want is None:
+            with pytest.raises(ValueError, match="tm"):
+                tile_block(tm, tk, tn, dtype, kernel)
+        else:
+            assert tile_block(tm, tk, tn, dtype, kernel) == want
+    # numpy and string dtypes name the same block
+    name = str(dtype).rsplit(".", 1)[-1]
+    if _expected_block(tm, tk, tn, dtype, "tile_spgemm") is not None:
+        assert tile_block(tm, tk, tn, name) == tile_block(tm, tk, tn, dtype)
+    # the thin block takes the planner's panel heights below 128 exactly
+    if tn % 128 == 0 and tk == 128 and tm % 128:
+        assert tile_block(tm, tk, tn, dtype) == "mma_thin"
+
+
+def test_block_numbers_match_the_kernels_report():
+    """The wrapper reads tile_spgemm's block from the number launch()
+    reports: engine._SPGEMM_BLOCKS and the kernel's enum list the blocks in
+    the same order."""
+    import re
+
+    from spada_tpu_torch.ops import engine
+
+    src = open(os.path.join(os.path.dirname(engine.__file__), os.pardir,
+                            "csrc", "tile_spgemm.cu")).read()
+    enum = re.search(r"enum : int \{([^}]*)\}", src).group(1)
+    pairs = re.findall(r"kBlock(\w+) = (\d+)", enum)
+    names = {"Mma": "mma", "Thin": "mma_thin", "Wide": "wide_simt",
+             "Narrow": "narrow_simt"}
+    assert sorted((int(v), names[k]) for k, v in pairs) == list(
+        enumerate(engine._SPGEMM_BLOCKS))
 
 
 def test_k_major_worklist_uses_plain_engine():

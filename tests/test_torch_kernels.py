@@ -6,6 +6,7 @@ on its own:
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -44,17 +45,25 @@ TILE_RUNS = {"short": [2, 0, 5, 1, 0, 3], "long": [0, 64, 0, 1]}
 @pytest.mark.parametrize("runs", TILE_RUNS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tm,tk,tn", [
-    # narrow blocks (BM = min(tm, 64) x 64)
-    (8, 128, 128), (16, 64, 128), (32, 128, 64), (64, 256, 256),
-    (192, 128, 64),
+    # narrow SIMT blocks (BM = min(tm, 64) x 64), every BM: tn = 64, or
+    # tk = 16
+    (8, 128, 64), (32, 128, 64), (64, 128, 64), (192, 128, 64),
+    (16, 16, 128),
+    # thin tensor-core blocks (BM x 128, tm = 8 on 16 rows), tn 128 and 512
+    (8, 128, 128), (16, 64, 128), (32, 128, 128), (64, 256, 256),
+    (192, 128, 128), (8, 512, 512), (16, 512, 512), (32, 512, 512),
+    (64, 512, 512),
     # tensor-core blocks (128 x 128), T = 384 and 512 among them
     (128, 64, 256), (384, 384, 384), (512, 512, 512),
     # a wide tile whose tk the tensor-core block does not take: SIMT block
     (128, 40, 128)])
 def test_tile_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, runs):
-    """Wide tiles run 3xTF32 (f32) or bf16 mma with f32 sums, the others
-    f32 FMAs; the plain version sums exact f32 products in another order:
-    1e-5 of max|C|.  Empty runs are exact zero tiles."""
+    """Wide and thin tiles run 3xTF32 (f32) or bf16 mma with f32 sums, the
+    others f32 FMAs; the plain version sums exact f32 products in another
+    order: 1e-5 of max|C|.  Empty runs are exact zero tiles.  The kernel
+    reports the block it ran on (the wrapper raises where tile_block names
+    another), and a launch of the thin block also counts as
+    tile_spgemm_thin."""
     rng = np.random.default_rng(tm + tk)
     runs = np.array(TILE_RUNS[runs])
     n_c, w = len(runs), int(runs.sum())
@@ -67,11 +76,13 @@ def test_tile_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, runs):
     b = dev(rng.standard_normal((3, tk, tn), np.float32), dtype)
     ai = dev(rng.integers(0, 4, w).astype(np.int32))
     bi = dev(rng.integers(0, 3, w).astype(np.int32))
-    before = _build.launches["tile_spgemm"]
+    before = _build.launches.copy()
     got = tile_spgemm(a, b, ai, bi, dev(tile_ptr_of(o_ids, n_c)))
     ref = run_worklist_reference(a, b, ai, bi, dev(o_ids), n_c)
     torch.cuda.synchronize()
-    assert _build.launches["tile_spgemm"] == before + 1
+    thin = engine.tile_block(tm, tk, tn, dtype) == "mma_thin"
+    assert _build.launches - before == collections.Counter(
+        {"tile_spgemm": 1, **({"tile_spgemm_thin": 1} if thin else {})})
     assert _relerr(got, ref) <= 1e-5
     assert bool((got[dev(runs == 0)] == 0).all())
 
@@ -423,13 +434,13 @@ def test_engine_kernels_reject_what_they_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 def test_wide_kernels_run_on_tensor_cores(cuda_device):
-    """Every tensor-core kernel of the four main-path tile kernels and of
-    the probe holds HMMA instructions in the built library
-    (cuobjdump -sass): none compiled back to FFMA."""
+    """Every tensor-core kernel of the four main-path tile kernels (and
+    tile_spgemm's thin block) and of the probe holds HMMA instructions in
+    the built library (cuobjdump -sass): none compiled back to FFMA."""
     _build.load()
     counts = _build.sass_counts("HMMA")
-    for kernel in ("tile_spgemm_mma", "tile_stream_mma", "tile_panel_mma",
-                   "tile_grid_mma", "tile_probe_mma"):
+    for kernel in ("tile_spgemm_mma", "tile_spgemm_thin", "tile_stream_mma",
+                   "tile_panel_mma", "tile_grid_mma", "tile_probe_mma"):
         names = [n for n in counts if kernel in n]
         assert names, f"no {kernel} in the library"
         assert all(counts[n] > 0 for n in names), counts
