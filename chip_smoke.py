@@ -11,23 +11,29 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
 
 1. environment: versions, the card's name and power limit, nvcc, build time,
    and the HMMA (tensor-core) instructions of the tensor-core kernels of
-   ``tile_spgemm`` (its wide and its thin block), ``tile_stream``,
-   ``tile_panel``, ``tile_grid`` and ``tile_probe_mma``
+   ``tile_spgemm``, ``tile_stream`` and ``tile_panel`` (each its wide and
+   its thin block), ``tile_grid`` and ``tile_probe_mma``
    (``cuobjdump -sass``): a kernel with none, or a
    toolkit without cuobjdump, fails the run;
 2. each kernel against its plain PyTorch version on the card
    (``tile_spgemm`` at tm 8-512, tn = tk in {128, 512}: its wide and thin
    tensor-core blocks; ``tile_stream`` with ogroup 1
-   and 8, ``tile_panel`` with f32 and bf16 output, ``tile_grid``:
-   max|d|/max|ref| <= 1e-5, the bf16 output its own f32 output rounded
-   once and within one bf16 ulp plus 1e-5 of max|ref| of the plain value,
-   empty runs exact zeros; ``esc_stream_mul`` bitwise; ``esc_stream_red``:
+   and 8, ``tile_panel`` with f32 and bf16 output, ``tile_grid``, at tm
+   8-512: max|d|/max|ref| <= 1e-5, the bf16 output its own f32 output
+   rounded once and within one bf16 ulp plus 1e-5 of max|ref| of the plain
+   value, empty runs exact zeros, ``tile_stream`` at ogroup 1 and
+   ``tile_panel``'s f32 output ``tile_spgemm``'s C bit for bit, and each
+   thin shape counted as a launch of the thin block, which the kernels
+   report; at tn = 64 and tm 8, 16 and 64 ``tile_spgemm``, ``tile_stream``
+   and ``tile_panel`` on their narrow SIMT blocks, ``tile_spgemm`` against
+   the plain version too; ``esc_stream_mul`` bitwise; ``esc_stream_red``:
    <= 1e-6; ``esc_stream_group`` on plans of 1 to 10 classes bitwise its
    per-class kernels, twice the same bits);
 3. ``cari`` through the port's CLI, equal to scipy (rtol 1e-4, atol 1e-3),
    once on the auto engine (``tile_spgemm``), once under each
    ``--engine streaming | panel | pallas_grid``, each launching its kernel
-   and not ``tile_spgemm``, and once with ``--plan-scheme profiled``; each
+   and not ``tile_spgemm`` (streaming and panel their thin block: cari is
+   one tm-64 panel), and once with ``--plan-scheme profiled``; each
    run prints its ``device perf:`` line, whose shares of a peak must be at
    most 100%; then the ``plan`` mode under both schemes (exit 0; the
    profiled one launches ``tile_spgemm``);
@@ -45,11 +51,15 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    its peak device memory beside a one-shot ``spgemm``'s; then (4c) the
    thin-panel sweep (``tools/sweep_thin``): the banded 32768^2 pair
    (band 384) at T = 128 in uniform row panels of tm 8, 16, 32, 64 and
-   128, f32 and bf16 tiles, one ``tile_spgemm`` launch per case, each
+   128, f32 and bf16 tiles, the operands built once per tm and run by
+   each tile kernel (``tile_spgemm``; ``tile_stream`` at ogroup 1 and 8;
+   ``tile_panel``, f32 output; ``tile_grid``), one launch per case, each
    against its plain version (<= 1e-5) and scipy (f32 < 1e-4, bf16 <
-   1e-2), printed with its block, ms, W, ns per item, bound, and one
-   ``torch.bmm`` of 16384 gathered item pairs as ns per item (for the f32
-   tm-64 case of the kernels line also one of all W pairs, in ms);
+   1e-2), ``tile_stream`` at ogroup 1 and ``tile_panel`` bit for bit
+   ``tile_spgemm``'s C, printed with its block, ms, W, ns per item, bound,
+   and one ``torch.bmm`` of 16384 gathered item pairs as ns per item (for
+   the f32 tm-64 case of the kernels line also one of all W pairs, in
+   ms);
 5. the localized power-law pair (65536^2, degree 32): dispatched to the
    element side, one grouped launch per multiply and no per-class launch,
    gated against scipy on 2048 rows (< 1e-3); on every class the per-class
@@ -133,7 +143,7 @@ move (inputs read once, output written once) over 3.35 TB/s.  It also times one 
 function: ``torch.matmul`` of the dense operands for the tile kernels
 (cuBLAS; f32 with TF32 off for nn, bf16 in and f32 out for the probe's
 banded pair), ``torch.bmm`` of the W gathered item pairs of the sweep's
-f32 tm-64 case for the thin block, ``torch.mul`` and
+f32 tm-64 case for the thin blocks, ``torch.mul`` and
 ``torch.linalg.vecdot`` for the stream kernels.
 
 Every kernel wrapper counts its launches; the counts are cleared right
@@ -262,9 +272,11 @@ def host_enqueue_s(fn, reps: int = 5) -> float:
 
 #: the kernels that must run on tensor cores: the wide path of the four
 #: main-path tile kernels and the probe's build of it (csrc/tile_mma.cuh),
-#: and tile_spgemm's thin path (csrc/tile_mma_thin.cuh)
+#: and the thin path of tile_spgemm, tile_stream and tile_panel
+#: (csrc/tile_mma_thin.cuh)
 MMA_KERNELS = ("tile_spgemm_mma", "tile_spgemm_thin", "tile_stream_mma",
-               "tile_panel_mma", "tile_grid_mma", "tile_probe_mma")
+               "tile_stream_thin", "tile_panel_mma", "tile_panel_thin",
+               "tile_grid_mma", "tile_probe_mma")
 
 
 def check_tensor_cores() -> None:
@@ -412,9 +424,16 @@ def bf16_ulp(x):
 def check_engine_kernels(dev, errs: dict, rng) -> None:
     """tile_stream, tile_panel and tile_grid against their plain versions
     on random worklists with empty runs, and for ogroup 8 a whole group
-    with no items (C tiles 8-15) and a last group of two C tiles."""
+    with no items (C tiles 8-15) and a last group of two C tiles.  On the
+    tensor-core blocks (tn = tk), tile_stream at ogroup 1 and tile_panel's
+    f32 output bit for bit tile_spgemm's C, thin shapes launched on the
+    thin block; at tn = 64 tile_spgemm, tile_stream and tile_panel on their
+    narrow SIMT blocks (tm 8, 16 and 64), tile_spgemm against the plain
+    version.  The kernels report their block, and the wrappers raise where
+    it is not tile_block's."""
     import torch
 
+    from spada_tpu_torch import _build
     from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
     from spada_tpu_torch.ops import engine as E
 
@@ -427,62 +446,93 @@ def check_engine_kernels(dev, errs: dict, rng) -> None:
         return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
 
     o, tp = ids(o_np), ids(tile_ptr_of(o_np, n_c))
-    for tk in (128, 512):
-        for tm in (8, 32, 64, 128, 512):
-            for dtype in (torch.float32, torch.bfloat16):
-                a = torch.from_numpy(rng.standard_normal(
-                    (5, tm, tk), np.float32)).to(dev, dtype)
-                b = torch.from_numpy(rng.standard_normal(
-                    (4, tk, tk), np.float32)).to(dev, dtype)
-                ai, bi = ids(rng.integers(0, 5, w)), ids(rng.integers(0, 4, w))
-                a_t = a.transpose(1, 2).contiguous()
-                cases = []
-                for og in (1, 8):
-                    args = (a, b, ai, bi, o, ids(item_ptr_of(o_np, n_c, og)),
-                            n_c, og)
-                    cases.append((f"tile_stream og={og}", "tile_stream",
-                                  E.tile_stream(*args),
-                                  E.tile_stream_reference(*args)))
-                args = (a_t, b, ai, bi, tp, torch.float32)
-                cases.append(("tile_panel", "tile_panel", E.tile_panel(*args),
-                              E.tile_panel_reference(*args)))
-                args = (a, b, ai, bi, o, n_c)
-                cases.append(("tile_grid", "tile_grid", E.tile_grid(*args),
-                              E.tile_grid_reference(*args)))
-                args = (a_t, b, ai, bi, tp, torch.bfloat16)
-                p16 = E.tile_panel(*args)
-                r16 = E.tile_panel_reference(*args).float()
-                torch.cuda.synchronize()
-                require(torch.equal(p16, cases[-2][2].to(torch.bfloat16)),
-                        "tile_panel: the bf16 output is not its f32 output "
-                        "rounded once")
-                p16 = p16.float()
-                line = []
-                for label, name, got, ref in cases:
-                    err = relerr(got.cpu().numpy(), ref.cpu().numpy())
-                    line.append(f"{label} {err:.1e}")
-                    require(err <= 1e-5, f"{label} tm={tm} tk={tk} {dtype}: "
-                            f"relerr {err:.3e} > 1e-5")
-                    require(bool((got[empty] == 0).all()),
-                            f"{label}: an empty run gave a nonzero tile")
-                    errs[name] = max(errs[name],
-                                     float((got - ref).abs().max()))
-                # one bf16 ulp, plus the f32 bar: the two f32 sums differ
-                # in order, and near a cancellation a bf16 ulp is smaller
-                # than their gap
-                gap = (p16 - r16).abs()
-                bar = bf16_ulp(r16) + 1e-5 * float(r16.abs().max())
-                ulps = float((gap / bf16_ulp(r16).clamp_min(1e-38)).max())
-                require(bool((gap <= bar).all()),
-                        f"tile_panel bf16 out tm={tm} tk={tk} {dtype}: "
-                        f"{float((gap / bar).max()):.2f} x the bar")
-                require(bool((p16[empty] == 0).all()),
-                        "tile_panel bf16 out: an empty run gave a nonzero "
-                        "tile")
-                log(f"  tm={tm:3d} tk=tn={tk} {str(dtype)[6:]:8s} "
-                    f"max|d|/max|ref|: {', '.join(line)}; tile_panel bf16 "
-                    f"out: max {ulps:.2f} ulp of the plain value, "
-                    f"{int((gap > bf16_ulp(r16)).sum())} values over 1 ulp")
+    shapes = [(tm, tk, tk) for tk in (128, 512)
+              for tm in (8, 32, 64, 128, 512)]
+    shapes += [(tm, 128, 64) for tm in (8, 16, 64)]
+    for tm, tk, tn in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.from_numpy(rng.standard_normal(
+                (5, tm, tk), np.float32)).to(dev, dtype)
+            b = torch.from_numpy(rng.standard_normal(
+                (4, tk, tn), np.float32)).to(dev, dtype)
+            ai, bi = ids(rng.integers(0, 5, w)), ids(rng.integers(0, 4, w))
+            a_t = a.transpose(1, 2).contiguous()
+            before = _build.launches.copy()
+            cases = []
+            for og in (1, 8):
+                args = (a, b, ai, bi, o, ids(item_ptr_of(o_np, n_c, og)),
+                        n_c, og)
+                cases.append((f"tile_stream og={og}", "tile_stream",
+                              E.tile_stream(*args),
+                              E.tile_stream_reference(*args)))
+            args = (a_t, b, ai, bi, tp, torch.float32)
+            cases.append(("tile_panel", "tile_panel", E.tile_panel(*args),
+                          E.tile_panel_reference(*args)))
+            args = (a, b, ai, bi, o, n_c)
+            cases.append(("tile_grid", "tile_grid", E.tile_grid(*args),
+                          E.tile_grid_reference(*args)))
+            args = (a_t, b, ai, bi, tp, torch.bfloat16)
+            p16 = E.tile_panel(*args)
+            r16 = E.tile_panel_reference(*args).float()
+            torch.cuda.synchronize()
+            require(torch.equal(p16, cases[-2][2].to(torch.bfloat16)),
+                    "tile_panel: the bf16 output is not its f32 output "
+                    "rounded once")
+            spg = E.tile_spgemm(a, b, ai, bi, tp)
+            block = E.tile_block(tm, tk, tn, dtype, "tile_stream")
+            require(all(E.tile_block(tm, tk, tn, dtype, k) == block
+                        for k in ("tile_spgemm", "tile_panel")),
+                    f"tm={tm} tk={tk} tn={tn}: tile_spgemm, tile_stream "
+                    f"and tile_panel on different blocks")
+            if block == "narrow_simt":
+                # tile_stream og=1's plain version is tile_spgemm's
+                cases.append(("tile_spgemm", "tile_spgemm", spg,
+                              cases[0][3]))
+            else:
+                for k in (0, 2):  # tile_stream og=1, tile_panel f32
+                    require(torch.equal(cases[k][2], spg),
+                            f"{cases[k][0]} tm={tm} tk={tk} {dtype}: "
+                            f"not tile_spgemm's C bit for bit")
+            ran = _build.launches - before
+            for name, n in (("tile_stream", 2), ("tile_panel", 2),
+                            ("tile_spgemm", 1)):
+                want = n if block == "mma_thin" else 0
+                require(ran[name] == n and ran[name + "_thin"] == want,
+                        f"{name} tm={tm} tk={tk} tn={tn} {dtype}: "
+                        f"launches {dict(ran)}, {want} on the thin "
+                        f"block expected")
+            p16 = p16.float()
+            line = []
+            for label, name, got, ref in cases:
+                err = relerr(got.cpu().numpy(), ref.cpu().numpy())
+                line.append(f"{label} {err:.1e}")
+                require(err <= 1e-5, f"{label} tm={tm} tk={tk} tn={tn} "
+                        f"{dtype}: relerr {err:.3e} > 1e-5")
+                require(bool((got[empty] == 0).all()),
+                        f"{label}: an empty run gave a nonzero tile")
+                errs[name] = max(errs[name],
+                                 float((got - ref).abs().max()))
+            # one bf16 ulp, plus the f32 bar: the two f32 sums differ
+            # in order, and near a cancellation a bf16 ulp is smaller
+            # than their gap
+            gap = (p16 - r16).abs()
+            bar = bf16_ulp(r16) + 1e-5 * float(r16.abs().max())
+            ulps = float((gap / bf16_ulp(r16).clamp_min(1e-38)).max())
+            require(bool((gap <= bar).all()),
+                    f"tile_panel bf16 out tm={tm} tk={tk} tn={tn} "
+                    f"{dtype}: "
+                    f"{float((gap / bar).max()):.2f} x the bar")
+            require(bool((p16[empty] == 0).all()),
+                    "tile_panel bf16 out: an empty run gave a nonzero "
+                    "tile")
+            bits = ("" if block == "narrow_simt" else
+                    "tile_stream og=1 and tile_panel f32 tile_spgemm's "
+                    "bits; ")
+            log(f"  tm={tm:3d} tk={tk} tn={tn} {str(dtype)[6:]:8s} on "
+                f"{block}: max|d|/max|ref|: {', '.join(line)}; {bits}"
+                f"tile_panel bf16 "
+                f"out: max {ulps:.2f} ulp of the plain value, "
+                f"{int((gap > bf16_ulp(r16)).sum())} values over 1 ulp")
 
 
 # --------------------------------------------------------------------------
@@ -522,6 +572,9 @@ def run_cari(dev, totals: dict, engine=None,
     require(counts.get(kernel, 0) > 0, f"cari did not launch {kernel}")
     require(engine is None or counts.get("tile_spgemm", 0) == 0,
             f"cari under --engine {engine} launched tile_spgemm")
+    require(engine not in ("streaming", "panel")
+            or counts.get(f"{kernel}_thin", 0) > 0,
+            f"cari under --engine {engine} did not launch the thin block")
 
 
 def check_device_perf_line(text: str, label: str) -> None:
@@ -771,17 +824,22 @@ def run_spgemm_csr(dev, run, ref_rows, totals: dict,
 # phase 4c: the thin-panel sweep
 # --------------------------------------------------------------------------
 
-#: the phase 4c case whose numbers the kernels line gives for
-#: tile_spgemm_thin: cari's panel height (T = 128, tm 64) and the main
-#: path's tile dtype
+#: the phase 4c case whose numbers the kernels line gives for the thin
+#: blocks: cari's panel height (T = 128, tm 64) and the main path's tile
+#: dtype
 THIN_LINE_CASE = ("float32", 64)
+#: the kernels line's thin rows: kernel -> the sweep case it reads
+THIN_LINE_ROWS = {"tile_spgemm_thin": "tile_spgemm",
+                  "tile_stream_thin": "tile_stream og=1",
+                  "tile_panel_thin": "tile_panel"}
 
 
 def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
                    extra: dict) -> None:
-    """tools/sweep_thin on the banded 32768^2 pair at T = 128: one
-    tile_spgemm launch per (dtype, tm), each gated and timed; every tm
-    below 128 on the thin block, tm 128 on the wide one."""
+    """tools/sweep_thin on the banded 32768^2 pair at T = 128, every tile
+    kernel on each (dtype, tm)'s operands: one launch per case, each gated
+    and timed; every tm below 128 on the thin block (tile_grid: its narrow
+    SIMT block), tm 128 on the wide one."""
     from spada_tpu_torch.tools import sweep_thin
 
     def say(text):
@@ -791,22 +849,34 @@ def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
     t0 = time.perf_counter()
     with main_path(totals) as counts:
         rows = sweep_thin.run(n=32768, device=dev, gate_rows=GATE_ROWS,
-                              lib_whole=(THIN_LINE_CASE,), log=say)
-    thin = [r for r in rows if r["tm"] < 128]
-    require(all(r["block"] == "mma_thin" for r in thin)
-            and all(r["block"] == "mma" for r in rows if r["tm"] == 128),
-            f"phase 4c: blocks {[(r['tm'], r['block']) for r in rows]}")
-    require(counts.get("tile_spgemm", 0) == len(rows)
-            and counts.get("tile_spgemm_thin", 0) == len(thin),
-            f"phase 4c: {len(rows)} cases, {len(thin)} thin, launches "
-            f"{counts}")
-    errs["tile_spgemm_thin"] = max(errs["tile_spgemm_thin"],
-                                   max(r["plain_abs_err"] for r in thin))
-    r = next(r for r in rows if (r["dtype"], r["tm"]) == THIN_LINE_CASE)
-    times["tile_spgemm_thin"] = (r["ms"] * 1e-3, r["plain_ms"] * 1e-3)
-    extra["thin"] = {"bound": (r["bound_ms"] * 1e-3, r["bound_by"]),
-                     "library": (r["lib_ms"] * 1e-3,
-                                 "torch.bmm of the W gathered item pairs")}
+                              lib_whole=(THIN_LINE_CASE,),
+                              engines=sweep_thin.ENGINES, log=say)
+    thin_block = {k: "narrow_simt" if k == "tile_grid" else "mma_thin"
+                  for k in sweep_thin.ENGINES}
+    require(all(r["block"] == (thin_block[r["kernel"]] if r["tm"] < 128
+                               else "mma") for r in rows),
+            f"phase 4c: blocks "
+            f"{[(r['engine'], r['tm'], r['block']) for r in rows]}")
+    want = {}
+    for r in rows:
+        want[r["kernel"]] = want.get(r["kernel"], 0) + 1
+        if r["block"] == "mma_thin":
+            key = r["kernel"] + "_thin"
+            want[key] = want.get(key, 0) + 1
+    require(counts == want, f"phase 4c: launches {counts}, one per case "
+            f"expected: {want}")
+    require(all(r["same_bits"] for r in rows
+                if r["engine"] in sweep_thin.BITWISE),
+            "phase 4c: a case is not tile_spgemm's C bit for bit")
+    for name, engine in THIN_LINE_ROWS.items():
+        thin = [r for r in rows
+                if r["engine"] == engine and r["block"] == "mma_thin"]
+        errs[name] = max(errs[name], max(r["plain_abs_err"] for r in thin))
+        r = next(r for r in thin if (r["dtype"], r["tm"]) == THIN_LINE_CASE)
+        times[name] = (r["ms"] * 1e-3, r["plain_ms"] * 1e-3)
+        extra[name] = {"bound": (r["bound_ms"] * 1e-3, r["bound_by"]),
+                       "library": (r["lib_ms"] * 1e-3, "torch.bmm of the W "
+                                   "gathered item pairs")}
     log(f"  phase 4c: launches {counts}, {time.perf_counter() - t0:.1f} s, "
         f"on {smi_name_power()}")
 
@@ -1955,7 +2025,7 @@ def main() -> int:
     check_tensor_cores()
 
     errs = dict.fromkeys(("tile_spgemm", "tile_spgemm_thin", "tile_stream",
-                          "tile_panel",
+                          "tile_stream_thin", "tile_panel", "tile_panel_thin",
                           "tile_grid", "esc_stream_mul", "esc_stream_red",
                           "esc_stream_group", "tile_probe", "tile_probe_mma",
                           "esc_stream_mul_blocked",
@@ -1978,8 +2048,8 @@ def main() -> int:
     nn_run = nn_runs[NN_PLANS[0]]
     log("== phase 4b: spgemm_csr on the nn pair, in output slabs")
     run_spgemm_csr(dev, nn_run, nn_ref, totals)
-    log("== phase 4c: the thin-panel sweep (tile_spgemm, T = 128, tm "
-        "8-128)")
+    log("== phase 4c: the thin-panel sweep (the four tile kernels, T = 128, "
+        "tm 8-128)")
     run_thin_sweep(dev, totals, errs, times, extra)
     log("== phase 5: locpl pair, element side")
     run_locpl(dev, cfg, totals, errs, times, extra)
@@ -2010,12 +2080,19 @@ def main() -> int:
                                "spada_tpu/ops/engine.py:726, "
                                "tools/probe_panel3d.py:101", "nn"),
                "tile_spgemm_thin": ("spada_tpu_torch/csrc/tile_spgemm.cu",
-                                    "spada_tpu/ops/engine.py:726", "thin"),
+                                    "spada_tpu/ops/engine.py:726",
+                                    "tile_spgemm_thin"),
                "tile_stream": ("spada_tpu_torch/csrc/tile_stream.cu",
                                "spada_tpu/ops/engine.py:363", "nn"),
+               "tile_stream_thin": ("spada_tpu_torch/csrc/tile_stream.cu",
+                                    "spada_tpu/ops/engine.py:363",
+                                    "tile_stream_thin"),
                "tile_panel": ("spada_tpu_torch/csrc/tile_panel.cu",
                               "spada_tpu/ops/engine.py:1275, "
                               "tools/probe_panel3d.py:101", "nn"),
+               "tile_panel_thin": ("spada_tpu_torch/csrc/tile_panel.cu",
+                                   "spada_tpu/ops/engine.py:1275",
+                                   "tile_panel_thin"),
                "tile_grid": ("spada_tpu_torch/csrc/tile_grid.cu",
                              "spada_tpu/ops/engine.py:199", "nn"),
                "esc_stream_mul": ("spada_tpu_torch/csrc/esc_stream.cu",

@@ -61,13 +61,13 @@ _SIGNATURES = {
     "esc_stream_red_blocked": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                                _I, _I, ctypes.c_longlong, _P],
     # a_tiles, b_tiles, a_tid, b_tid, o_tid, item_ptr, c_tiles, n_c, ogroup,
-    # tm, tk, tn, nbuf, stream
-    "tile_stream_f32": [_P] * 7 + [_I] * 6 + [_P],
-    "tile_stream_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    # tm, tk, tn, nbuf, block (as tile_spgemm's), stream
+    "tile_stream_f32": [_P] * 7 + [_I] * 6 + [_P, _P],
+    "tile_stream_bf16": [_P] * 7 + [_I] * 6 + [_P, _P],
     # a_tiles_t, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c, tm, tk, tn,
-    # out_bf16, stream
-    "tile_panel_f32": [_P] * 6 + [_I] * 5 + [_P],
-    "tile_panel_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # out_bf16, block (as tile_spgemm's), stream
+    "tile_panel_f32": [_P] * 6 + [_I] * 5 + [_P, _P],
+    "tile_panel_bf16": [_P] * 6 + [_I] * 5 + [_P, _P],
     # a_tiles, b_tiles, a_tid, b_tid, o_tid, c_tiles, n_items, tm, tk, tn,
     # stream
     "tile_grid_f32": [_P] * 6 + [_I] * 4 + [_P],

@@ -183,6 +183,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(s));
 }
 
+// two of them: lanes 0-15 give the row addresses of matrices 0 and 1
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s));
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -402,21 +412,23 @@ __device__ __forceinline__ void issue(T* st, const T* a, const T* b, int tm,
 
 // Call f(p, x, y) for each two adjacent values x, y of the warp's part of
 // a piece of C tile `out` [tm][tn], p their place: one pair per fragment
-// row, a warp's 8 rows x 8 pairs per call site.
-template <typename OutT, class F>
+// row, a warp's 8 rows x 8 pairs per call site.  The warp holds MT x NT
+// m16n8 fragments (tile_mma_thin.cuh's fewer); HALF: only rows 0-7 of each
+// exist (a tm = 8 piece).
+template <bool HALF = false, typename OutT, int MT, int NT, class F>
 __device__ __forceinline__ void each_pair(OutT* out, int tn, int row0,
                                           int col0, int lane,
-                                          const float (&acc)[kMT][kNT][4],
+                                          const float (&acc)[MT][NT][4],
                                           F f) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < kMT; ++i) {
+  for (int i = 0; i < MT; ++i) {
     OutT* p = out + (size_t)(row0 + i * 16 + g) * tn + col0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const float* v = acc[i][j];
       f(p + j * 8, v[0], v[1]);
-      f(p + 8 * (size_t)tn + j * 8, v[2], v[3]);
+      if constexpr (!HALF) f(p + 8 * (size_t)tn + j * 8, v[2], v[3]);
     }
   }
 }
@@ -438,20 +450,21 @@ __device__ __forceinline__ void add2(float* p, float x, float y) {
 
 // The epilogues: where piece() puts its finished C tiles, `out` [n_c][tm][tn].
 // put<ZERO>(c, ...) takes the warp's part of C tile c (ZERO: a tile with no
-// items).  Store writes each tile once, f32 or bf16.  Add adds into a C
+// items).  Store writes each tile once, f32 or bf16, from this block's or
+// the thin block's fragments (HALF as each_pair's).  Add adds into a C
 // that starts zeroed, so an empty tile needs nothing.
 template <typename OutT>
 struct Store {
   OutT* out;
   size_t c_size;
   int tn;
-  template <bool ZERO>
+  template <bool ZERO, bool HALF = false, int MT, int NT>
   __device__ __forceinline__ void put(int c, int row0, int col0, int lane,
-                                      const float (&acc)[kMT][kNT][4]) const {
-    each_pair(out + c * c_size, tn, row0, col0, lane, acc,
-              [](OutT* p, float x, float y) {
-                put2(p, ZERO ? 0.f : x, ZERO ? 0.f : y);
-              });
+                                      const float (&acc)[MT][NT][4]) const {
+    each_pair<HALF>(out + c * c_size, tn, row0, col0, lane, acc,
+                    [](OutT* p, float x, float y) {
+                      put2(p, ZERO ? 0.f : x, ZERO ? 0.f : y);
+                    });
   }
 };
 

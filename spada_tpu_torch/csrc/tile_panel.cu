@@ -28,22 +28,28 @@
 // k-slice goes by cp.async into a [k][m] shared-memory slice with no
 // transpose on the way.  The epilogue writes the piece once, as f32 or as
 // bf16.  The slot plans, the VMEM fit and the item split of the TPU kernel
-// have no counterpart.  Two paths:
+// have no counterpart.  Three paths:
 //   mma  (tm, tn multiples of 128, tk of 32 f32 / 64 bf16): the tensor-core
 //        block of tile_mma.cuh with A k-transposed, a 4-stage ring: f32
 //        tiles 3xTF32, bf16 tiles bf16 mma, each k-slice's tensor-core sums
 //        added into the f32 accumulator: tile_spgemm's arithmetic on the
 //        same values, so the f32 output is its C bit for bit.
-//   SIMT (the other shapes: tk not such a multiple, or tm, tn not multiples
-//        of 128, the short panels tm in {8..64} among them): the k pipeline
-//        of tile_pipe.cuh, tile_spgemm's block shapes, a 3-stage ring, bf16
-//        widened to f32 and every product an f32 FMA.
+//   thin (tm in {8, 16, 32} or a multiple of 64 that mma does not take, tn
+//        a multiple of 128, tk of 32 / 64): the thin block of
+//        tile_mma_thin.cuh with A k-transposed (As[k][m] rows; bf16 A
+//        fragments by ldmatrix.trans), its ring thin::kStages deep: again
+//        tile_spgemm's arithmetic, so the f32 output is its C bit for bit.
+//   SIMT (the other shapes: tk not such a multiple, or tn not of 128): the
+//        k pipeline of tile_pipe.cuh, tile_spgemm's block shapes, a 3-stage
+//        ring, bf16 widened to f32 and every product an f32 FMA.
 //
 // Launch: tile_panel_f32 / tile_panel_bf16 (the A/B tile type; plain C
-// interface for ctypes) enqueue one kernel on the given stream and return
+// interface for ctypes) enqueue one kernel on the given stream, write the
+// block it runs on to *block (tile_pipe.cuh's kBlock*) and return
 // cudaGetLastError().  out_bf16 != 0 selects the bf16 output.
 
 #include "tile_mma.cuh"
+#include "tile_mma_thin.cuh"
 
 namespace {
 
@@ -64,6 +70,25 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
   const mma::Place p = mma::place(tm, tn);
   const int c = p.unit;
   mma::piece<T, mma::kDeepest, true>(
+      a_tiles_t, b_tiles, a_tid, b_tid, [c](int) { return c; }, tile_ptr[c],
+      tile_ptr[c + 1], c, c + 1,
+      mma::Store<OutT>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn, p.row0,
+      p.col0, smem);
+}
+
+// ---- thin: BM x 128 of one C tile per block, tensor cores -----------------
+template <typename T, typename OutT, int BM>
+__global__ void __launch_bounds__(32 * thin::kWarpsN)
+    tile_panel_thin(const T* __restrict__ a_tiles_t,
+                    const T* __restrict__ b_tiles,
+                    const int32_t* __restrict__ a_tid,
+                    const int32_t* __restrict__ b_tid,
+                    const int32_t* __restrict__ tile_ptr,
+                    OutT* __restrict__ c_tiles, int tm, int tk, int tn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mma::Place p = thin::place<BM>(tm, tn);
+  const int c = p.unit;
+  thin::piece<T, BM, thin::kStages<T>, true>(
       a_tiles_t, b_tiles, a_tid, b_tid, [c](int) { return c; }, tile_ptr[c],
       tile_ptr[c + 1], c, c + 1,
       mma::Store<OutT>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn, p.row0,
@@ -104,34 +129,48 @@ __global__ void __launch_bounds__(G::NT)
 template <typename T, typename OutT>
 int launch(const void* a_tiles_t, const void* b_tiles, const void* a_tid,
            const void* b_tid, const void* tile_ptr, void* c_tiles, int n_c,
-           int tm, int tk, int tn, void* stream) {
+           int tm, int tk, int tn, int* block, void* stream) {
   if (n_c <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* a = static_cast<const T*>(a_tiles_t);
+  const T* b = static_cast<const T*>(b_tiles);
+  const int32_t* ai = static_cast<const int32_t*>(a_tid);
+  const int32_t* bi = static_cast<const int32_t*>(b_tid);
+  const int32_t* tp = static_cast<const int32_t*>(tile_ptr);
+  OutT* c = static_cast<OutT*>(c_tiles);
   if (mma::takes<T>(tm, tk, tn)) {
+    *block = kBlockMma;
     const size_t smem = mma::kDeepest * mma::Stage<T, true>::kBytes;
     const int err = allow_smem(tile_panel_mma<T, OutT>, smem);
     if (err) return err;
-    tile_panel_mma<T, OutT>
-        <<<mma::grid(n_c, tm, tn), mma::kThreads, smem, s>>>(
-            static_cast<const T*>(a_tiles_t), static_cast<const T*>(b_tiles),
-            static_cast<const int32_t*>(a_tid),
-            static_cast<const int32_t*>(b_tid),
-            static_cast<const int32_t*>(tile_ptr),
-            static_cast<OutT*>(c_tiles), tm, tk, tn);
+    tile_panel_mma<T, OutT><<<mma::grid(n_c, tm, tn), mma::kThreads, smem,
+                              s>>>(a, b, ai, bi, tp, c, tm, tk, tn);
     return (int)cudaGetLastError();
+  }
+  if (thin::takes<T>(tm, tk, tn)) {
+    *block = kBlockThin;
+    return thin::with_rows(tm, [&](auto rows) {
+      constexpr int BM = decltype(rows)::value;
+      using S = thin::Shape<T, BM, true>;
+      const size_t smem = thin::kStages<T> * S::kBytes;
+      const int err = allow_smem(tile_panel_thin<T, OutT, BM>, smem);
+      if (err) return err;
+      tile_panel_thin<T, OutT, BM>
+          <<<thin::grid(n_c, tm, tn), S::kThreads, smem, s>>>(
+              a, b, ai, bi, tp, c, tm, tk, tn);
+      return (int)cudaGetLastError();
+    });
   }
   return with_geo(tm, tk, tn, [&](auto geo) {
     using G = decltype(geo);
+    *block = simt_block<G>();
     const size_t smem =
         (size_t)kStages * Stage<T, G, true>::kElems * sizeof(T);
     const int err = allow_smem(tile_panel_kernel<T, OutT, G>, smem);
     if (err) return err;
     const dim3 grid(n_c, tm / G::BM, tn / G::BN);
     tile_panel_kernel<T, OutT, G><<<grid, G::NT, smem, s>>>(
-        static_cast<const T*>(a_tiles_t), static_cast<const T*>(b_tiles),
-        static_cast<const int32_t*>(a_tid), static_cast<const int32_t*>(b_tid),
-        static_cast<const int32_t*>(tile_ptr), static_cast<OutT*>(c_tiles), tm,
-        tk, tn);
+        a, b, ai, bi, tp, c, tm, tk, tn);
     return (int)cudaGetLastError();
   });
 }
@@ -142,25 +181,25 @@ extern "C" int tile_panel_f32(const void* a_tiles_t, const void* b_tiles,
                               const void* a_tid, const void* b_tid,
                               const void* tile_ptr, void* c_tiles, int n_c,
                               int tm, int tk, int tn, int out_bf16,
-                              void* stream) {
+                              int* block, void* stream) {
   return out_bf16
              ? launch<float, __nv_bfloat16>(a_tiles_t, b_tiles, a_tid, b_tid,
                                             tile_ptr, c_tiles, n_c, tm, tk,
-                                            tn, stream)
+                                            tn, block, stream)
              : launch<float, float>(a_tiles_t, b_tiles, a_tid, b_tid,
                                     tile_ptr, c_tiles, n_c, tm, tk, tn,
-                                    stream);
+                                    block, stream);
 }
 
 extern "C" int tile_panel_bf16(const void* a_tiles_t, const void* b_tiles,
                                const void* a_tid, const void* b_tid,
                                const void* tile_ptr, void* c_tiles, int n_c,
                                int tm, int tk, int tn, int out_bf16,
-                               void* stream) {
+                               int* block, void* stream) {
   return out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(
                         a_tiles_t, b_tiles, a_tid, b_tid, tile_ptr, c_tiles,
-                        n_c, tm, tk, tn, stream)
+                        n_c, tm, tk, tn, block, stream)
                   : launch<__nv_bfloat16, float>(a_tiles_t, b_tiles, a_tid,
                                                  b_tid, tile_ptr, c_tiles, n_c,
-                                                 tm, tk, tn, stream);
+                                                 tm, tk, tn, block, stream);
 }

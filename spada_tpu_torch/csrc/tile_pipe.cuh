@@ -15,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace spada {
 
 // The part a probe build of a block strips (tile_probe.cu and
@@ -132,6 +134,18 @@ int with_geo(int tm, int tk, int tn, F f) {
   if (tm == 32) return f(Geo32{});
   if (tm > 0 && tm % 64 == 0) return f(Geo64{});
   return (int)cudaErrorInvalidValue;
+}
+
+// The block a launch ran on, as tile_spgemm.cu, tile_stream.cu and
+// tile_panel.cu report it through their int* out-parameter
+// (ops.engine._BLOCKS names them in this order): the tensor-core blocks of
+// tile_mma.cuh and tile_mma_thin.cuh, the wide SIMT block, the narrow ones.
+enum : int { kBlockMma = 0, kBlockThin = 1, kBlockWide = 2, kBlockNarrow = 3 };
+
+// What a launch on the SIMT block shape G reports.
+template <class G>
+constexpr int simt_block() {
+  return std::is_same<G, GeoWide>::value ? kBlockWide : kBlockNarrow;
 }
 
 // Dynamic shared memory above the 48 KB default must be asked for.

@@ -47,7 +47,8 @@
 //
 // Launch: tile_spgemm_f32 / tile_spgemm_bf16 (plain C interface for ctypes)
 // enqueue one kernel on the given stream, write the block it runs on to
-// *block (0 mma, 1 thin, 2 wide, 3 narrow) and return cudaGetLastError().
+// *block (tile_pipe.cuh's kBlock*: 0 mma, 1 thin, 2 wide, 3 narrow) and
+// return cudaGetLastError().
 
 #include "tile_mma.cuh"
 #include "tile_mma_thin.cuh"
@@ -55,9 +56,10 @@
 
 namespace {
 
-// what *block reports: the block a launch ran on
-enum : int { kBlockMma = 0, kBlockThin = 1, kBlockWide = 2, kBlockNarrow = 3 };
-
+using spada::kBlockMma;
+using spada::kBlockNarrow;
+using spada::kBlockThin;
+using spada::kBlockWide;
 using spada::to_f32;
 
 // ---- mma: 128 x 128 of one C tile per block, tensor cores -----------------
@@ -91,8 +93,13 @@ __global__ void __launch_bounds__(32 * spada::thin::kWarpsN)
                      const int32_t* __restrict__ tile_ptr,
                      float* __restrict__ c_tiles, int tm, int tk, int tn) {
   extern __shared__ __align__(16) unsigned char smem[];
-  spada::thin::tile_piece<T, BM>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr,
-                                 c_tiles, tm, tk, tn, smem);
+  const spada::mma::Place p = spada::thin::place<BM>(tm, tn);
+  const int c = p.unit;
+  spada::thin::piece<T, BM, spada::thin::kStages<T>, false>(
+      a_tiles, b_tiles, a_tid, b_tid, [c](int) { return c; }, tile_ptr[c],
+      tile_ptr[c + 1], c, c + 1,
+      spada::mma::Store<float>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn,
+      p.row0, p.col0, smem);
 }
 
 // ---- wide: 128 x 128 of one C tile per block, 256 threads -----------------

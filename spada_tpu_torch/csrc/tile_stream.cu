@@ -29,19 +29,26 @@
 // group's empty tiles before it) and starts again from zero.  So each C
 // tile is written once, by exactly one block per piece, and never read; the
 // padded n_groups*ogroup output of the TPU kernel does not exist.  With
-// ogroup = 1, item_ptr is tile_spgemm's tile_ptr, and the wide shapes run
-// the same block as tile_spgemm:
-//   mma    (tm, tn multiples of 128, tk of 32 f32 / 64 bf16): tile_mma.cuh
-//          over the range item_ptr[g] .. item_ptr[g+1], C tiles g*ogroup ..
-//          min((g+1)*ogroup, n_c), its ring min(nbuf, 4) stages deep (a
-//          compile-time depth: 2, 3 or 4).
+// ogroup = 1, item_ptr is tile_spgemm's tile_ptr, and the tensor-core
+// shapes run the same block as tile_spgemm, so C is tile_spgemm's bit for
+// bit; every block takes the range item_ptr[g] .. item_ptr[g+1], C tiles
+// g*ogroup .. min((g+1)*ogroup, n_c):
+//   mma    (tm, tn multiples of 128, tk of 32 f32 / 64 bf16): tile_mma.cuh,
+//          its ring min(nbuf, 4) stages deep (a compile-time depth: 2, 3 or
+//          4).
+//   thin   (tm in {8, 16, 32} or a multiple of 64 that mma does not take, tn
+//          a multiple of 128, tk of 32 / 64): tile_mma_thin.cuh's BM x 128
+//          piece, its ring thin::kStages deep (f32 2, bf16 3) whatever
+//          nbuf is: nbuf sets the depth of the mma and SIMT rings only.
 //   the rest (tile_pipe.cuh, f32 FMAs): 128 x 128 for tm, tn multiples of
 //          128 and tk of 8, BM x 64 for short panels, an nbuf-stage ring.
 //
 // Launch: tile_stream_f32 / tile_stream_bf16 (plain C interface for ctypes)
-// enqueue one kernel on the given stream and return cudaGetLastError().
+// enqueue one kernel on the given stream, write the block it runs on to
+// *block (tile_pipe.cuh's kBlock*) and return cudaGetLastError().
 
 #include "tile_mma.cuh"
+#include "tile_mma_thin.cuh"
 
 namespace {
 
@@ -116,15 +123,43 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
       p.col0, smem);
 }
 
+template <typename T, int BM>
+__global__ void __launch_bounds__(32 * thin::kWarpsN)
+    tile_stream_thin(const T* __restrict__ a_tiles,
+                     const T* __restrict__ b_tiles,
+                     const int32_t* __restrict__ a_tid,
+                     const int32_t* __restrict__ b_tid,
+                     const int32_t* __restrict__ o_tid,
+                     const int32_t* __restrict__ item_ptr,
+                     float* __restrict__ c_tiles, int n_c, int ogroup, int tm,
+                     int tk, int tn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mma::Place p = thin::place<BM>(tm, tn);
+  const int g = p.unit;
+  thin::piece<T, BM, thin::kStages<T>, false>(
+      a_tiles, b_tiles, a_tid, b_tid, [o_tid](int w) { return o_tid[w]; },
+      item_ptr[g], item_ptr[g + 1], g * ogroup, min((g + 1) * ogroup, n_c),
+      mma::Store<float>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn, p.row0,
+      p.col0, smem);
+}
+
 template <typename T>
 int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
            const void* b_tid, const void* o_tid, const void* item_ptr,
            void* c_tiles, int n_c, int ogroup, int tm, int tk, int tn,
-           int nbuf, void* stream) {
+           int nbuf, int* block, void* stream) {
   if (n_c <= 0 || ogroup <= 0 || nbuf < 2) return (int)cudaErrorInvalidValue;
   const int n_groups = (n_c + ogroup - 1) / ogroup;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* a = static_cast<const T*>(a_tiles);
+  const T* b = static_cast<const T*>(b_tiles);
+  const int32_t* ai = static_cast<const int32_t*>(a_tid);
+  const int32_t* bi = static_cast<const int32_t*>(b_tid);
+  const int32_t* oi = static_cast<const int32_t*>(o_tid);
+  const int32_t* ip = static_cast<const int32_t*>(item_ptr);
+  float* c = static_cast<float*>(c_tiles);
   if (mma::takes<T>(tm, tk, tn)) {
+    *block = kBlockMma;
     return mma::with_depth(nbuf, [&](auto depth) {
       constexpr int STAGES = decltype(depth)::value;
       const size_t smem = STAGES * mma::Stage<T>::kBytes;
@@ -132,28 +167,33 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
       if (err) return err;
       tile_stream_mma<T, STAGES>
           <<<mma::grid(n_groups, tm, tn), mma::kThreads, smem, s>>>(
-              static_cast<const T*>(a_tiles), static_cast<const T*>(b_tiles),
-              static_cast<const int32_t*>(a_tid),
-              static_cast<const int32_t*>(b_tid),
-              static_cast<const int32_t*>(o_tid),
-              static_cast<const int32_t*>(item_ptr),
-              static_cast<float*>(c_tiles), n_c, ogroup, tm, tk, tn);
+              a, b, ai, bi, oi, ip, c, n_c, ogroup, tm, tk, tn);
+      return (int)cudaGetLastError();
+    });
+  }
+  if (thin::takes<T>(tm, tk, tn)) {
+    *block = kBlockThin;
+    return thin::with_rows(tm, [&](auto rows) {
+      constexpr int BM = decltype(rows)::value;
+      const size_t smem = thin::kStages<T> * thin::Shape<T, BM>::kBytes;
+      const int err = allow_smem(tile_stream_thin<T, BM>, smem);
+      if (err) return err;
+      tile_stream_thin<T, BM>
+          <<<thin::grid(n_groups, tm, tn), thin::Shape<T, BM>::kThreads, smem,
+             s>>>(a, b, ai, bi, oi, ip, c, n_c, ogroup, tm, tk, tn);
       return (int)cudaGetLastError();
     });
   }
   return with_geo(tm, tk, tn, [&](auto geo) {
     using G = decltype(geo);
+    *block = simt_block<G>();
     const size_t smem =
         (size_t)nbuf * Stage<T, G, false>::kElems * sizeof(T);
     const int err = allow_smem(tile_stream_kernel<T, G>, smem);
     if (err) return err;
     const dim3 grid(n_groups, tm / G::BM, tn / G::BN);
     tile_stream_kernel<T, G><<<grid, G::NT, smem, s>>>(
-        static_cast<const T*>(a_tiles), static_cast<const T*>(b_tiles),
-        static_cast<const int32_t*>(a_tid), static_cast<const int32_t*>(b_tid),
-        static_cast<const int32_t*>(o_tid),
-        static_cast<const int32_t*>(item_ptr), static_cast<float*>(c_tiles),
-        n_c, ogroup, tm, tk, tn, nbuf);
+        a, b, ai, bi, oi, ip, c, n_c, ogroup, tm, tk, tn, nbuf);
     return (int)cudaGetLastError();
   });
 }
@@ -164,17 +204,19 @@ extern "C" int tile_stream_f32(const void* a_tiles, const void* b_tiles,
                                const void* a_tid, const void* b_tid,
                                const void* o_tid, const void* item_ptr,
                                void* c_tiles, int n_c, int ogroup, int tm,
-                               int tk, int tn, int nbuf, void* stream) {
+                               int tk, int tn, int nbuf, int* block,
+                               void* stream) {
   return launch<float>(a_tiles, b_tiles, a_tid, b_tid, o_tid, item_ptr,
-                       c_tiles, n_c, ogroup, tm, tk, tn, nbuf, stream);
+                       c_tiles, n_c, ogroup, tm, tk, tn, nbuf, block, stream);
 }
 
 extern "C" int tile_stream_bf16(const void* a_tiles, const void* b_tiles,
                                 const void* a_tid, const void* b_tid,
                                 const void* o_tid, const void* item_ptr,
                                 void* c_tiles, int n_c, int ogroup, int tm,
-                                int tk, int tn, int nbuf, void* stream) {
+                                int tk, int tn, int nbuf, int* block,
+                                void* stream) {
   return launch<__nv_bfloat16>(a_tiles, b_tiles, a_tid, b_tid, o_tid,
                                item_ptr, c_tiles, n_c, ogroup, tm, tk, tn,
-                               nbuf, stream);
+                               nbuf, block, stream);
 }

@@ -32,9 +32,10 @@ four kernels the wide tiles (tm and tn multiples of 128, tk of 32 f32 / 64
 bf16) run on tensor cores (``csrc/tile_mma.cuh``): f32 tiles as 3xTF32
 (each operand split into two TF32 parts, three products summed in f32,
 small terms first), bf16 tiles as bf16 ``mma`` with f32 sums;
-:func:`tile_spgemm` runs the planner's thin row panels (tm 8-64) the same
-way (``csrc/tile_mma_thin.cuh``).  :func:`tile_block` names the block a
-shape runs on.  The other shapes widen bf16 and run FP32 FMAs; the plain
+:func:`tile_spgemm`, :func:`tile_stream` and :func:`tile_panel` run the
+planner's thin row panels (tm 8-64) the same way
+(``csrc/tile_mma_thin.cuh``).  :func:`tile_block` names the block a shape
+runs on.  The other shapes widen bf16 and run FP32 FMAs; the plain
 versions run f32 ``bmm``
 (TF32 off).  On a CUDA device an engine runs its kernel or raises: none
 falls back to another engine or to the CPU.  The reference's TPU reroutes
@@ -56,8 +57,11 @@ from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
 _PRECISIONS = ("highest", "default")
 _ENGINES = ("cached", "streaming", "panel", "pallas_grid", "xla")
 _TILE_DTYPES = (torch.float32, torch.bfloat16)
-#: the block csrc/tile_spgemm.cu's launch() reports, by its number
-_SPGEMM_BLOCKS = ("mma", "mma_thin", "wide_simt", "narrow_simt")
+#: the block a launch of tile_spgemm, tile_stream or tile_panel reports,
+#: by its number (csrc/tile_pipe.cuh's kBlock*)
+_BLOCKS = ("mma", "mma_thin", "wide_simt", "narrow_simt")
+#: the kernels that run thin row panels on the thin tensor-core block
+_THIN_KERNELS = ("tile_spgemm", "tile_stream", "tile_panel")
 
 
 def tile_block(tm: int, tk: int, tn: int, dtype,
@@ -68,7 +72,7 @@ def tile_block(tm: int, tk: int, tn: int, dtype,
     - ``"mma"``: the tensor-core block (``csrc/tile_mma.cuh``): tm and tn
       multiples of 128, tk of 32 (f32) or 64 (bf16);
     - ``"mma_thin"``: the thin tensor-core block
-      (``csrc/tile_mma_thin.cuh``), ``tile_spgemm`` only: tm in {8, 16, 32}
+      (``csrc/tile_mma_thin.cuh``), not in ``tile_grid``: tm in {8, 16, 32}
       or a multiple of 64 that ``"mma"`` does not take, tn a multiple of
       128, tk of 32 / 64;
     - ``"wide_simt"``: the FP32 SIMT block (``csrc/tile_wide.cuh``): tm and
@@ -76,17 +80,17 @@ def tile_block(tm: int, tk: int, tn: int, dtype,
     - ``"narrow_simt"``: FP32 SIMT blocks of min(tm, 64) rows: tm in {8, 16,
       32} or a multiple of 64, tn a multiple of 64, tk of 16.
 
-    ``kernel`` is ``"tile_spgemm"`` (``csrc/tile_spgemm.cu``'s ``launch``)
-    or one of ``"tile_stream"``, ``"tile_panel"``, ``"tile_grid"``, which
-    run the thin shapes on their SIMT blocks.  Raises ``ValueError`` for a
-    shape no block takes."""
+    ``kernel`` is ``"tile_spgemm"`` (``csrc/tile_spgemm.cu``'s ``launch``),
+    ``"tile_stream"`` or ``"tile_panel"``, which follow the same rule, or
+    ``"tile_grid"``, which runs the thin shapes on its SIMT blocks.  Raises
+    ``ValueError`` for a shape no block takes."""
     bk = 64 if "bfloat16" in str(dtype) else 32
     rows = tm in (8, 16, 32) or (tm > 0 and tm % 64 == 0)
     if tm > 0 and tn > 0 and tk > 0:
         if tn % 128 == 0 and tk % bk == 0:
             if tm % 128 == 0:
                 return "mma"
-            if rows and kernel == "tile_spgemm":
+            if rows and kernel in _THIN_KERNELS:
                 return "mma_thin"
         if tm % 128 == 0 and tn % 128 == 0 and tk % 8 == 0:
             return "wide_simt"
@@ -446,17 +450,10 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     lib = _build.load()
     fn = (lib.tile_spgemm_f32 if a_tiles.dtype == torch.float32
           else lib.tile_spgemm_bf16)
-    ran = ctypes.c_int(-1)
-    _launched("tile_spgemm", fn(
-        a_tiles.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
-        b_tid.data_ptr(), tile_ptr.data_ptr(), c.data_ptr(), n_c, tm, tk, tn,
-        ctypes.byref(ran), _build.current_stream(a_tiles)))
-    if _SPGEMM_BLOCKS[ran.value] != block:
-        raise RuntimeError(
-            f"tile_spgemm: tm={tm} tk={tk} tn={tn} ran on the "
-            f"{_SPGEMM_BLOCKS[ran.value]} block, tile_block names {block}")
-    if block == "mma_thin":
-        _build.launches["tile_spgemm_thin"] += 1
+    _launch_reporting("tile_spgemm", block, (tm, tk, tn), a_tiles, fn,
+                      a_tiles.data_ptr(), b_tiles.data_ptr(),
+                      a_tid.data_ptr(), b_tid.data_ptr(), tile_ptr.data_ptr(),
+                      c.data_ptr(), n_c, tm, tk, tn)
     return c
 
 
@@ -472,10 +469,13 @@ def tile_stream(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     ``item_ptr[g]:item_ptr[g+1]`` (:func:`~spada_tpu_torch.convert.item_ptr_of`).
     ``nbuf`` (2..16) asks for the depth of the kernel's shared-memory
     ring: the tensor-core path runs the compiled depth ``min(nbuf, 4)``,
-    the FP32 paths ``nbuf``.  ``ogroup`` changes no value of C.  A C tile
-    with no items is a zero tile.  CUDA tensors run ``csrc/tile_stream.cu``:
-    wide tiles on tensor cores (f32 as 3xTF32, bf16 as bf16 ``mma``, f32
-    sums), other shapes on FP32 FMAs.
+    the FP32 paths ``nbuf``; the thin one always rings 2 stages deep for
+    f32 tiles and 3 for bf16.  ``ogroup`` changes no value of C.  A C
+    tile with no items is a zero tile.  CUDA tensors run
+    ``csrc/tile_stream.cu`` on the block :func:`tile_block` names, as
+    :func:`tile_spgemm` (whose C it is bit for bit at ``ogroup`` 1 on the
+    tensor-core blocks); a launch of the thin block also counts as
+    ``"tile_stream_thin"``, from the block the kernel reports.
     """
     _check_tile_args("tile_stream", a_tiles, b_tiles, 2, a_tid=a_tid,
                      b_tid=b_tid, o_tid=o_tid, item_ptr=item_ptr)
@@ -490,15 +490,18 @@ def tile_stream(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                                      item_ptr, n_c_tiles, ogroup, nbuf)
     c = torch.empty((n_c_tiles, tm, tn), dtype=torch.float32,
                     device=a_tiles.device)
-    if not _has_work("tile_stream", n_c_tiles, a_tid.shape[0], tm, tk, tn):
+    block = _has_work("tile_stream", n_c_tiles, a_tid.shape[0], tm, tk, tn,
+                      a_tiles.dtype)
+    if block is None:
         return c.zero_()
     lib = _build.load()
     fn = (lib.tile_stream_f32 if a_tiles.dtype == torch.float32
           else lib.tile_stream_bf16)
-    _launched("tile_stream", fn(
-        a_tiles.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
-        b_tid.data_ptr(), o_tid.data_ptr(), item_ptr.data_ptr(), c.data_ptr(),
-        n_c_tiles, ogroup, tm, tk, tn, nbuf, _build.current_stream(a_tiles)))
+    _launch_reporting("tile_stream", block, (tm, tk, tn), a_tiles, fn,
+                      a_tiles.data_ptr(), b_tiles.data_ptr(),
+                      a_tid.data_ptr(), b_tid.data_ptr(), o_tid.data_ptr(),
+                      item_ptr.data_ptr(), c.data_ptr(), n_c_tiles, ogroup,
+                      tm, tk, tn, nbuf)
     return c
 
 
@@ -513,9 +516,10 @@ def tile_panel(a_tiles_t: torch.Tensor, b_tiles: torch.Tensor,
     (f32 or bf16), ``tile_ptr`` int32 [nC + 1] as for :func:`tile_spgemm`.
     The f32 sum is written as ``out_dtype`` (float32, or bfloat16 rounded
     once, to nearest even).  An empty run gives a zero tile.  CUDA tensors
-    run ``csrc/tile_panel.cu``: wide tiles on tensor cores, as
-    :func:`tile_spgemm` (whose f32 C the f32 output then equals), other
-    shapes on FP32 FMAs.
+    run ``csrc/tile_panel.cu`` on the block :func:`tile_block` names, as
+    :func:`tile_spgemm` (whose f32 C the f32 output equals bit for bit on
+    the tensor-core blocks); a launch of the thin block also counts as
+    ``"tile_panel_thin"``, from the block the kernel reports.
     """
     _check_tile_args("tile_panel", a_tiles_t, b_tiles, 1, a_tid=a_tid,
                      b_tid=b_tid, tile_ptr=tile_ptr)
@@ -528,15 +532,18 @@ def tile_panel(a_tiles_t: torch.Tensor, b_tiles: torch.Tensor,
         return tile_panel_reference(a_tiles_t, b_tiles, a_tid, b_tid,
                                     tile_ptr, out_dtype)
     c = torch.empty((n_c, tm, tn), dtype=out_dtype, device=b_tiles.device)
-    if not _has_work("tile_panel", n_c, a_tid.shape[0], tm, tk, tn):
+    block = _has_work("tile_panel", n_c, a_tid.shape[0], tm, tk, tn,
+                      a_tiles_t.dtype)
+    if block is None:
         return c.zero_()
     lib = _build.load()
     fn = (lib.tile_panel_f32 if a_tiles_t.dtype == torch.float32
           else lib.tile_panel_bf16)
-    _launched("tile_panel", fn(
-        a_tiles_t.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
-        b_tid.data_ptr(), tile_ptr.data_ptr(), c.data_ptr(), n_c, tm, tk, tn,
-        int(out_dtype == torch.bfloat16), _build.current_stream(b_tiles)))
+    _launch_reporting("tile_panel", block, (tm, tk, tn), b_tiles, fn,
+                      a_tiles_t.data_ptr(), b_tiles.data_ptr(),
+                      a_tid.data_ptr(), b_tid.data_ptr(), tile_ptr.data_ptr(),
+                      c.data_ptr(), n_c, tm, tk, tn,
+                      int(out_dtype == torch.bfloat16))
     return c
 
 
@@ -559,7 +566,8 @@ def tile_grid(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     c = torch.zeros((n_c_tiles, tm, tn), dtype=torch.float32,
                     device=a_tiles.device)
     n_items = int(a_tid.shape[0])
-    if not _has_work("tile_grid", n_c_tiles, n_items, tm, tk, tn):
+    if not _has_work("tile_grid", n_c_tiles, n_items, tm, tk, tn,
+                     a_tiles.dtype):
         return c
     lib = _build.load()
     fn = (lib.tile_grid_f32 if a_tiles.dtype == torch.float32
@@ -584,6 +592,25 @@ def _has_work(kernel: str, n_c: int, n_items: int, tm: int, tk: int,
 def _launched(kernel: str, status: int) -> None:
     _build.check(status, kernel)
     _build.launches[kernel] += 1
+
+
+def _launch_reporting(kernel: str, block: str, shape: tuple, like, fn,
+                      *args) -> None:
+    """Launch ``fn(*args, &ran, stream)``, a kernel that reports the block
+    it ran on in ``ran``, on the current stream of ``like``'s device; raise
+    where that block is not ``block`` (:func:`tile_block`'s), and count a
+    launch of the thin block also as ``kernel + "_thin"``."""
+    ran = ctypes.c_int(-1)
+    _launched(kernel, fn(*args, ctypes.byref(ran),
+                         _build.current_stream(like)))
+    got = (_BLOCKS[ran.value] if 0 <= ran.value < len(_BLOCKS)
+           else f"unknown ({ran.value})")
+    if got != block:
+        tm, tk, tn = shape
+        raise RuntimeError(f"{kernel}: tm={tm} tk={tk} tn={tn} ran on the "
+                           f"{got} block, tile_block names {block}")
+    if block == "mma_thin":
+        _build.launches[f"{kernel}_thin"] += 1
 
 
 def _check_tile_args(kernel: str, a_tiles, b_tiles, a_k_dim: int,

@@ -98,11 +98,33 @@ def _count_useful_flops(a: CsrMatrix, b: CsrMatrix) -> int:
     return int(2 * np.dot(a_col_counts.astype(np.int64), b_row_lens.astype(np.int64)))
 
 
-def tile_dtype(config: SpadaConfig) -> torch.dtype:
-    """The A/B tile dtype ``config.engine_dtype`` names."""
+def tile_dtype(config: SpadaConfig, dtype=None) -> torch.dtype:
+    """The A/B tile dtype: ``config.engine_dtype``'s, or what
+    :func:`spgemm`'s ``dtype`` asks for.  ``dtype`` None or float32 (a
+    torch or numpy dtype, or its name) means the config's, as the
+    reference's float32 default does (under a bf16 config, bf16 tiles);
+    bfloat16 (torch's, ``ml_dtypes``' or the name) means bf16 tiles under
+    any config.  Another dtype raises ``TypeError``."""
     if config.engine_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown engine_dtype {config.engine_dtype!r}")
+    name = "float32" if dtype is None else _dtype_name(dtype)
+    if name == "bfloat16":
+        return torch.bfloat16
+    if name != "float32":
+        raise TypeError(f"spgemm: dtype must be float32 or bfloat16, got "
+                        f"{dtype!r}")
     return torch.bfloat16 if config.engine_dtype == "bfloat16" else torch.float32
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, str):
+        return dtype
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    try:
+        return np.dtype(dtype).name
+    except TypeError:
+        return repr(dtype)
 
 
 def element_plan_bytes(a: CsrMatrix, b: CsrMatrix, cap: int = 512) -> dict:
@@ -208,6 +230,7 @@ def spgemm(
     dataflow: Optional[str] = None,
     tm: Optional[int] = None,
     plan=None,
+    dtype=None,
     device="cuda",
 ) -> SpGemmResult:
     """Sparse-times-sparse matrix multiply on ``device``.
@@ -216,8 +239,10 @@ def spgemm(
     passed; otherwise a single uniform panel height is used.
     ``dataflow='element'`` forces the element-granular ESC engine; under
     ``'spada'`` the engine is picked per matrix by :func:`dispatch_dataflow`
-    (``config.element_dispatch``).  The tile dtype is
-    ``config.engine_dtype``.
+    (``config.element_dispatch``).  The tile dtype of the uniform path is
+    :func:`tile_dtype`'s of ``config`` and ``dtype`` (None or float32: the
+    config's; bfloat16: bf16 tiles); the element path and the ``plan=`` path
+    take ``config.engine_dtype`` alone, as in the reference.
     """
     config = config or SpadaConfig()
     dataflow = dataflow or config.dataflow
@@ -245,7 +270,7 @@ def spgemm(
 
         return execute_plan(a, b, plan, config, device=dev)
 
-    dtype = tile_dtype(config)
+    dtype = tile_dtype(config, dtype)
     a, b, tm, a_bsr, b_bsr, wl = _uniform_worklist(a, b, config, dataflow, tm)
 
     isz = dtype.itemsize

@@ -106,16 +106,17 @@ def test_bf16_tiles_match_reference_in_f32(tm):
 
 
 def _expected_block(tm, tk, tn, dtype, kernel):
-    """The launch rule of csrc/tile_spgemm.cu, written out case by case:
-    tensor cores where the k-slice (32 f32, 64 bf16) divides tk and 128
-    divides tn, wide pieces for tm % 128 == 0, thin ones (tile_spgemm only)
-    for the planner's panel heights; FP32 SIMT blocks otherwise."""
+    """The launch rule of csrc/tile_spgemm.cu, tile_stream.cu and
+    tile_panel.cu, written out case by case: tensor cores where the k-slice
+    (32 f32, 64 bf16) divides tk and 128 divides tn, wide pieces for
+    tm % 128 == 0, thin ones for the planner's panel heights (not in
+    tile_grid); FP32 SIMT blocks otherwise."""
     k_slice = {torch.float32: 32, torch.bfloat16: 64}[dtype]
     panel = tm in (8, 16, 32) or tm % 64 == 0
     if tn % 128 == 0 and tk % k_slice == 0 and tm % 128 == 0:
         return "mma"
     if (tn % 128 == 0 and tk % k_slice == 0 and panel
-            and kernel == "tile_spgemm"):
+            and kernel != "tile_grid"):
         return "mma_thin"
     if tm % 128 == 0 and tn % 128 == 0 and tk % 8 == 0:
         return "wide_simt"
@@ -129,10 +130,11 @@ def _expected_block(tm, tk, tn, dtype, kernel):
 @pytest.mark.parametrize("tn", [64, 128, 512])
 @pytest.mark.parametrize("tm", [8, 16, 32, 64, 128, 192, 512])
 def test_tile_block_mirrors_the_launch_rule(tm, tn, tk, dtype):
-    """tile_block names the block tile_spgemm's launch() picks; the other
-    tile kernels run the thin shapes on their SIMT blocks; a shape no block
-    takes (tk = 40 below tm, tn = 128) raises."""
-    for kernel in ("tile_spgemm", "tile_stream"):
+    """tile_block names the block each tile kernel's launch() picks:
+    tile_spgemm, tile_stream and tile_panel run the thin shapes on the thin
+    tensor-core block, tile_grid on its SIMT blocks; a shape no block takes
+    (tk = 40 below tm, tn = 128) raises."""
+    for kernel in ("tile_spgemm", "tile_stream", "tile_panel", "tile_grid"):
         want = _expected_block(tm, tk, tn, dtype, kernel)
         if want is None:
             with pytest.raises(ValueError, match="tm"):
@@ -145,25 +147,47 @@ def test_tile_block_mirrors_the_launch_rule(tm, tn, tk, dtype):
         assert tile_block(tm, tk, tn, name) == tile_block(tm, tk, tn, dtype)
     # the thin block takes the planner's panel heights below 128 exactly
     if tn % 128 == 0 and tk == 128 and tm % 128:
-        assert tile_block(tm, tk, tn, dtype) == "mma_thin"
+        for kernel in ("tile_spgemm", "tile_stream", "tile_panel"):
+            assert tile_block(tm, tk, tn, dtype, kernel) == "mma_thin"
+
+
+def _csrc(name):
+    from spada_tpu_torch.ops import engine
+
+    return open(os.path.join(os.path.dirname(engine.__file__), os.pardir,
+                             "csrc", name)).read()
 
 
 def test_block_numbers_match_the_kernels_report():
     """The wrapper reads tile_spgemm's block from the number launch()
-    reports: engine._SPGEMM_BLOCKS and the kernel's enum list the blocks in
-    the same order."""
+    reports: engine._BLOCKS and the kernels' enum (csrc/tile_pipe.cuh,
+    under tile_spgemm.cu's includes) list the blocks in the same order."""
     import re
 
     from spada_tpu_torch.ops import engine
 
-    src = open(os.path.join(os.path.dirname(engine.__file__), os.pardir,
-                            "csrc", "tile_spgemm.cu")).read()
-    enum = re.search(r"enum : int \{([^}]*)\}", src).group(1)
+    enum = re.search(r"enum : int \{([^}]*kBlock[^}]*)\}",
+                     _csrc("tile_pipe.cuh")).group(1)
     pairs = re.findall(r"kBlock(\w+) = (\d+)", enum)
     names = {"Mma": "mma", "Thin": "mma_thin", "Wide": "wide_simt",
              "Narrow": "narrow_simt"}
     assert sorted((int(v), names[k]) for k, v in pairs) == list(
-        enumerate(engine._SPGEMM_BLOCKS))
+        enumerate(engine._BLOCKS))
+
+
+@pytest.mark.parametrize("kernel", ["tile_stream", "tile_panel"])
+def test_stream_and_panel_report_their_blocks(kernel):
+    """tile_stream and tile_panel report the block each launch ran on, as
+    tile_spgemm does: both entry points take an int* out-parameter just
+    before the stream (the wrappers check the block it names against
+    tile_block on the card)."""
+    import ctypes
+
+    from spada_tpu_torch import _build
+
+    for suffix in ("f32", "bf16"):
+        assert _build._SIGNATURES[f"{kernel}_{suffix}"][-2:] == [
+            ctypes.c_void_p, ctypes.c_void_p]
 
 
 def test_k_major_worklist_uses_plain_engine():

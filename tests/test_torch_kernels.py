@@ -231,9 +231,12 @@ def test_grouped_launch_edges(cuda_device):
         esc_stream_group(many, [2] * 17)
 
 
-# the tile shapes of test_tile_kernel_matches_plain, both block shapes
+# the tile shapes of test_tile_kernel_matches_plain, both block shapes;
+# tn = 64 keeps every narrow SIMT geometry (Geo8-Geo64) of tile_stream and
+# tile_panel held to plain, since their thin shapes run the thin block
 ENGINE_SHAPES = [(8, 128, 128), (16, 64, 128), (32, 128, 64), (64, 256, 256),
-                 (192, 128, 64), (128, 64, 256), (512, 512, 512)]
+                 (192, 128, 64), (128, 64, 256), (512, 512, 512),
+                 (8, 128, 64), (16, 128, 64)]
 
 # items per C tile.  "groups": empty runs inside a group and at its end, and
 # with ogroup 8 a whole group (C tiles 8-15) with none.  "long": a 64-item
@@ -286,6 +289,53 @@ def test_stream_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, ogroup,
     ref = engine.tile_stream_reference(*args)
     assert _relerr(got, ref) <= 1e-5
     assert bool((got[empty] == 0).all())
+
+
+# the thin shapes of tile_stream and tile_panel: every piece height (tm = 8
+# on 16 rows, 192 = three 64-row pieces), one and four 128-column pieces
+THIN_SHAPES = [(tm, tk, tk) for tm in (8, 16, 32, 64, 192)
+               for tk in (128, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", ENGINE_RUNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tm,tk,tn", THIN_SHAPES)
+def test_thin_stream_and_panel_match_plain_and_tile_spgemm(
+        cuda_device, tm, tk, tn, dtype, runs):
+    """The thin tensor-core block in tile_stream (ogroup 1 and 8) and
+    tile_panel (f32 and bf16 output): 1e-5 of max|C| against the plain
+    versions, empty runs and groups exact zero tiles, every launch on the
+    thin block (the kernels report it).  The same arithmetic on the same
+    values as tile_spgemm's thin block: tile_stream at ogroup 1 and
+    tile_panel's f32 output are its C bit for bit, the bf16 output that C
+    rounded once."""
+    a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
+                                                        tn, dtype, runs)
+    tp = dev(tile_ptr_of(o_ids, n_c))
+    a_t = a.transpose(1, 2).contiguous()
+    before = _build.launches.copy()
+    spg = tile_spgemm(a, b, ai, bi, tp)
+    streams = {}
+    for og in (1, 8):
+        args = (a, b, ai, bi, dev(o_ids), dev(item_ptr_of(o_ids, n_c, og)),
+                n_c, og)
+        streams[og] = engine.tile_stream(*args)
+        ref = engine.tile_stream_reference(*args)
+        assert _relerr(streams[og], ref) <= 1e-5
+        assert bool((streams[og][empty] == 0).all())
+    p32 = engine.tile_panel(a_t, b, ai, bi, tp)
+    p16 = engine.tile_panel(a_t, b, ai, bi, tp, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _build.launches - before == collections.Counter(
+        {"tile_spgemm": 1, "tile_spgemm_thin": 1, "tile_stream": 2,
+         "tile_stream_thin": 2, "tile_panel": 2, "tile_panel_thin": 2})
+    ref = engine.tile_panel_reference(a_t, b, ai, bi, tp)
+    assert _relerr(p32, ref) <= 1e-5
+    assert bool((p32[empty] == 0).all())
+    assert torch.equal(streams[1], spg)
+    assert torch.equal(p32, spg)
+    assert torch.equal(p16, spg.to(torch.bfloat16))
 
 
 # ENGINE_SHAPES and three wide tiles: T = 384 (tensor cores), tk = 32 (the
@@ -435,12 +485,14 @@ def test_engine_kernels_reject_what_they_cannot_take(cuda_device):
 @pytest.mark.cuda
 def test_wide_kernels_run_on_tensor_cores(cuda_device):
     """Every tensor-core kernel of the four main-path tile kernels (and
-    tile_spgemm's thin block) and of the probe holds HMMA instructions in
-    the built library (cuobjdump -sass): none compiled back to FFMA."""
+    the thin blocks of tile_spgemm, tile_stream and tile_panel) and of the
+    probe holds HMMA instructions in the built library (cuobjdump -sass):
+    none compiled back to FFMA."""
     _build.load()
     counts = _build.sass_counts("HMMA")
     for kernel in ("tile_spgemm_mma", "tile_spgemm_thin", "tile_stream_mma",
-                   "tile_panel_mma", "tile_grid_mma", "tile_probe_mma"):
+                   "tile_stream_thin", "tile_panel_mma", "tile_panel_thin",
+                   "tile_grid_mma", "tile_probe_mma"):
         names = [n for n in counts if kernel in n]
         assert names, f"no {kernel} in the library"
         assert all(counts[n] > 0 for n in names), counts

@@ -340,3 +340,76 @@ def test_cuda_time_needs_a_device():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA device"):
         cuda_time(lambda: None)
+
+
+def _dtype_pair():
+    from spada_tpu.io.workloads import banded_csr
+
+    return (banded_csr(512, 512, 24, seed=0, dtype=np.float32),
+            banded_csr(512, 512, 24, seed=1, dtype=np.float32))
+
+
+@pytest.mark.parametrize("cfg_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", [
+    None, np.float32, torch.float32, "float32", "ml_dtypes.bfloat16",
+    torch.bfloat16, "bfloat16"])
+def test_spgemm_dtype_matches_reference(cfg_dtype, dtype):
+    """spgemm's ``dtype`` sits where the reference's does (after ``plan``).
+    None or float32 (torch, numpy or the name) is the reference's float32
+    default: the config's tiles, so bf16 under a bf16 config; bfloat16
+    (torch's, ml_dtypes' or the name) is bf16 tiles under any config.  The
+    uniform path gives the reference's C within the engine's gate and its
+    tile_itemsize."""
+    import ml_dtypes
+
+    if dtype == "ml_dtypes.bfloat16":
+        dtype = ml_dtypes.bfloat16
+    bf16 = "bfloat16" in str(dtype)
+    a, b = _dtype_pair()
+    cfg = h100_config(engine_dtype=cfg_dtype, element_dispatch="never")
+    res = spgemm(P(a), P(b), cfg, "rowwise", None, None, dtype,
+                 device="cpu")
+    ref = jax_spgemm_mod.spgemm(a, b, cfg, dataflow="rowwise",
+                                dtype=ml_dtypes.bfloat16 if bf16
+                                else np.float32)
+    assert res.tile_itemsize == ref.tile_itemsize == (
+        2 if bf16 or cfg_dtype == "bfloat16" else 4)
+    assert (res.tm, res.n_work_items) == (ref.tm, ref.n_work_items)
+    _close(res.todense(), ref.todense())
+    gate = 1e-2 if res.tile_itemsize == 2 else 1e-4
+    want = _oracle(a, b)
+    assert np.abs(res.todense() - want).max() <= gate * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.float64, torch.float16,
+                                   "int8"])
+def test_spgemm_other_dtypes_raise(dtype):
+    """float16 and other dtypes raise TypeError in the port; the reference
+    runs float16 and float64 tiles (ROADMAP: differences by design)."""
+    a, b = _dtype_pair()
+    cfg = h100_config(element_dispatch="never")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        spgemm(P(a), P(b), cfg, dataflow="rowwise", dtype=dtype,
+               device="cpu")
+    assert jax_spgemm_mod.spgemm(a, b, cfg, dataflow="rowwise",
+                                 dtype=np.float16).tile_itemsize == 2
+
+
+def test_spgemm_dtype_only_on_the_uniform_path(cari_workload):
+    """As in the reference, ``dtype`` sets the tiles of the uniform path
+    alone: the element path and the ``plan=`` path ignore it."""
+    a, b, _ = _pairs(cari_workload)["locpl"]
+    cfg = h100_config()
+    el = spgemm(P(a), P(b), cfg, dataflow="element", dtype=torch.bfloat16,
+                device="cpu")
+    np.testing.assert_array_equal(
+        el.todense(),
+        spgemm(P(a), P(b), cfg, dataflow="element", device="cpu").todense())
+    a, b = _dtype_pair()
+    cfg = h100_config(element_dispatch="never")
+    plan = port_plan_spgemm(P(a), P(b), cfg)
+    via = spgemm(P(a), P(b), cfg, dataflow="spada", plan=plan,
+                 dtype=torch.bfloat16, device="cpu")
+    np.testing.assert_array_equal(
+        via.todense(), execute_plan(P(a), P(b), plan, cfg,
+                                    device="cpu").todense())

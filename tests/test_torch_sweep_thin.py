@@ -9,6 +9,7 @@ version on the card by ``tests/test_torch_kernels.py``.
 """
 
 import numpy as np
+import pytest
 
 from spada_tpu.io.workloads import banded_csr as jax_banded_csr
 from spada_tpu.ops.worklist import build_worklist as jax_build_worklist
@@ -46,3 +47,55 @@ def test_sweep_cli_on_cpu(capsys):
     assert "| bfloat16 | 16 | mma_thin |" in out
     assert "| bfloat16 | 128 | mma |" in out
     assert "not timed" in out
+
+
+def test_sweep_engines_share_operands_and_gate_each():
+    """``engines``: every tile kernel runs on the same operands and
+    worklist of each (dtype, tm), tile_stream at each ogroup of OGROUPS,
+    each case gated against its plain version and scipy; tile_spgemm,
+    tile_stream and tile_panel name the thin block below tm 128, tile_grid
+    its narrow SIMT block.  An unknown engine raises."""
+    tms = (8, 64, 128)
+    rows = sweep_thin.run(n=512, band=48, T=128, tms=tms, device="cpu",
+                          gate_rows=256, engines=sweep_thin.ENGINES,
+                          log=lambda s: None)
+    labels = ["tile_spgemm"] + [f"tile_stream og={og}"
+                                for og in sweep_thin.OGROUPS] + [
+        "tile_panel", "tile_grid"]
+    assert [(r["tm"], r["dtype"], r["engine"]) for r in rows] == [
+        (tm, dt, e) for tm in tms for dt in sweep_thin.DTYPES for e in labels]
+    assert set(sweep_thin.BITWISE) <= set(labels)
+    first = {}
+    for r in rows:
+        thin = "narrow_simt" if r["kernel"] == "tile_grid" else "mma_thin"
+        assert r["block"] == (thin if r["tm"] < 128 else "mma"), r
+        assert r["plain_err"] <= sweep_thin.PLAIN_TOL
+        assert r["gate_err"] <= sweep_thin.GATE[r["dtype"]]
+        assert (r["same_bits"] is None) == (r["kernel"] == "tile_spgemm")
+        # one worklist per tm, one bound per (dtype, tm)
+        key = (r["dtype"], r["tm"])
+        first.setdefault(key, r)
+        assert (r["W"], r["n_c"], r["bound_ms"]) == (
+            first[key]["W"], first[key]["n_c"], first[key]["bound_ms"])
+    assert not any(_build.launches[k] for k in sweep_thin.ENGINES)
+    with pytest.raises(ValueError, match="unknown engines"):
+        sweep_thin.run(n=512, band=48, tms=(8,), device="cpu",
+                       engines=("tile_probe",), log=lambda s: None)
+
+
+def test_sweep_cli_engines_on_cpu(capsys):
+    """Asking for tile_stream or tile_panel runs tile_spgemm first, the C
+    they must equal bit for bit on a card; tile_grid alone runs alone."""
+    assert sweep_thin.main(["--device", "cpu", "--n", "512", "--band", "48",
+                            "--tms", "16", "--dtypes", "float32",
+                            "--engines", "tile_panel,tile_stream"]) == 0
+    out = capsys.readouterr().out
+    table = [line.split(" | ")[3] for line in out.splitlines()
+             if line.startswith("| float32 | 16 |")]
+    assert table == ["tile_spgemm", "tile_stream og=1", "tile_stream og=8",
+                     "tile_panel"]
+    rows = sweep_thin.run(n=512, band=48, tms=(16,), dtypes=("float32",),
+                          device="cpu", gate_rows=256,
+                          engines=("tile_grid",), log=lambda s: None)
+    assert [(r["engine"], r["same_bits"]) for r in rows] == [
+        ("tile_grid", None)]
