@@ -11,8 +11,8 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
 
 1. environment: versions, the card's name and power limit, nvcc, build time,
    and the HMMA (tensor-core) instructions of the tensor-core kernels of
-   ``tile_spgemm``, ``tile_stream`` and ``tile_panel`` (each its wide and
-   its thin block), ``tile_grid`` and ``tile_probe_mma``
+   ``tile_spgemm``, ``tile_stream``, ``tile_panel`` and ``tile_grid``
+   (each its wide and its thin block) and ``tile_probe_mma``
    (``cuobjdump -sass``): a kernel with none, or a
    toolkit without cuobjdump, fails the run;
 2. each kernel against its plain PyTorch version on the card
@@ -24,16 +24,19 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    value, empty runs exact zeros, ``tile_stream`` at ogroup 1 and
    ``tile_panel``'s f32 output ``tile_spgemm``'s C bit for bit, and each
    thin shape counted as a launch of the thin block, which the kernels
-   report; at tn = 64 and tm 8, 16 and 64 ``tile_spgemm``, ``tile_stream``
-   and ``tile_panel`` on their narrow SIMT blocks, ``tile_spgemm`` against
+   report; at tn = 64 and tm 8, 16 and 64 ``tile_spgemm``, ``tile_stream``,
+   ``tile_panel`` and ``tile_grid`` on their narrow SIMT blocks,
+   ``tile_spgemm`` against
    the plain version too; ``esc_stream_mul`` bitwise; ``esc_stream_red``:
    <= 1e-6; ``esc_stream_group`` on plans of 1 to 10 classes bitwise its
    per-class kernels, twice the same bits);
 3. ``cari`` through the port's CLI, equal to scipy (rtol 1e-4, atol 1e-3),
    once on the auto engine (``tile_spgemm``), once under each
    ``--engine streaming | panel | pallas_grid``, each launching its kernel
-   and not ``tile_spgemm`` (streaming and panel their thin block: cari is
-   one tm-64 panel), and once with ``--plan-scheme profiled``; each
+   and not ``tile_spgemm``, on its thin block (cari is one tm-64 panel;
+   ``pallas_grid``'s engine time printed beside the items each of its
+   blocks takes, ``ops.engine.grid_chunk``'s G), and once with
+   ``--plan-scheme profiled``; each
    run prints its ``device perf:`` line, whose shares of a peak must be at
    most 100%; then the ``plan`` mode under both schemes (exit 0; the
    profiled one launches ``tile_spgemm``);
@@ -272,11 +275,10 @@ def host_enqueue_s(fn, reps: int = 5) -> float:
 
 #: the kernels that must run on tensor cores: the wide path of the four
 #: main-path tile kernels and the probe's build of it (csrc/tile_mma.cuh),
-#: and the thin path of tile_spgemm, tile_stream and tile_panel
-#: (csrc/tile_mma_thin.cuh)
+#: and the thin path of the four (csrc/tile_mma_thin.cuh)
 MMA_KERNELS = ("tile_spgemm_mma", "tile_spgemm_thin", "tile_stream_mma",
                "tile_stream_thin", "tile_panel_mma", "tile_panel_thin",
-               "tile_grid_mma", "tile_probe_mma")
+               "tile_grid_mma", "tile_grid_thin", "tile_probe_mma")
 
 
 def check_tensor_cores() -> None:
@@ -426,11 +428,12 @@ def check_engine_kernels(dev, errs: dict, rng) -> None:
     on random worklists with empty runs, and for ogroup 8 a whole group
     with no items (C tiles 8-15) and a last group of two C tiles.  On the
     tensor-core blocks (tn = tk), tile_stream at ogroup 1 and tile_panel's
-    f32 output bit for bit tile_spgemm's C, thin shapes launched on the
-    thin block; at tn = 64 tile_spgemm, tile_stream and tile_panel on their
-    narrow SIMT blocks (tm 8, 16 and 64), tile_spgemm against the plain
-    version.  The kernels report their block, and the wrappers raise where
-    it is not tile_block's."""
+    f32 output bit for bit tile_spgemm's C, the thin shapes of all four
+    kernels (tile_grid's among them) launched on the thin block; at tn = 64
+    tile_spgemm, tile_stream, tile_panel and tile_grid on their narrow SIMT
+    blocks (tm 8, 16 and 64), tile_spgemm against the plain version.  The
+    kernels report their block, and the wrappers raise where it is not
+    tile_block's."""
     import torch
 
     from spada_tpu_torch import _build
@@ -481,9 +484,9 @@ def check_engine_kernels(dev, errs: dict, rng) -> None:
             spg = E.tile_spgemm(a, b, ai, bi, tp)
             block = E.tile_block(tm, tk, tn, dtype, "tile_stream")
             require(all(E.tile_block(tm, tk, tn, dtype, k) == block
-                        for k in ("tile_spgemm", "tile_panel")),
-                    f"tm={tm} tk={tk} tn={tn}: tile_spgemm, tile_stream "
-                    f"and tile_panel on different blocks")
+                        for k in ("tile_spgemm", "tile_panel", "tile_grid")),
+                    f"tm={tm} tk={tk} tn={tn}: tile_spgemm, tile_stream, "
+                    f"tile_panel and tile_grid on different blocks")
             if block == "narrow_simt":
                 # tile_stream og=1's plain version is tile_spgemm's
                 cases.append(("tile_spgemm", "tile_spgemm", spg,
@@ -495,7 +498,7 @@ def check_engine_kernels(dev, errs: dict, rng) -> None:
                             f"not tile_spgemm's C bit for bit")
             ran = _build.launches - before
             for name, n in (("tile_stream", 2), ("tile_panel", 2),
-                            ("tile_spgemm", 1)):
+                            ("tile_spgemm", 1), ("tile_grid", 1)):
                 want = n if block == "mma_thin" else 0
                 require(ran[name] == n and ran[name + "_thin"] == want,
                         f"{name} tm={tm} tk={tk} tn={tn} {dtype}: "
@@ -572,9 +575,28 @@ def run_cari(dev, totals: dict, engine=None,
     require(counts.get(kernel, 0) > 0, f"cari did not launch {kernel}")
     require(engine is None or counts.get("tile_spgemm", 0) == 0,
             f"cari under --engine {engine} launched tile_spgemm")
-    require(engine not in ("streaming", "panel")
-            or counts.get(f"{kernel}_thin", 0) > 0,
+    require(engine is None or counts.get(f"{kernel}_thin", 0) > 0,
             f"cari under --engine {engine} did not launch the thin block")
+    if engine == "pallas_grid":
+        log("  " + grid_chunk_line(out.getvalue(), dev))
+
+
+def grid_chunk_line(text: str, dev) -> str:
+    """cari's pallas_grid engine time beside the G that ops.engine's rule
+    gives tile_grid's thin path for the run's worklist (its items, tile
+    edge and panel height, as the CLI printed them)."""
+    from spada_tpu_torch.ops import engine as E
+
+    ms = re.search(r"device perf: engine ([0-9.]+) ms", text).group(1)
+    items = int(re.search(r"work items: (\d+)", text).group(1))
+    t = int(re.search(r"tile size: (\d+)", text).group(1))
+    tms = [int(x) for x in re.findall(
+        r"(\d+):", re.search(r"tm histogram \{([^}]*)\}", text).group(1))]
+    require(len(tms) == 1, f"cari's plan has panels of tm {tms}, not one")
+    g = E.grid_chunk(items, E.thin_pieces(tms[0], t), E.sm_count(dev))
+    return (f"pallas_grid on cari: engine {ms} ms, {items} items of tm "
+            f"{tms[0]} at T = {t}, {E.sm_count(dev)} SMs: G = {g} item(s) "
+            f"per block of tile_grid's thin path")
 
 
 def check_device_perf_line(text: str, label: str) -> None:
@@ -831,15 +853,16 @@ THIN_LINE_CASE = ("float32", 64)
 #: the kernels line's thin rows: kernel -> the sweep case it reads
 THIN_LINE_ROWS = {"tile_spgemm_thin": "tile_spgemm",
                   "tile_stream_thin": "tile_stream og=1",
-                  "tile_panel_thin": "tile_panel"}
+                  "tile_panel_thin": "tile_panel",
+                  "tile_grid_thin": "tile_grid"}
 
 
 def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
                    extra: dict) -> None:
     """tools/sweep_thin on the banded 32768^2 pair at T = 128, every tile
     kernel on each (dtype, tm)'s operands: one launch per case, each gated
-    and timed; every tm below 128 on the thin block (tile_grid: its narrow
-    SIMT block), tm 128 on the wide one."""
+    and timed; every tm below 128 on the thin block, tm 128 on the wide
+    one."""
     from spada_tpu_torch.tools import sweep_thin
 
     def say(text):
@@ -851,10 +874,8 @@ def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
         rows = sweep_thin.run(n=32768, device=dev, gate_rows=GATE_ROWS,
                               lib_whole=(THIN_LINE_CASE,),
                               engines=sweep_thin.ENGINES, log=say)
-    thin_block = {k: "narrow_simt" if k == "tile_grid" else "mma_thin"
-                  for k in sweep_thin.ENGINES}
-    require(all(r["block"] == (thin_block[r["kernel"]] if r["tm"] < 128
-                               else "mma") for r in rows),
+    require(all(r["block"] == ("mma_thin" if r["tm"] < 128 else "mma")
+                for r in rows),
             f"phase 4c: blocks "
             f"{[(r['engine'], r['tm'], r['block']) for r in rows]}")
     want = {}
@@ -2026,7 +2047,8 @@ def main() -> int:
 
     errs = dict.fromkeys(("tile_spgemm", "tile_spgemm_thin", "tile_stream",
                           "tile_stream_thin", "tile_panel", "tile_panel_thin",
-                          "tile_grid", "esc_stream_mul", "esc_stream_red",
+                          "tile_grid", "tile_grid_thin", "esc_stream_mul",
+                          "esc_stream_red",
                           "esc_stream_group", "tile_probe", "tile_probe_mma",
                           "esc_stream_mul_blocked",
                           "esc_stream_red_blocked"), 0.0)
@@ -2095,6 +2117,9 @@ def main() -> int:
                                    "tile_panel_thin"),
                "tile_grid": ("spada_tpu_torch/csrc/tile_grid.cu",
                              "spada_tpu/ops/engine.py:199", "nn"),
+               "tile_grid_thin": ("spada_tpu_torch/csrc/tile_grid.cu",
+                                  "spada_tpu/ops/engine.py:199",
+                                  "tile_grid_thin"),
                "esc_stream_mul": ("spada_tpu_torch/csrc/esc_stream.cu",
                                   "spada_tpu/ops/element_stream.py:168",
                                   "esc_stream_mul"),

@@ -69,9 +69,10 @@ _SIGNATURES = {
     "tile_panel_f32": [_P] * 6 + [_I] * 5 + [_P, _P],
     "tile_panel_bf16": [_P] * 6 + [_I] * 5 + [_P, _P],
     # a_tiles, b_tiles, a_tid, b_tid, o_tid, c_tiles, n_items, tm, tk, tn,
+    # chunk (the thin path's items per block), block (as tile_spgemm's),
     # stream
-    "tile_grid_f32": [_P] * 6 + [_I] * 4 + [_P],
-    "tile_grid_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    "tile_grid_f32": [_P] * 6 + [_I] * 5 + [_P, _P],
+    "tile_grid_bf16": [_P] * 6 + [_I] * 5 + [_P, _P],
     # a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c, tm, tk, tn,
     # a_slots, b_slots, mode, stream
     "tile_probe_f32": [_P] * 6 + [_I] * 7 + [_P],

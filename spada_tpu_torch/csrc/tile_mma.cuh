@@ -450,9 +450,9 @@ __device__ __forceinline__ void add2(float* p, float x, float y) {
 
 // The epilogues: where piece() puts its finished C tiles, `out` [n_c][tm][tn].
 // put<ZERO>(c, ...) takes the warp's part of C tile c (ZERO: a tile with no
-// items).  Store writes each tile once, f32 or bf16, from this block's or
-// the thin block's fragments (HALF as each_pair's).  Add adds into a C
-// that starts zeroed, so an empty tile needs nothing.
+// items).  Store writes each tile once, f32 or bf16, and Add adds into a C
+// that starts zeroed, so an empty tile needs nothing; both take this
+// block's or the thin block's fragments (HALF as each_pair's).
 template <typename OutT>
 struct Store {
   OutT* out;
@@ -472,12 +472,12 @@ struct Add {
   float* out;
   size_t c_size;
   int tn;
-  template <bool ZERO>
+  template <bool ZERO, bool HALF = false, int MT, int NT>
   __device__ __forceinline__ void put(int c, int row0, int col0, int lane,
-                                      const float (&acc)[kMT][kNT][4]) const {
+                                      const float (&acc)[MT][NT][4]) const {
     if constexpr (!ZERO)
-      each_pair(out + c * c_size, tn, row0, col0, lane, acc,
-                [](float* p, float x, float y) { add2(p, x, y); });
+      each_pair<HALF>(out + c * c_size, tn, row0, col0, lane, acc,
+                      [](float* p, float x, float y) { add2(p, x, y); });
   }
 };
 

@@ -1,11 +1,13 @@
 // The thin tensor-core block (sm_90a): the row panels of height 8, 16, 32
 // and 64 (and odd multiples of 64) that the planner's per-row-group choice
 // (config.tm_choices) makes, which tile_mma.cuh's 128 x 128 piece cannot
-// take.  Three kernels run their thin shapes on it, as tile_mma.cuh's
+// take.  Four kernels run their thin shapes on it, as tile_mma.cuh's
 // block runs their wide ones:
 //   tile_spgemm.cu  one block per piece of a C tile, over its run;
 //   tile_stream.cu  one block per piece of a group of C tiles;
-//   tile_panel.cu   as tile_spgemm, A k-transposed, f32 or bf16 output.
+//   tile_panel.cu   as tile_spgemm, A k-transposed, f32 or bf16 output;
+//   tile_grid.cu    one block per piece of a chunk of consecutive items in
+//                   any order, each run's sum added into a zeroed C (Add).
 //
 // Work unit.  A block of 32 * kWarpsN threads (kWarpsN warps side by side
 // along the columns, each BM x 128 / kWarpsN) computes one BM x 128 piece
@@ -19,8 +21,8 @@
 // bf16 slices, so the ring must not drain between items.  The accumulator
 // lives in registers; at the end of a run the block hands its piece of
 // that C tile to the kernel's epilogue (tile_mma.cuh's Store: written once,
-// f32 or rounded once to bf16), gives the range's C tiles that have no
-// items as zeros, and starts again from zero.
+// f32 or rounded once to bf16; or Add: added into f32), gives the range's C
+// tiles that have no items as zeros, and starts again from zero.
 //
 // Arithmetic: tile_mma.cuh's, fragment for fragment.  f32 tiles 3xTF32 on
 // mma.sync.m16n8k8 (each operand split after its shared-memory read, small
@@ -270,7 +272,9 @@ __device__ __forceinline__ void slice_sums(
 
 // One BM x 128 piece (row0, col0) of the C tiles c_first .. c_end - 1 from
 // the items [lo, hi) of an o-sorted worklist; o_of(w) is item w's C tile,
-// and `out` (tile_mma.cuh's Store) takes each finished tile.  A tiles are
+// and `out` (tile_mma.cuh's Store or Add) takes each finished tile.  With
+// Add the items may come in any order: a run is then each stretch of
+// consecutive items with one o, added once.  A tiles are
 // [tm][tk], or with A_T k-transposed [tk][tm]; B tiles [tk][tn].  smem
 // holds STAGES stages of Shape<T, BM, A_T>.
 template <typename T, int BM, int STAGES, bool A_T, class OTile, class Out>

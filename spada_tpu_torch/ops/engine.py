@@ -18,7 +18,9 @@ for ``sm_90a``, each with its plain PyTorch version beside it:
   over k-transposed A, written as f32 or rounded once to bf16.
 - ``'pallas_grid'`` — :func:`tile_grid` (``csrc/tile_grid.cu``), replaces
   the kernel of ``run_worklist_pallas`` (also ``SpadaConfig.use_pallas``):
-  one block per item, added into a zeroed C with f32 atomics.
+  in any item order, each block's sums added into a zeroed C with f32
+  atomics; one block per item, or on thin panels per chunk of
+  :func:`grid_chunk` consecutive items.
 - ``'xla'`` — :func:`run_worklist_reference`, plain PyTorch (chunked
   gather -> ``bmm`` -> ``index_add_``), the port of the reference's XLA
   engine.  Order-independent, so it also runs k-major (``op``) schedules;
@@ -31,9 +33,8 @@ tile dtype (``SpadaConfig.engine_dtype``) is what selects bf16.  In all
 four kernels the wide tiles (tm and tn multiples of 128, tk of 32 f32 / 64
 bf16) run on tensor cores (``csrc/tile_mma.cuh``): f32 tiles as 3xTF32
 (each operand split into two TF32 parts, three products summed in f32,
-small terms first), bf16 tiles as bf16 ``mma`` with f32 sums;
-:func:`tile_spgemm`, :func:`tile_stream` and :func:`tile_panel` run the
-planner's thin row panels (tm 8-64) the same way
+small terms first), bf16 tiles as bf16 ``mma`` with f32 sums; all four
+run the planner's thin row panels (tm 8-64) the same way
 (``csrc/tile_mma_thin.cuh``).  :func:`tile_block` names the block a shape
 runs on.  The other shapes widen bf16 and run FP32 FMAs; the plain
 versions run f32 ``bmm``
@@ -46,6 +47,7 @@ splits are not copied.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -61,7 +63,12 @@ _TILE_DTYPES = (torch.float32, torch.bfloat16)
 #: by its number (csrc/tile_pipe.cuh's kBlock*)
 _BLOCKS = ("mma", "mma_thin", "wide_simt", "narrow_simt")
 #: the kernels that run thin row panels on the thin tensor-core block
-_THIN_KERNELS = ("tile_spgemm", "tile_stream", "tile_panel")
+_THIN_KERNELS = ("tile_spgemm", "tile_stream", "tile_panel", "tile_grid")
+#: tile_grid's thin path: the most items one block takes (G), and the
+#: blocks per SM its grid keeps before G grows (the measurements behind
+#: both are in csrc/tile_grid.cu's header)
+GRID_CHUNK_CAP = 16
+GRID_FILL = 8
 
 
 def tile_block(tm: int, tk: int, tn: int, dtype,
@@ -72,18 +79,16 @@ def tile_block(tm: int, tk: int, tn: int, dtype,
     - ``"mma"``: the tensor-core block (``csrc/tile_mma.cuh``): tm and tn
       multiples of 128, tk of 32 (f32) or 64 (bf16);
     - ``"mma_thin"``: the thin tensor-core block
-      (``csrc/tile_mma_thin.cuh``), not in ``tile_grid``: tm in {8, 16, 32}
-      or a multiple of 64 that ``"mma"`` does not take, tn a multiple of
-      128, tk of 32 / 64;
+      (``csrc/tile_mma_thin.cuh``): tm in {8, 16, 32} or a multiple of 64
+      that ``"mma"`` does not take, tn a multiple of 128, tk of 32 / 64;
     - ``"wide_simt"``: the FP32 SIMT block (``csrc/tile_wide.cuh``): tm and
       tn multiples of 128, tk of 8;
     - ``"narrow_simt"``: FP32 SIMT blocks of min(tm, 64) rows: tm in {8, 16,
       32} or a multiple of 64, tn a multiple of 64, tk of 16.
 
     ``kernel`` is ``"tile_spgemm"`` (``csrc/tile_spgemm.cu``'s ``launch``),
-    ``"tile_stream"`` or ``"tile_panel"``, which follow the same rule, or
-    ``"tile_grid"``, which runs the thin shapes on its SIMT blocks.  Raises
-    ``ValueError`` for a shape no block takes."""
+    or ``"tile_stream"``, ``"tile_panel"`` or ``"tile_grid"``, which follow
+    the same rule.  Raises ``ValueError`` for a shape no block takes."""
     bk = 64 if "bfloat16" in str(dtype) else 32
     rows = tm in (8, 16, 32) or (tm > 0 and tm % 64 == 0)
     if tm > 0 and tn > 0 and tk > 0:
@@ -100,6 +105,26 @@ def tile_block(tm: int, tk: int, tn: int, dtype,
         f"{kernel} takes tm, tn multiples of 128 and tk of 8, or tm in "
         f"{{8, 16, 32}} or a multiple of 64, tn a multiple of 64 and tk "
         f"of 16; got tm={tm} tk={tk} tn={tn}")
+
+
+def grid_chunk(n_items: int, pieces: int, n_sms: int) -> int:
+    """G, the consecutive items one block of ``tile_grid``'s thin path
+    takes, for ``n_items`` items of ``pieces`` thin pieces each on a card
+    of ``n_sms`` SMs.  1 (one block per item and piece) while the grid
+    would not keep :data:`GRID_FILL` blocks on every SM at G = 2; otherwise
+    the largest power of two up to :data:`GRID_CHUNK_CAP` that still does.
+    Chunk c holds items ``[c * G, min((c + 1) * G, n_items))``."""
+    g = 1
+    while (2 * g <= GRID_CHUNK_CAP
+           and -(-n_items // (2 * g)) * pieces >= GRID_FILL * n_sms):
+        g *= 2
+    return g
+
+
+def thin_pieces(tm: int, tn: int) -> int:
+    """The BM x 128 pieces of a tm x tn tile on the thin block (BM =
+    min(tm, 64))."""
+    return (tm // min(tm, 64)) * (tn // 128)
 
 
 def select_engine(order: str = "row", use_pallas: Optional[bool] = None
@@ -551,12 +576,27 @@ def tile_grid(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
               a_tid: torch.Tensor, b_tid: torch.Tensor, o_tid: torch.Tensor,
               n_c_tiles: int) -> torch.Tensor:
     """C tiles [n_c_tiles, tm, tn] f32: every item's product added into
-    ``C[o_tid[w]]``, one block per item and piece, in any item order.  C
-    starts zeroed, so a tile with no items is a zero tile.  The adds are
-    f32 atomics whose order changes from run to run.  CUDA tensors run
-    ``csrc/tile_grid.cu``: wide tiles on tensor cores, as
-    :func:`tile_spgemm`, other shapes on FP32 FMAs.
+    ``C[o_tid[w]]``, in any item order.  C starts zeroed, so a tile with no
+    items is a zero tile.  The adds are f32 atomics whose order changes
+    from run to run.  CUDA tensors run ``csrc/tile_grid.cu`` on the block
+    :func:`tile_block` names, with the arithmetic of :func:`tile_spgemm`:
+    wide tiles one block per item and piece, the planner's thin row panels
+    (tm 8-64) one block per piece and chunk of :func:`grid_chunk`
+    consecutive items, each run of a chunk (consecutive items of one C
+    tile) added once, both on tensor cores; the other shapes one block per
+    item and piece on FP32 FMAs.  A launch of the thin block also counts as
+    ``"tile_grid_thin"``: the kernel reports the block it ran on, and a
+    block other than :func:`tile_block`'s raises.
     """
+    return _tile_grid_launch(a_tiles, b_tiles, a_tid, b_tid, o_tid,
+                             n_c_tiles)
+
+
+def _tile_grid_launch(a_tiles, b_tiles, a_tid, b_tid, o_tid, n_c_tiles: int,
+                      chunk: Optional[int] = None) -> torch.Tensor:
+    """:func:`tile_grid` with the thin path's G given (``chunk``; None:
+    :func:`grid_chunk`'s), for the tests and the sweep that measure the
+    rule."""
     _check_tile_args("tile_grid", a_tiles, b_tiles, 2, a_tid=a_tid,
                      b_tid=b_tid, o_tid=o_tid)
     tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
@@ -566,17 +606,28 @@ def tile_grid(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     c = torch.zeros((n_c_tiles, tm, tn), dtype=torch.float32,
                     device=a_tiles.device)
     n_items = int(a_tid.shape[0])
-    if not _has_work("tile_grid", n_c_tiles, n_items, tm, tk, tn,
-                     a_tiles.dtype):
+    block = _has_work("tile_grid", n_c_tiles, n_items, tm, tk, tn,
+                      a_tiles.dtype)
+    if block is None:
         return c
+    if chunk is None:
+        chunk = (grid_chunk(n_items, thin_pieces(tm, tn),
+                            sm_count(a_tiles.device))
+                 if block == "mma_thin" else 1)
     lib = _build.load()
     fn = (lib.tile_grid_f32 if a_tiles.dtype == torch.float32
           else lib.tile_grid_bf16)
-    _launched("tile_grid", fn(
-        a_tiles.data_ptr(), b_tiles.data_ptr(), a_tid.data_ptr(),
-        b_tid.data_ptr(), o_tid.data_ptr(), c.data_ptr(), n_items, tm, tk, tn,
-        _build.current_stream(a_tiles)))
+    _launch_reporting("tile_grid", block, (tm, tk, tn), a_tiles, fn,
+                      a_tiles.data_ptr(), b_tiles.data_ptr(),
+                      a_tid.data_ptr(), b_tid.data_ptr(), o_tid.data_ptr(),
+                      c.data_ptr(), n_items, tm, tk, tn, int(chunk))
     return c
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """The SMs of CUDA device ``dev`` (:func:`grid_chunk`'s ``n_sms``)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _has_work(kernel: str, n_c: int, n_items: int, tm: int, tk: int,

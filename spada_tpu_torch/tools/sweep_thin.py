@@ -3,7 +3,9 @@ to 128, the heights the per-row-group planner picks among
 (``config.tm_choices``).
 
 Input: ``banded_csr(n, n, 384, seed=0 / 1)`` (the pair of
-``probe_item_overhead``), B in T x T tiles, A in tm x T tiles for each tm
+``probe_item_overhead``), or with ``pair="cari"`` the CLI's stock matrix
+(``matrices/cari.mtx``, C = A A^T, from the working directory), B in T x T
+tiles, A in tm x T tiles for each tm
 of :data:`TMS`, one row worklist per tm, f32 and bf16 tiles, built once per
 tm and run by each engine of ``engines`` (:data:`ENGINES`, in that order):
 ``tile_spgemm`` (:func:`~spada_tpu_torch.ops.engine.prepare_cached`, the
@@ -13,7 +15,10 @@ case is one launch, gated against its plain version (1e-5 of max|C|) and
 against scipy on C's first 2048 rows (f32 tiles 1e-4, bf16 1e-2); on a card
 ``tile_stream`` at ogroup 1 and ``tile_panel`` must also give
 ``tile_spgemm``'s C bit for bit, so asking for either runs ``tile_spgemm``
-too, first.  Then it is timed on CUDA events
+too, first.  ``grid_chunks`` adds, on the thin block, a ``tile_grid`` case
+for each G given to its C entry point (``tile_grid G=g``), beside
+``tile_grid``'s own case at the G of ``ops.engine.grid_chunk``: the
+measurement behind that rule.  Then it is timed on CUDA events
 (``utils.timing.cuda_time``) beside:
 
 - the block it ran on (:func:`~spada_tpu_torch.ops.engine.tile_block`);
@@ -32,6 +37,8 @@ are gated, not timed.
 
     python -m spada_tpu_torch.tools.sweep_thin
     python -m spada_tpu_torch.tools.sweep_thin --engines tile_spgemm,tile_stream,tile_panel,tile_grid
+    python -m spada_tpu_torch.tools.sweep_thin --engines tile_spgemm,tile_grid --grid-chunks 1,2,4,8,16
+    python -m spada_tpu_torch.tools.sweep_thin --pair cari --tms 64 --engines tile_grid --grid-chunks 1,2,4
     python -m spada_tpu_torch.tools.sweep_thin --device cpu --n 2048
 """
 
@@ -66,6 +73,8 @@ OGROUPS = (1, 8)
 NBUF = 8
 #: the cases that must give tile_spgemm's C bit for bit on a card
 BITWISE = ("tile_stream og=1", "tile_panel")
+#: the operand pairs: the banded pair, or the CLI's stock matrix
+PAIRS = ("banded", "cari")
 
 
 def _uncounted_s(call: Callable, dev) -> Optional[float]:
@@ -88,6 +97,7 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
         device="cuda", gate_rows: int = 2048,
         lib_whole: Sequence[tuple] = (),
         engines: Sequence[str] = ("tile_spgemm",),
+        pair: str = "banded", grid_chunks: Sequence[int] = (),
         log: Callable[[str], None] = print) -> List[dict]:
     """Every (dtype, tm, engine case) case, gated and (on a card) timed;
     the engines run in :data:`ENGINES`' order, ``tile_spgemm`` added where
@@ -95,19 +105,25 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
     case: engine (the case's label), kernel, dtype, tm, block, W, n_c, ms,
     ns_item, plain_ms, bound_ms, bound_by, lib_ns_item, lib_ms (the bmm of
     all W pairs, for the (dtype, tm) cases of ``lib_whole``, else None),
+    chunk (``tile_grid``'s G on the thin block: the one given, or on a card
+    the rule's; else None),
     plain_err (of max|C|), plain_abs_err, gate_err, same_bits (whether C
     equals ``tile_spgemm``'s bit for bit; None for ``tile_spgemm`` and
     where it did not run)."""
     from spada_tpu_torch.config import roofline_bound, tile_work
     from spada_tpu_torch.convert import (bsr_to_torch, check_device,
                                          worklist_to_torch)
-    from spada_tpu_torch.io.workloads import banded_csr
-    from spada_tpu_torch.ops.engine import tile_block
+    from spada_tpu_torch.config import SpadaConfig
+    from spada_tpu_torch.io.workloads import GemmWorkload, banded_csr
+    from spada_tpu_torch.ops.engine import (grid_chunk, sm_count,
+                                            thin_pieces, tile_block)
     from spada_tpu_torch.ops.worklist import build_worklist
     from spada_tpu_torch.sparse.bsr import BsrMatrix
     from spada_tpu_torch.utils.timing import cuda_time
 
     unknown = set(engines) - set(ENGINES)
+    if pair not in PAIRS:
+        raise ValueError(f"unknown pair {pair!r}; expected one of {PAIRS}")
     if unknown:
         raise ValueError(f"unknown engines {sorted(unknown)}; expected some "
                          f"of {ENGINES}")
@@ -118,11 +134,18 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
     dev = check_device(device)
     name = card_name(dev)
     t0 = time.perf_counter()
-    a = banded_csr(n, n, bandwidth=band, seed=0, dtype=np.float32)
-    b = banded_csr(n, n, bandwidth=band, seed=1, dtype=np.float32)
+    if pair == "cari":
+        w = GemmWorkload.from_suitesparse(SpadaConfig().ss_filepath, "cari")
+        a, b = w.a.astype(np.float32), w.b.astype(np.float32)
+        what = f"cari {a.shape[0]} x {a.shape[1]}"
+    else:
+        a = banded_csr(n, n, bandwidth=band, seed=0, dtype=np.float32)
+        b = banded_csr(n, n, bandwidth=band, seed=1, dtype=np.float32)
+        what = f"banded {n}^2, band {band}"
+    c_shape = (a.shape[0], b.shape[1])
     ref = first_rows_ref(a, b, gate_rows)
     b_bsr = BsrMatrix.from_csr(b, T, T, dtype=np.float32)
-    log(f"banded {n}^2, band {band}, T = {T}: nnz {a.nnz} / {b.nnz} "
+    log(f"{what}, T = {T}: nnz {a.nnz} / {b.nnz} "
         f"({time.perf_counter() - t0:.1f} s host); card {name or 'none (cpu)'}")
     rows = []
     for tm in tms:
@@ -152,8 +175,12 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
                 if (dt, tm) in lib_whole:
                     lib_ms = bmm_s(W) * 1e3
             c_spgemm = None
-            for label, kernel, call, plain in _cases(engines, a_t, b_t, wl,
-                                                     dwl, dev):
+            thin = tile_block(tm, T, T, tdt, "tile_grid") == "mma_thin"
+            rule_g = (grid_chunk(W, thin_pieces(tm, T), sm_count(dev))
+                      if thin and dev.type == "cuda" else None)
+            chunks = tuple(grid_chunks) if thin else ()
+            for label, kernel, call, plain, g in _cases(
+                    engines, a_t, b_t, wl, dwl, dev, chunks, rule_g):
                 c, p = call(), plain()
                 p_err, p_abs = relerr(c, p), float((c - p).abs().max())
                 del p
@@ -161,7 +188,7 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
                     raise RuntimeError(f"{dt} tm={tm}: {label} vs plain "
                                        f"{p_err:.3e} > {PLAIN_TOL:g}")
                 g_err = gate(tile_rows(c, wl.c_tile_row, wl.c_tile_col, tm,
-                                       T, (n, n), gate_rows), ref, GATE[dt],
+                                       T, c_shape, gate_rows), ref, GATE[dt],
                              f"{label}, {dt} tiles, tm={tm}")
                 same = None
                 if kernel == "tile_spgemm":
@@ -180,7 +207,7 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
                        "bound_ms": bound_s * 1e3, "bound_by": by,
                        "lib_ns_item": lib_ns, "lib_ms": lib_ms,
                        "plain_err": p_err, "plain_abs_err": p_abs,
-                       "gate_err": g_err, "same_bits": same}
+                       "gate_err": g_err, "same_bits": same, "chunk": g}
                 if dev.type == "cuda":
                     k_s = _uncounted_s(call, dev)
                     p_s = cuda_time(plain, warmup=1, reps=3)[0]
@@ -195,10 +222,11 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
     return rows
 
 
-def _cases(engines, a_t, b_t, wl, dwl, dev):
-    """(label, kernel, call, plain) of each engine case on one operand set:
-    the calls the engines' ``run_worklist_*`` make (``tile_stream`` with
-    their nbuf, once per ogroup of :data:`OGROUPS`)."""
+def _cases(engines, a_t, b_t, wl, dwl, dev, grid_chunks=(), rule_g=None):
+    """(label, kernel, call, plain, G) of each engine case on one operand
+    set: the calls the engines' ``run_worklist_*`` make (``tile_stream``
+    with their nbuf, once per ogroup of :data:`OGROUPS`; ``tile_grid`` at
+    the rule's G, ``rule_g``, and at each G of ``grid_chunks``)."""
     from spada_tpu_torch.convert import item_ptr_of
     from spada_tpu_torch.ops import engine as E
 
@@ -209,7 +237,8 @@ def _cases(engines, a_t, b_t, wl, dwl, dev):
         if eng == "tile_spgemm":
             cases.append((eng, eng, E.prepare_cached(
                 a_t, b_t, wl.a_tid, wl.b_tid, wl.o_tid, n_c),
-                lambda: E.run_worklist_reference(a_t, b_t, ai, bi, oi, n_c)))
+                lambda: E.run_worklist_reference(a_t, b_t, ai, bi, oi, n_c),
+                None))
         elif eng == "tile_stream":
             for og in OGROUPS:
                 ip = torch.from_numpy(item_ptr_of(wl.o_tid, n_c, og)).to(dev)
@@ -217,15 +246,24 @@ def _cases(engines, a_t, b_t, wl, dwl, dev):
                 cases.append((f"tile_stream og={og}", eng,
                               lambda args=args: E.tile_stream(*args),
                               lambda args=args: E.tile_stream_reference(
-                                  *args)))
+                                  *args), None))
         elif eng == "tile_panel":
             args = (a_t.transpose(1, 2).contiguous(), b_t, ai, bi, tp)
             cases.append((eng, eng, lambda args=args: E.tile_panel(*args),
-                          lambda args=args: E.tile_panel_reference(*args)))
+                          lambda args=args: E.tile_panel_reference(*args),
+                          None))
         else:
             args = (a_t, b_t, ai, bi, oi, n_c)
+
+            def plain(args=args):
+                return E.tile_grid_reference(*args)
+
             cases.append((eng, eng, lambda args=args: E.tile_grid(*args),
-                          lambda args=args: E.tile_grid_reference(*args)))
+                          plain, rule_g))
+            for g in grid_chunks:
+                cases.append((f"tile_grid G={g}", eng,
+                              lambda args=args, g=g: E._tile_grid_launch(
+                                  *args, chunk=g), plain, g))
     return cases
 
 
@@ -245,19 +283,19 @@ def case_line(r: dict) -> str:
             + ("" if r["lib_ms"] is None else
                f", of all W pairs {r['lib_ms']:.3f} ms")
             + f"  vs plain {r['plain_err']:.1e}, vs scipy {r['gate_err']:.1e}"
-            + same)
+            + same + ("" if r["chunk"] is None else f", G {r['chunk']}"))
 
 
 def report(rows: List[dict], card: Optional[str]) -> str:
     """Markdown: one line per case."""
     lines = [f"thin-panel sweep on {card or 'the CPU (not timed)'}:",
-             "| tiles | tm | block | engine | W | ms | ns/item | plain ms "
+             "| tiles | tm | block | engine | G | W | ms | ns/item | plain ms "
              "| bound ms | bmm ns/item |",
-             "|---|---|---|---|---|---|---|---|---|---|"]
+             "|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
         lines.append(
             f"| {r['dtype']} | {r['tm']} | {r['block']} | {r['engine']} | "
-            f"{r['W']} | "
+            f"{'' if r['chunk'] is None else r['chunk']} | {r['W']} | "
             f"{_f(r['ms'], '.3f')} | {_f(r['ns_item'], '.1f')} | "
             f"{_f(r['plain_ms'], '.3f')} | {r['bound_ms']:.3f} "
             f"({r['bound_by']}) | {_f(r['lib_ns_item'], '.1f')} |")
@@ -274,9 +312,15 @@ def main(argv=None):
     p.add_argument("--dtypes", default=",".join(DTYPES))
     p.add_argument("--engines", default="tile_spgemm",
                    help=f"some of {','.join(ENGINES)}")
+    p.add_argument("--pair", default="banded", choices=PAIRS)
+    p.add_argument("--grid-chunks", default="",
+                   help="tile_grid's thin cases also at these G, e.g. "
+                        "1,2,4,8,16")
     args = p.parse_args(argv)
     run(args.n, args.band, args.T, [int(x) for x in args.tms.split(",")],
-        args.dtypes.split(","), args.device, engines=args.engines.split(","))
+        args.dtypes.split(","), args.device, engines=args.engines.split(","),
+        pair=args.pair,
+        grid_chunks=[int(x) for x in args.grid_chunks.split(",") if x])
     return 0
 
 

@@ -106,17 +106,16 @@ def test_bf16_tiles_match_reference_in_f32(tm):
 
 
 def _expected_block(tm, tk, tn, dtype, kernel):
-    """The launch rule of csrc/tile_spgemm.cu, tile_stream.cu and
-    tile_panel.cu, written out case by case: tensor cores where the k-slice
-    (32 f32, 64 bf16) divides tk and 128 divides tn, wide pieces for
-    tm % 128 == 0, thin ones for the planner's panel heights (not in
-    tile_grid); FP32 SIMT blocks otherwise."""
+    """The launch rule of csrc/tile_spgemm.cu, tile_stream.cu, tile_panel.cu
+    and tile_grid.cu, written out case by case: tensor cores where the
+    k-slice (32 f32, 64 bf16) divides tk and 128 divides tn, wide pieces
+    for tm % 128 == 0, thin ones for the planner's panel heights; FP32 SIMT
+    blocks otherwise."""
     k_slice = {torch.float32: 32, torch.bfloat16: 64}[dtype]
     panel = tm in (8, 16, 32) or tm % 64 == 0
     if tn % 128 == 0 and tk % k_slice == 0 and tm % 128 == 0:
         return "mma"
-    if (tn % 128 == 0 and tk % k_slice == 0 and panel
-            and kernel != "tile_grid"):
+    if tn % 128 == 0 and tk % k_slice == 0 and panel:
         return "mma_thin"
     if tm % 128 == 0 and tn % 128 == 0 and tk % 8 == 0:
         return "wide_simt"
@@ -130,10 +129,9 @@ def _expected_block(tm, tk, tn, dtype, kernel):
 @pytest.mark.parametrize("tn", [64, 128, 512])
 @pytest.mark.parametrize("tm", [8, 16, 32, 64, 128, 192, 512])
 def test_tile_block_mirrors_the_launch_rule(tm, tn, tk, dtype):
-    """tile_block names the block each tile kernel's launch() picks:
-    tile_spgemm, tile_stream and tile_panel run the thin shapes on the thin
-    tensor-core block, tile_grid on its SIMT blocks; a shape no block takes
-    (tk = 40 below tm, tn = 128) raises."""
+    """tile_block names the block each tile kernel's launch() picks: all
+    four tile kernels run the thin shapes on the thin tensor-core block; a
+    shape no block takes (tk = 40 below tm, tn = 128) raises."""
     for kernel in ("tile_spgemm", "tile_stream", "tile_panel", "tile_grid"):
         want = _expected_block(tm, tk, tn, dtype, kernel)
         if want is None:
@@ -147,7 +145,8 @@ def test_tile_block_mirrors_the_launch_rule(tm, tn, tk, dtype):
         assert tile_block(tm, tk, tn, name) == tile_block(tm, tk, tn, dtype)
     # the thin block takes the planner's panel heights below 128 exactly
     if tn % 128 == 0 and tk == 128 and tm % 128:
-        for kernel in ("tile_spgemm", "tile_stream", "tile_panel"):
+        for kernel in ("tile_spgemm", "tile_stream", "tile_panel",
+                       "tile_grid"):
             assert tile_block(tm, tk, tn, dtype, kernel) == "mma_thin"
 
 
@@ -175,12 +174,12 @@ def test_block_numbers_match_the_kernels_report():
         enumerate(engine._BLOCKS))
 
 
-@pytest.mark.parametrize("kernel", ["tile_stream", "tile_panel"])
+@pytest.mark.parametrize("kernel", ["tile_stream", "tile_panel", "tile_grid"])
 def test_stream_and_panel_report_their_blocks(kernel):
-    """tile_stream and tile_panel report the block each launch ran on, as
-    tile_spgemm does: both entry points take an int* out-parameter just
-    before the stream (the wrappers check the block it names against
-    tile_block on the card)."""
+    """tile_stream, tile_panel and tile_grid report the block each launch
+    ran on, as tile_spgemm does: their entry points take an int*
+    out-parameter just before the stream (the wrappers check the block it
+    names against tile_block on the card)."""
     import ctypes
 
     from spada_tpu_torch import _build
@@ -188,6 +187,62 @@ def test_stream_and_panel_report_their_blocks(kernel):
     for suffix in ("f32", "bf16"):
         assert _build._SIGNATURES[f"{kernel}_{suffix}"][-2:] == [
             ctypes.c_void_p, ctypes.c_void_p]
+
+
+def test_grid_entry_point_takes_the_chunk():
+    """tile_grid's entry points take G (an int) after tm, tk, tn and
+    before the block pointer: the thin path's items per block."""
+    import ctypes
+
+    for suffix in ("f32", "bf16"):
+        sig = _build._SIGNATURES[f"tile_grid_{suffix}"]
+        assert sig == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_void_p]
+
+
+CARI_ITEMS = 130  # cari's tm-64 panel at T = 128: one thin piece an item
+
+
+@pytest.mark.parametrize("n_sms", [1, 8, 114, 132])
+@pytest.mark.parametrize("pieces", [1, 2, 4, 12])
+@pytest.mark.parametrize("n_items", [1, 7, 130, 1055, 1056, 4224, 24808,
+                                     198464, 3_000_000])
+def test_grid_chunk_rule(n_items, pieces, n_sms):
+    """grid_chunk's G: a power of two no larger than the cap, 1 wherever
+    two-item chunks would leave fewer than GRID_FILL blocks per SM, and
+    otherwise the largest G whose grid still keeps that many; the chunks
+    [c G, min((c + 1) G, W)) of the kernel's grid hold every item exactly
+    once, none empty.  cari's 130 items run one block each on a card of
+    132 SMs (and of 114)."""
+    from spada_tpu_torch.ops import engine as E
+
+    g = E.grid_chunk(n_items, pieces, n_sms)
+    assert 1 <= g <= E.GRID_CHUNK_CAP and g & (g - 1) == 0
+
+    def blocks(g):
+        return -(-n_items // g) * pieces
+
+    if blocks(2) < E.GRID_FILL * n_sms:
+        assert g == 1
+    else:
+        assert blocks(g) >= E.GRID_FILL * n_sms
+        assert g == E.GRID_CHUNK_CAP or blocks(2 * g) < E.GRID_FILL * n_sms
+    n_chunks = -(-n_items // g)
+    lo = np.arange(n_chunks) * g
+    hi = np.minimum(lo + g, n_items)
+    assert np.all(hi > lo) and lo[0] == 0 and hi[-1] == n_items
+    assert np.array_equal(lo[1:], hi[:-1])
+    if n_items == CARI_ITEMS and pieces == 1 and n_sms >= 114:
+        assert g == 1
+
+
+def test_grid_chunk_pieces_follow_the_thin_block():
+    """The thin pieces of a tile: BM x 128 with BM = min(tm, 64)."""
+    from spada_tpu_torch.ops import engine as E
+
+    assert [E.thin_pieces(tm, 128) for tm in (8, 16, 32, 64, 192)] == [
+        1, 1, 1, 1, 3]
+    assert E.thin_pieces(64, 512) == 4 and E.thin_pieces(8, 384) == 3
 
 
 def test_k_major_worklist_uses_plain_engine():

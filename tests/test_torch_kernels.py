@@ -394,6 +394,40 @@ def test_grid_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, runs):
     assert bool((got[empty] == 0).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", ENGINE_RUNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tm,tk,tn", THIN_SHAPES)
+def test_thin_grid_matches_plain(cuda_device, tm, tk, tn, dtype, runs):
+    """tile_grid's thin tensor-core block: 1e-5 of max|C| against the plain
+    version with the worklist o-sorted (each chunk's runs added once) and
+    shuffled (one add per item), empty C tiles exact zeros, each call one
+    launch counted as tile_grid and as tile_grid_thin.  Chunks of G = 2 and
+    4 items, given to the C entry point, split the 64-item run of "long"
+    (and every run of two or more) across blocks."""
+    a, b, ai, bi, o_ids, n_c, empty, dev = _engine_case(cuda_device, tm, tk,
+                                                        tn, dtype, runs)
+    o = dev(o_ids)
+    perm = dev(np.random.default_rng(1).permutation(len(o_ids)))
+    orders = {"sorted": (ai, bi, o), "shuffled": (ai[perm], bi[perm],
+                                                  o[perm])}
+    for order, ids in orders.items():
+        args = (a, b, *ids, n_c)
+        before = _build.launches.copy()
+        got = engine.tile_grid(*args)
+        torch.cuda.synchronize()
+        assert _build.launches - before == collections.Counter(
+            {"tile_grid": 1, "tile_grid_thin": 1}), order
+        ref = engine.tile_grid_reference(*args)
+        assert _relerr(got, ref) <= 1e-5, order
+        assert bool((got[empty] == 0).all()), order
+        for g in (2, 4):
+            got = engine._tile_grid_launch(*args, chunk=g)
+            torch.cuda.synchronize()
+            assert _relerr(got, ref) <= 1e-5, (order, g)
+            assert bool((got[empty] == 0).all()), (order, g)
+
+
 def _f64_relerr(got, a, b, ai, bi, o_ids, n_c):
     """max|got - C| / max|C| of the f64 product of the worklist."""
     a64, b64 = a.double().cpu(), b.double().cpu()
@@ -433,17 +467,19 @@ def test_panel_kernel_long_run_against_f64(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_grid_kernel_atomics_collide(cuda_device, dtype):
+@pytest.mark.parametrize("tm", [256, 16, 64])
+def test_grid_kernel_atomics_collide(cuda_device, tm, dtype):
     """96 shuffled items into one C tile (and a few into two others): the
-    blocks of every item add into the same addresses at once.  The sum of
-    the folded tensor-core products stays within 1e-5 of max|C| of the f64
-    product and of the plain version."""
+    blocks of every item add into the same addresses at once, on the wide
+    block (tm 256) and the thin one (tm 16 and 64).  The sum of the folded
+    tensor-core products stays within 1e-5 of max|C| of the f64 product
+    and of the plain version."""
     rng = np.random.default_rng(96)
     o_ids = np.r_[np.full(96, 1), [0, 0, 2]].astype(np.int32)
     n_c, w = 3, len(o_ids)
     perm = rng.permutation(w)
     o_ids = o_ids[perm]
-    a = torch.from_numpy(rng.standard_normal((8, 256, 512), np.float32))
+    a = torch.from_numpy(rng.standard_normal((8, tm, 512), np.float32))
     b = torch.from_numpy(rng.standard_normal((8, 512, 256), np.float32))
     a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
     ai = torch.from_numpy(rng.integers(0, 8, w).astype(np.int32))
@@ -484,15 +520,14 @@ def test_engine_kernels_reject_what_they_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 def test_wide_kernels_run_on_tensor_cores(cuda_device):
-    """Every tensor-core kernel of the four main-path tile kernels (and
-    the thin blocks of tile_spgemm, tile_stream and tile_panel) and of the
-    probe holds HMMA instructions in the built library (cuobjdump -sass):
-    none compiled back to FFMA."""
+    """Every tensor-core kernel of the four main-path tile kernels (their
+    wide and their thin blocks) and of the probe holds HMMA instructions in
+    the built library (cuobjdump -sass): none compiled back to FFMA."""
     _build.load()
     counts = _build.sass_counts("HMMA")
     for kernel in ("tile_spgemm_mma", "tile_spgemm_thin", "tile_stream_mma",
                    "tile_stream_thin", "tile_panel_mma", "tile_panel_thin",
-                   "tile_grid_mma", "tile_probe_mma"):
+                   "tile_grid_mma", "tile_grid_thin", "tile_probe_mma"):
         names = [n for n in counts if kernel in n]
         assert names, f"no {kernel} in the library"
         assert all(counts[n] > 0 for n in names), counts

@@ -53,8 +53,8 @@ def test_sweep_engines_share_operands_and_gate_each():
     """``engines``: every tile kernel runs on the same operands and
     worklist of each (dtype, tm), tile_stream at each ogroup of OGROUPS,
     each case gated against its plain version and scipy; tile_spgemm,
-    tile_stream and tile_panel name the thin block below tm 128, tile_grid
-    its narrow SIMT block.  An unknown engine raises."""
+    all four kernels name the thin block below tm 128.  An unknown engine
+    raises."""
     tms = (8, 64, 128)
     rows = sweep_thin.run(n=512, band=48, T=128, tms=tms, device="cpu",
                           gate_rows=256, engines=sweep_thin.ENGINES,
@@ -67,8 +67,7 @@ def test_sweep_engines_share_operands_and_gate_each():
     assert set(sweep_thin.BITWISE) <= set(labels)
     first = {}
     for r in rows:
-        thin = "narrow_simt" if r["kernel"] == "tile_grid" else "mma_thin"
-        assert r["block"] == (thin if r["tm"] < 128 else "mma"), r
+        assert r["block"] == ("mma_thin" if r["tm"] < 128 else "mma"), r
         assert r["plain_err"] <= sweep_thin.PLAIN_TOL
         assert r["gate_err"] <= sweep_thin.GATE[r["dtype"]]
         assert (r["same_bits"] is None) == (r["kernel"] == "tile_spgemm")
@@ -99,3 +98,37 @@ def test_sweep_cli_engines_on_cpu(capsys):
                           engines=("tile_grid",), log=lambda s: None)
     assert [(r["engine"], r["same_bits"]) for r in rows] == [
         ("tile_grid", None)]
+
+
+def test_sweep_grid_chunks_and_cari_pair():
+    """``grid_chunks`` adds one tile_grid case per G on the thin block only
+    (tm 128 runs the wide block, one item per block), each gated against
+    the plain version and scipy; ``pair="cari"`` runs the CLI's stock
+    matrix, C = A A^T, whose tm-64 worklist is the JAX package's (130
+    items at T = 128)."""
+    rows = sweep_thin.run(n=512, band=48, T=128, tms=(16, 128),
+                          dtypes=("float32",), device="cpu", gate_rows=256,
+                          engines=("tile_grid",), grid_chunks=(2, 4),
+                          log=lambda s: None)
+    assert [(r["tm"], r["engine"], r["chunk"]) for r in rows] == [
+        (16, "tile_grid", None), (16, "tile_grid G=2", 2),
+        (16, "tile_grid G=4", 4), (128, "tile_grid", None)]
+    assert all(r["plain_err"] == 0.0 and r["kernel"] == "tile_grid"
+               for r in rows)
+    rows = sweep_thin.run(T=128, tms=(64,), device="cpu", gate_rows=256,
+                          engines=("tile_grid",), pair="cari",
+                          grid_chunks=(2,), log=lambda s: None)
+    from spada_tpu.io.workloads import GemmWorkload as JaxWorkload
+
+    w = JaxWorkload.from_suitesparse("./matrices", "cari")
+    wl = jax_build_worklist(JaxBsr.from_csr(w.a, 64, 128),
+                            JaxBsr.from_csr(w.b, 128, 128), order="row")
+    assert wl.n_items == 130
+    assert [(r["dtype"], r["engine"], r["W"], r["n_c"], r["block"])
+            for r in rows] == [
+        (dt, e, 130, wl.n_c_tiles, "mma_thin") for dt in sweep_thin.DTYPES
+        for e in ("tile_grid", "tile_grid G=2")]
+    assert all(r["gate_err"] <= sweep_thin.GATE[r["dtype"]] for r in rows)
+    with pytest.raises(ValueError, match="unknown pair"):
+        sweep_thin.run(n=512, band=48, tms=(8,), device="cpu",
+                       pair="rmat", log=lambda s: None)
