@@ -134,6 +134,19 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    row type; (d) ``bench_value_refresh`` with 2 batches; (e) phase 4's two
    plans side by side: T, tm histogram, W, blocks and
    ``measure_device_perf``.
+11. the last two reference tools (``spada_tpu_torch.tools``): (a)
+   ``probe_op`` at its size (banded 16384^2, band 384, T = 384, bf16 then
+   f32 tiles): the op dataflow's k-major worklist on the plain scatter-add
+   engine, on the card, against its two byte bounds and the row schedule
+   on ``tile_spgemm`` (at least one launch), the two C within 1e-5 of
+   max|C| and each against scipy on its first 2048 rows; (b)
+   ``eval_scaling``: its functional gloo groups of D = 1, 2, 4, 8 ranks on
+   the CPU at ``--quick`` size (every rank's C the same, ``allclose``
+   against scipy on all of C), then every rank body of the halo and
+   psum-merge partitions at full size (n = 8192·D) for D = 1, 2, 4 on this
+   card (D = 8 is cut: with it the phase takes about 63 s, over its 60 s
+   budget), bf16 tiles, each panel gated against scipy (1e-2), and the
+   table beside the scaling model's columns.
 
 Beside each kernel's time the script computes its bound, the larger of two
 times on the datasheet placeholders of ``config.h100_config``: the useful
@@ -1542,20 +1555,6 @@ def distributed_inputs(nn_ab=None, nn_ref=None, rows: int = GATE_ROWS,
             "locpl_ref": (la.to_scipy()[:rows] @ lb.to_scipy()).tocsr()}
 
 
-def body_ms(fn, *args) -> float:
-    """Device ms of one call of a rank body (``cuda_time``'s median).  The
-    launches the timing makes are taken back out of the launch counts,
-    which count the path's own."""
-    from spada_tpu_torch import _build
-    from spada_tpu_torch.utils.timing import cuda_time
-
-    saved = _build.launches.copy()
-    t = cuda_time(fn, *args, warmup=1, reps=5)[0]
-    _build.launches.clear()
-    _build.launches.update(saved)
-    return t * 1e3
-
-
 def locpl_gate(csr, ref) -> float:
     got = csr.to_scipy()[: ref.shape[0]]
     return float(abs(got - ref).max() / max(abs(ref).max(), 1e-30))
@@ -1582,6 +1581,7 @@ def strategy_checks(dev, cfg, inputs: dict, world: int, log, totals: dict,
     from spada_tpu_torch.parallel.halo import halo_rank, halo_received
     from spada_tpu_torch.parallel.mesh import resolve_mesh
     from spada_tpu_torch.parallel.spgemm import sharded_rank
+    from spada_tpu_torch.tools.harness import call_s
     from spada_tpu_torch.utils.timing import cuda_time
 
     a, b = inputs["nn"]
@@ -1605,7 +1605,8 @@ def strategy_checks(dev, cfg, inputs: dict, world: int, log, totals: dict,
         wall = time.perf_counter() - t0
         c = res.todense()
         err = relerr(c[:rows], ref)
-        ms = body_ms(sharded_rank(prob, d, t, dev, "cached", dt))
+        ms = call_s(sharded_rank(prob, d, t, dev, "cached", dt), dev,
+                    warmup=1, reps=5) * 1e3
         line = (f"  spgemm_sharded, {str(dt)[6:]} tiles: {wall:.2f} s "
                 f"host+device, rank ({d}, {t})'s body {ms:.3f} ms device, "
                 f"launches {counts}; rows [0, {rows}) vs scipy/numpy f64 "
@@ -1634,7 +1635,8 @@ def strategy_checks(dev, cfg, inputs: dict, world: int, log, totals: dict,
     err, e16 = relerr(c[:rows], ref), relerr(c, c16)
     got = {k: torch.from_numpy(halo_received(halo, rank, k)).to(
         dev, torch.bfloat16) for k in range(1, world)}
-    ms = body_ms(halo_rank(halo, rank, dev), got.__getitem__)
+    ms = call_s(halo_rank(halo, rank, dev), dev, got.__getitem__, warmup=1,
+                reps=5) * 1e3
     del got
     log(f"  spgemm_halo D={world}, bf16 tiles: partition {host:.1f} s, run "
         f"{wall:.2f} s host+device, rank {rank}'s body {ms:.3f} ms device, "
@@ -1655,7 +1657,8 @@ def strategy_checks(dev, cfg, inputs: dict, world: int, log, totals: dict,
         res = spgemm_element_dp(eprob, device=dev, backend="pallas")
     wall = time.perf_counter() - t0
     err = locpl_gate(res.to_csr(), inputs["locpl_ref"])
-    ms = body_ms(element_rank(eprob, rank, dev, "pallas"))
+    ms = call_s(element_rank(eprob, rank, dev, "pallas"), dev, warmup=1,
+                reps=5) * 1e3
     log(f"  spgemm_element_dp D={world}: partition {host:.1f} s, run "
         f"{wall:.2f} s host+device, rank {rank}'s body {ms:.3f} ms device, E "
         f"per rank {eprob.e_per_shard.tolist()}, launches {counts}; rows "
@@ -1741,9 +1744,10 @@ def rank_bodies(dev, cfg, inputs: dict, nn_c, totals: dict, world: int = 4):
                                           partition_spgemm)
     from spada_tpu_torch.parallel.element_dp import (ElementDpResult,
                                                      element_rank)
-    from spada_tpu_torch.parallel.halo import (halo_rank, halo_received,
-                                               halo_view)
-    from spada_tpu_torch.parallel.spgemm import ShardedResult, sharded_rank
+    from spada_tpu_torch.parallel.halo import halo_view
+    from spada_tpu_torch.parallel.spgemm import ShardedResult
+    from spada_tpu_torch.tools.eval_scaling import halo_bodies, reduce_bodies
+    from spada_tpu_torch.tools.harness import call_s
 
     a, b = inputs["nn"]
     a_sp, b64 = a.to_scipy(), b.to_scipy().toarray().astype(np.float64)
@@ -1772,14 +1776,7 @@ def rank_bodies(dev, cfg, inputs: dict, nn_c, totals: dict, world: int = 4):
         t0 = time.perf_counter()
         prob = partition_spgemm(a, b, world, 2, cfg)
         host = time.perf_counter() - t0
-        c = np.zeros((world, prob.nCmax + 1, prob.tm, prob.tn), np.float32)
-        ms = []
-        for d in range(world):
-            for t in range(2):
-                body = sharded_rank(prob, d, t, dev, "cached", f32)
-                c[d] += body().cpu().numpy()
-                ms.append(body_ms(body))
-                del body
+        ms, c = reduce_bodies(prob, dev, f32)
         work = prob.work_per_shard.ravel().tolist()
         log(f"  psum-merge ({world}, 2) bodies, f32 tiles: partition "
             f"{host:.1f} s host, W per rank {work}, device ms per body "
@@ -1791,15 +1788,7 @@ def rank_bodies(dev, cfg, inputs: dict, nn_c, totals: dict, world: int = 4):
         t0 = time.perf_counter()
         halo = partition_halo(a, b, world, cfg)
         host = time.perf_counter() - t0
-        c = np.zeros((world, halo.nCmax + 1, halo.tm, halo.tn), np.float32)
-        ms = []
-        for r in range(world):
-            got = {k: torch.from_numpy(halo_received(halo, r, k)).to(dev)
-                   for k in range(1, world)}
-            body = halo_rank(halo, r, dev, "cached", f32)
-            c[r] = body(got.__getitem__).cpu().numpy()
-            ms.append(body_ms(body, got.__getitem__))
-            del body, got
+        ms, c = halo_bodies(halo, dev, f32)
         log(f"  halo D={world} bodies, f32 tiles, received tiles read from "
             f"the problem: partition {host:.1f} s host, caps {halo.caps}, "
             f"{halo.halo_tiles_sent} tiles sent ({halo.halo_tiles_padded} "
@@ -1816,7 +1805,7 @@ def rank_bodies(dev, cfg, inputs: dict, nn_c, totals: dict, world: int = 4):
         for r in range(world):
             body = element_rank(eprob, r, dev, "pallas")
             flat.append(body().cpu().numpy())
-            ms.append(body_ms(body))
+            ms.append(call_s(body, dev, warmup=1, reps=5) * 1e3)
             del body
         cuts = np.cumsum([x.shape[1] for x in eprob.a_stacked])[:-1]
         vals = np.split(np.stack(flat), cuts, axis=1)
@@ -2003,6 +1992,67 @@ def run_calibration(dev, runs: dict, nn_ref, extra: dict,
         f"time, on {smi_name_power()}")
 
 
+# --------------------------------------------------------------------------
+# phase 11: the last two reference tools
+# --------------------------------------------------------------------------
+
+#: the rank counts of phase 11 (b)'s rank bodies at the tool's full size,
+#: cut to D <= 4: with D = 8 the phase took 63.2 s on an NVIDIA H100 80GB
+#: HBM3 at 700 W (the rank-body part 25.9 s, against 12.0 s at D <= 4),
+#: over its 60 s budget, so D = 8's row comes from a run of the tool
+SCALING_CARD_DEVICES = (1, 2, 4)
+
+
+def run_reference_tools(dev, totals: dict) -> None:
+    """Phase 11: (a) ``probe_op`` at the tool's size, both tile dtypes;
+    (b) ``eval_scaling``: the functional gloo groups at ``--quick`` size,
+    then every rank body at full size on this card, and the table."""
+    from spada_tpu_torch.config import h100_config
+    from spada_tpu_torch.tools import eval_scaling, probe_op
+    from spada_tpu_torch.tools.harness import card_name
+
+    def say(s):
+        for line in s.splitlines() or [""]:
+            log("    " + line)
+
+    t0 = time.perf_counter()
+    log("  (a) probe_op, banded 16384^2, band 384, T = 384, bf16 and f32 "
+        "tiles:")
+    with main_path(totals) as counts:
+        res = probe_op.run(device=dev, log=say)
+    for dt, r in res.items():
+        require(r["op_device"].startswith("cuda"),
+                f"probe_op {dt}: the op path ran on {r['op_device']}")
+    require(counts.get("tile_spgemm", 0) > 0,
+            f"probe_op: the row schedule launched {counts}")
+    log(f"  (a) probe_op: launches {counts}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    name = card_name(dev)
+    config = h100_config(name)
+    t0 = time.perf_counter()
+    log(f"  (b) eval_scaling, functional at --quick size, D = "
+        f"{list(eval_scaling.DEVICES)}:")
+    eval_scaling.functional([eval_scaling.point(D, eval_scaling.QUICK,
+                                                config)
+                             for D in eval_scaling.DEVICES], log=say)
+    log(f"  (b) functional: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"  (b) eval_scaling, rank bodies at full size on the card, D = "
+        f"{list(SCALING_CARD_DEVICES)} (cut from the tool's D = "
+        f"{list(eval_scaling.DEVICES)}: with D = 8 the phase takes about "
+        f"63 s, over its 60 s budget; the full table is the tool's own "
+        f"run):")
+    with main_path(totals) as counts:
+        rows = eval_scaling.card(
+            (eval_scaling.point(D, eval_scaling.FULL, config)
+             for D in SCALING_CARD_DEVICES), dev, config, say)
+    require(counts.get("tile_spgemm", 0) > 0,
+            f"eval_scaling: the rank bodies launched {counts}")
+    say(eval_scaling.table(rows, eval_scaling.FULL, config, name))
+    log(f"  (b) rank bodies: launches {counts}, "
+        f"{time.perf_counter() - t0:.1f} s, on {smi_name_power()}")
+
+
 def check_no_reference(where: str) -> None:
     require("jax" not in sys.modules and "jaxlib" not in sys.modules,
             f"{where}: JAX was imported")
@@ -2095,6 +2145,11 @@ def main() -> int:
     run_calibration(dev, nn_runs, nn_ref, extra, totals)
     del nn_runs, nn_run, nn_c, nn_ref
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    log("== phase 11: the last two reference tools (probe_op, "
+        "eval_scaling)")
+    t0 = time.perf_counter()
+    run_reference_tools(dev, totals)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
     check_no_reference("chip_smoke")
     # kernel -> (source, the TPU kernels it carries, bound/library key)

@@ -14,7 +14,11 @@ relative paths (``config``, ``sparse/``, ``io/``, ``plan/``, ``models/``,
 - ``plan.execute``: per-panel-height plan execution;
 - ``cli``: the ``run``, ``traffic`` and ``breuse`` modes, and
   ``run_spada``, the adaptive main path;
-- ``tools``: the probe tools, ablation modes of the kernels.
+- ``tools``: the probe tools, ablation modes of the kernels, and the
+  reference's calibration and evaluation tools.
+
+The top level exports the reference's surface: ``SpadaConfig``,
+``CsrMatrix`` and ``GemmWorkload`` (host modules that import only NumPy).
 
 Kernels build with ``nvcc`` and the C++ host helpers with ``g++`` at first
 use, into ``_build/``; importing this
@@ -22,3 +26,14 @@ package loads neither JAX nor CUDA.
 """
 
 __version__ = "0.1.0"
+
+from spada_tpu_torch.config import SpadaConfig
+from spada_tpu_torch.sparse.csr import CsrMatrix
+from spada_tpu_torch.io.workloads import GemmWorkload
+
+__all__ = [
+    "SpadaConfig",
+    "CsrMatrix",
+    "GemmWorkload",
+    "__version__",
+]

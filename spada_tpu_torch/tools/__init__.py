@@ -21,7 +21,13 @@ tools they port (:mod:`.harness` holds what they share):
 - ``eval_adaptive``: the adaptive plan against fixed panel heights, the
   panel engine, densify and the element side;
 - ``bench_value_refresh``: the serving loop, fresh values into held tiles
-  and operands.
+  and operands;
+- ``probe_op``: the op dataflow's k-major engine (the plain scatter-add
+  engine) against its byte bound and against the row schedule on
+  ``tile_spgemm``;
+- ``eval_scaling``: halo against psum-merge at D = 1..8, functional in
+  spawned gloo groups on the CPU, every rank's body timed on the card,
+  beside ``parallel.scaling``'s model.
 
 Each runs on the card by default and takes ``--device cpu`` (the plain
 versions, at a small size); on the card it prints ms and ns per item (GB/s

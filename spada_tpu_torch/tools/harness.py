@@ -5,9 +5,12 @@
   bench's gate, ``bench.py``), held sparse so a wide C costs no dense copy;
 - :func:`tile_rows`: those rows of a tile result (C tiles on the device,
   their tile coordinates, and where each tile row starts in C);
-- :func:`device_s`: the median device seconds of a call with no arguments
-  (``utils.timing.cuda_time``), None on the CPU, where there is no device
-  time;
+- :func:`call_s`: the median seconds of a call, device seconds on a card
+  (``utils.timing.cuda_time``, uncounted in ``_build.launches``), CPU wall
+  seconds otherwise; :func:`device_s`: the same on a card, None on the
+  CPU, where there is no device time;
+- :func:`spawn_groups`, :func:`gloo_group` and :func:`rank_path`: gloo
+  groups of spawned ranks on the CPU, each rank's result left in a file;
 - :data:`ITEM_TERMS` and :func:`reference_item_terms`: the planner's three
   per-item fields, and their values in ``SpadaConfig`` (the reference's
   fit on its own chip).
@@ -15,7 +18,10 @@
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import os
+import time
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -80,14 +86,110 @@ def gate(got, ref, limit: float, label: str) -> float:
     return err
 
 
-def device_s(call: Callable, dev) -> Optional[float]:
-    """Median device seconds of ``call()`` on a CUDA ``dev``
-    (:func:`~spada_tpu_torch.utils.timing.cuda_time`); None on the CPU."""
-    if dev.type != "cuda":
-        return None
-    from spada_tpu_torch.utils.timing import cuda_time
+def call_s(call: Callable, dev, *args, warmup: int = 2,
+           reps: int = 10) -> float:
+    """Median seconds of ``call(*args)``: on a CUDA ``dev`` its device
+    seconds (``cuda_time``), the timing's launches taken back out of
+    ``_build.launches`` so that the counts stay the path's own; on the CPU
+    wall seconds of ``reps`` calls after ``warmup``."""
+    if dev.type == "cuda":
+        from spada_tpu_torch import _build
+        from spada_tpu_torch.utils.timing import cuda_time
 
-    return cuda_time(call)[0]
+        saved = _build.launches.copy()
+        try:
+            return cuda_time(call, *args, warmup=warmup, reps=reps)[0]
+        finally:
+            _build.launches.clear()
+            _build.launches.update(saved)
+    for _ in range(warmup):
+        call(*args)
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call(*args)
+        samples.append(time.perf_counter() - t0)
+    return float(np.median(samples))
+
+
+def device_s(call: Callable, dev) -> Optional[float]:
+    """:func:`call_s` of ``call()`` on a CUDA ``dev``; None on the CPU."""
+    return call_s(call, dev) if dev.type == "cuda" else None
+
+
+def rank_path(workdir: str, rank: int) -> str:
+    """The file where rank ``rank`` of a group of :func:`spawn_groups`
+    leaves its result."""
+    return os.path.join(workdir, f"rank{rank}.pkl")
+
+
+def spawn_groups(groups: Sequence[tuple], rank_main: Callable,
+                 timeout: float) -> None:
+    """Run ``rank_main(rank, world, workdir)`` in a spawned process per
+    rank of each group ``(world, workdir)`` of ``groups``, every group at
+    once, and wait for them all.  A rank joins its group with
+    :func:`gloo_group` and leaves its result in :func:`rank_path`, where
+    the caller reads it.  Raises ``TimeoutError`` past ``timeout`` seconds,
+    and what ``ProcessContext.join`` raises for a rank that failed before
+    leaving its result; kills every process still alive."""
+    import torch.multiprocessing as mp
+
+    started = []
+    try:
+        for world, work in groups:
+            # the inputs go through files in ``work``: spawn writes a
+            # process's arguments into a pipe that the child reads only
+            # after its imports, so large arguments would start the ranks
+            # one after another
+            started.append((mp.start_processes(
+                rank_main, args=(world, work), nprocs=world, join=False,
+                start_method="spawn"), world, work))
+        deadline = time.monotonic() + timeout
+        pending = list(started)
+        while pending:
+            pending = [g for g in pending if not _joined(*g)]
+            if pending and time.monotonic() > deadline:
+                raise TimeoutError(f"the gloo groups of "
+                                   f"{[w for _, w, _ in pending]} ranks ran "
+                                   f"past {timeout} s")
+    finally:
+        for ctx, _, _ in started:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+
+
+def _joined(ctx, world: int, work: str) -> bool:
+    import torch.multiprocessing as mp
+
+    try:
+        return ctx.join(timeout=0.2)
+    except mp.ProcessExitedException:
+        # a rank that left its result and then died in the gloo teardown
+        # has done its work; one that died before has not
+        if all(os.path.exists(rank_path(work, r)) for r in range(world)):
+            return True
+        raise
+
+
+@contextlib.contextmanager
+def gloo_group(rank: int, world: int, workdir: str, timeout_s: float):
+    """Inside a rank of :func:`spawn_groups`: the default gloo group, its
+    store a ``FileStore`` in ``workdir`` (no port, no network), each
+    collective limited to ``timeout_s``.  On leaving without an error the
+    ranks wait for each other, then destroy the group."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'store')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    yield
+    # no rank tears its connections down while another still uses them
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def card_name(dev) -> Optional[str]:

@@ -31,9 +31,9 @@ measurement behind that rule.  Then it is timed on CUDA events
   for the cases of ``lib_whole`` also one ``torch.bmm`` of all W pairs, in
   ms.
 
-Timing launches are taken back out of ``_build.launches``, so a run counts
-one launch of its kernel per case.  On the CPU the plain versions run and
-are gated, not timed.
+Timing launches are taken back out of the launch counts
+(``harness.call_s``), so a run counts one launch of its kernel per case.
+On the CPU the plain versions run and are gated, not timed.
 
     python -m spada_tpu_torch.tools.sweep_thin
     python -m spada_tpu_torch.tools.sweep_thin --engines tile_spgemm,tile_stream,tile_panel,tile_grid
@@ -52,7 +52,6 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from spada_tpu_torch import _build
 from spada_tpu_torch.tools.harness import (card_name, device_s,
                                            first_rows_ref, gate, tile_rows)
 
@@ -75,16 +74,6 @@ NBUF = 8
 BITWISE = ("tile_stream og=1", "tile_panel")
 #: the operand pairs: the banded pair, or the CLI's stock matrix
 PAIRS = ("banded", "cari")
-
-
-def _uncounted_s(call: Callable, dev) -> Optional[float]:
-    """``device_s(call)`` with its launches taken back out of the counts."""
-    saved = _build.launches.copy()
-    try:
-        return device_s(call, dev)
-    finally:
-        _build.launches.clear()
-        _build.launches.update(saved)
 
 
 def relerr(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -209,7 +198,7 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
                        "plain_err": p_err, "plain_abs_err": p_abs,
                        "gate_err": g_err, "same_bits": same, "chunk": g}
                 if dev.type == "cuda":
-                    k_s = _uncounted_s(call, dev)
+                    k_s = device_s(call, dev)
                     p_s = cuda_time(plain, warmup=1, reps=3)[0]
                     row.update(ms=k_s * 1e3, ns_item=k_s / W * 1e9,
                                plain_ms=p_s * 1e3)

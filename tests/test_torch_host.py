@@ -368,6 +368,18 @@ def test_scaling_estimates_equal(pairs, name):
                 == ref_scaling.estimate_halo_scaling(halo[0], rc).as_dict())
 
 
+def test_package_exports_equal_reference():
+    """The reference's top-level surface, bound to the port's classes."""
+    import spada_tpu
+    from spada_tpu_torch.sparse.csr import CsrMatrix
+
+    assert spada_tpu_torch.__all__ == spada_tpu.__all__
+    assert spada_tpu_torch.SpadaConfig is PortConfig
+    assert spada_tpu_torch.CsrMatrix is CsrMatrix
+    assert spada_tpu_torch.GemmWorkload is port_wl.GemmWorkload
+    assert spada_tpu_torch.__version__ == spada_tpu.__version__
+
+
 def test_datasheet_link_rate():
     assert datasheet_peaks()["ici_bytes_per_s"] == 450e9
     assert datasheet_peaks("NVIDIA H100 PCIe")["ici_bytes_per_s"] == 64e9

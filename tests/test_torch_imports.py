@@ -64,7 +64,10 @@ def test_package_modules_listed():
                  "spada_tpu_torch.tools.probe_item_overhead",
                  "spada_tpu_torch.tools.probe_dispatch_crossover",
                  "spada_tpu_torch.tools.eval_adaptive",
-                 "spada_tpu_torch.tools.bench_value_refresh"):
+                 "spada_tpu_torch.tools.bench_value_refresh",
+                 # the last two reference tools
+                 "spada_tpu_torch.tools.probe_op",
+                 "spada_tpu_torch.tools.eval_scaling"):
         assert name in mods
 
 

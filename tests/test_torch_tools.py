@@ -348,7 +348,8 @@ def test_element_entry_slabs_equal_one_plan():
 
 @pytest.mark.parametrize("tool", ["probe_item_overhead",
                                   "probe_dispatch_crossover",
-                                  "eval_adaptive", "bench_value_refresh"])
+                                  "eval_adaptive", "bench_value_refresh",
+                                  "probe_op", "eval_scaling"])
 def test_tools_need_a_card_unless_told_cpu(tool):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

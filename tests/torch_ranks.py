@@ -1,8 +1,9 @@
 """The rank side of the port's distributed tests.
 
-``run_group`` spawns one process per rank of a gloo group on the CPU (a
-``FileStore`` in a scratch directory: no port, no network) and runs a list
-of cases in every rank, in order; each rank hands back its results.  The
+``run_group`` spawns one process per rank of a gloo group on the CPU
+(``spada_tpu_torch.tools.harness.spawn_groups``: a ``FileStore`` in a
+scratch directory, no port, no network) and runs a list of cases in every
+rank, in order; each rank hands back its results.  The
 spawned processes import this module by name, so it imports nothing of JAX
 and nothing of ``spada_tpu``: the test files compute the JAX side in the
 pytest process and pass NumPy and the port's host objects in.
@@ -10,17 +11,16 @@ pytest process and pass NumPy and the port's host objects in.
 
 from __future__ import annotations
 
-import datetime
 import os
 import pickle
 import sys
-import time
 import traceback
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
+
+from spada_tpu_torch.tools.harness import gloo_group, rank_path, spawn_groups
 
 #: per-collective limit: a rank that waits longer raises instead of hanging
 COLLECTIVE_TIMEOUT_S = 60
@@ -28,35 +28,16 @@ COLLECTIVE_TIMEOUT_S = 60
 
 def run_group(world: int, cases, workdir, timeout: float = 300.0) -> dict:
     """Run ``cases`` ([(key, function name in this module, kwargs)]) in a
-    spawned gloo group of ``world`` ranks.  Returns {key: [each rank's
-    result]}; a case that raised in a rank gives ``RankError`` there."""
+    spawned gloo group of ``world`` ranks (``harness.spawn_groups``).
+    Returns {key: [each rank's result]}; a case that raised in a rank gives
+    ``RankError`` there."""
     workdir = str(workdir)
-    # the cases go through a file: spawn writes a process's arguments into
-    # a pipe that the child reads only after its imports, so large
-    # arguments would start the ranks one after another
     with open(os.path.join(workdir, "cases.pkl"), "wb") as f:
         pickle.dump(cases, f)
-    ctx = mp.start_processes(_rank_main, args=(world, workdir), nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    results = [os.path.join(workdir, f"rank{r}.pkl") for r in range(world)]
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"a {world}-rank group ran past "
-                                   f"{timeout} s")
-    except mp.ProcessExitedException:
-        # a rank that wrote its results and then died in the gloo teardown
-        # has done its work; one that died before has not
-        if not all(os.path.exists(p) for p in results):
-            raise
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
+    spawn_groups([(world, workdir)], _rank_main, timeout)
     out = {key: [] for key, _, _ in cases}
-    for path in results:
-        with open(path, "rb") as f:
+    for r in range(world):
+        with open(rank_path(workdir, r), "rb") as f:
             res = pickle.load(f)
         for key in out:
             out[key].append(res[key])
@@ -77,27 +58,22 @@ def _rank_main(rank: int, world: int, workdir: str):
     torch.set_num_threads(1)
     with open(os.path.join(workdir, "cases.pkl"), "rb") as f:
         cases = pickle.load(f)
-    store = os.path.join(workdir, "store")
-    dist.init_process_group(
-        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
-    results = {}
-    try:
-        for key, fn, kwargs in cases:
-            try:
-                results[key] = globals()[fn](**kwargs)
-            except Exception:
-                results[key] = RankError(traceback.format_exc())
-            loaded = sorted(m for m in sys.modules if m in ("jax", "jaxlib")
-                            or m == "spada_tpu" or m.startswith("spada_tpu."))
-            if loaded:
-                results[key] = RankError(f"the rank loaded {loaded}")
-    finally:
-        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(results, f)
-        # no rank tears its connections down while another still uses them
-        dist.barrier()
-        dist.destroy_process_group()
+    with gloo_group(rank, world, workdir, COLLECTIVE_TIMEOUT_S):
+        results = {}
+        try:
+            for key, fn, kwargs in cases:
+                try:
+                    results[key] = globals()[fn](**kwargs)
+                except Exception:
+                    results[key] = RankError(traceback.format_exc())
+                loaded = sorted(m for m in sys.modules
+                                if m in ("jax", "jaxlib") or m == "spada_tpu"
+                                or m.startswith("spada_tpu."))
+                if loaded:
+                    results[key] = RankError(f"the rank loaded {loaded}")
+        finally:
+            with open(rank_path(workdir, rank), "wb") as f:
+                pickle.dump(results, f)
 
 
 def _dtype(name):
