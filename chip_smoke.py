@@ -95,8 +95,12 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    ``tile_panel`` on runs of two slot tiles, 1e-5; its library call one
    ``torch.bmm`` of the gathered run pairs) and
    ``probe_pallas_stream`` (the stream kernels as the main path launches
-   them and, through their probe-only entry points, at the TPU's block
-   sizes: mul bitwise, red 1e-6), each mode timed beside its bound;
+   them, and the probe's bulk-copy pipeline of the same functions at a
+   sweep of stage sizes, ring depths and blocks per SM: every stage row
+   bitwise the main path's kernel, mul bitwise its plain version, red
+   within 1e-6; the red rows also timed with L2 flushed; each kernel's
+   fastest stage row goes into the kernels line), each mode timed beside
+   its bound;
 8. the sparse MLP (``spada_tpu_torch.models.sparse_nn``): ``entry()``'s
    forward against a dense f64 forward of the same tiles (< 1e-5), then two
    layers of the bench's NN weight width (16384^2, density 0.2, 128^2
@@ -1348,13 +1352,20 @@ def run_probes(dev, totals: dict, errs: dict, times: dict,
                else 0.0)
         require(rec["relerr"] <= tol, f"stream probe {label}: relerr "
                 f"{rec['relerr']:.3e} > {tol}")
-    # the JSON rows of the probe's own launches: the TPU's first block
-    for name, label, lib in (
-            ("esc_stream_mul_blocked", "mul br=1024", "torch.mul"),
-            ("esc_stream_red_blocked", "red2 chl=1048576",
-             "torch.linalg.vecdot(dim=0)")):
+        require(rec["exact"] is not False, f"stream probe {label}: not "
+                f"bitwise the main path's kernel")
+    # the JSON rows of the probe's own launches: each kernel's fastest stage
+    # row of the sweep
+    for name, lib in (("esc_stream_mul_blocked", "torch.mul"),
+                      ("esc_stream_red_blocked",
+                       "torch.linalg.vecdot(dim=0)")):
+        label = probe_pallas_stream.best_row(res_s, name)
         rec = res_s[label]
-        errs[name] = max(errs[name], rec["max_abs_err"])
+        log(f"  {name}: best stage row {label}, {rec['ms']:.3f} ms "
+            f"({rec['bound_ms'] / rec['ms']:.0%} of its bound), main path "
+            f"{rec['main_ms']:.3f} ms, {lib} {rec['library_ms']:.3f} ms")
+        errs[name] = max(r["max_abs_err"] for r in res_s.values()
+                         if r["kernel"] == name)
         times[name] = (rec["ms"] * 1e-3, rec["plain_ms"] * 1e-3)
         extra[name] = {"bound": (rec["bound_ms"] * 1e-3, rec["bound_by"]),
                        "library": (rec["library_ms"] * 1e-3, lib)}

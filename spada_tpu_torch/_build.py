@@ -54,12 +54,12 @@ _SIGNATURES = {
                        _P],
     # table (host int64 [n, 8]), n, n_blocks, stream
     "esc_stream_group": [_P, _I, ctypes.c_longlong, _P],
-    # a, b, out, n, block, stream
+    # a, b, out, n, block, stages, grid_factor, stream
     "esc_stream_mul_blocked": [_P, _P, _P, ctypes.c_longlong,
-                               ctypes.c_longlong, _P],
-    # a, b, out, L, n_pad, slices, group, block, stream
+                               ctypes.c_longlong, _I, _I, _P],
+    # a, b, out, L, n_pad, slices, group, block, stages, grid_factor, stream
     "esc_stream_red_blocked": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-                               _I, _I, ctypes.c_longlong, _P],
+                               _I, _I, ctypes.c_longlong, _I, _I, _P],
     # a_tiles, b_tiles, a_tid, b_tid, o_tid, item_ptr, c_tiles, n_c, ogroup,
     # tm, tk, tn, nbuf, block (as tile_spgemm's), stream
     "tile_stream_f32": [_P] * 7 + [_I] * 6 + [_P, _P],

@@ -58,16 +58,42 @@
 // bodies are the per-class kernels', so every class's output is bitwise
 // what its own launch gives.
 //
-// Block size.  esc_stream_mul_blocked / esc_stream_red_blocked take the work
-// of one CUDA block as an argument (elements for mul, chunk columns for red),
-// so that spada_tpu_torch/tools/probe_pallas_stream.py can sweep the block
-// sizes the TPU probe swept (tools/probe_pallas_stream.py: mul_kernel, and
-// red_kernel at L = 2); their threads stride through their block's share.
-// esc_stream_red takes slices and G as arguments for the same tool's sweep;
-// the wrapper of the main path passes the host's choice and G = 4.
+// The probe's launches, esc_stream_mul_blocked and esc_stream_red_blocked
+// (spada_tpu_torch/tools/probe_pallas_stream.py; replace the Pallas kernels
+// of tools/probe_pallas_stream.py: mul_kernel, and red_kernel at L = 2).
+// The TPU probe asked whether an explicitly pipelined stream, Pallas's
+// double-buffered block copies, beats the compiler's fused elementwise
+// pass.  The card's counterpart of that pipeline is a ring of `stages`
+// stages in shared memory filled by bulk asynchronous copies
+// (cp.async.bulk, completing on an mbarrier), on a persistent grid:
+// grid_factor blocks per SM (capped at the blocks that fit), the SM count
+// read from the device.  Block x walks the stages x, x + gridDim.x, ...
+// One producer thread (the block's last warp) fills a stage with one bulk
+// copy per operand row piece: mul, `block` elements of a and of b; red,
+// `block` chunk columns of each of the L rows of a and of b, n_pad floats
+// apart in device memory and `block` apart in the stage.  The stage's
+// "full" mbarrier expects exactly the stage's bytes; its "empty" mbarrier
+// counts the 256 consumer threads out of it before the producer refills
+// it.  The consumers read float4s from the stage and store 16 bytes a
+// thread to device memory.  The arithmetic is the per-class kernels':
+// mul4's product, and red_pass itself reading the stage (RingBody) instead
+// of device memory (GlobalBody), at the main path's slices and G, so the
+// results are bitwise esc_stream_mul's and esc_stream_red's.  `block` is
+// the work of one stage, never of a block: the TPU's blocks (4-11.7 MB an
+// operand) do not fit in the 227 KB of shared memory a block has, and the
+// launch refuses a ring that does not fit.  A wait that lasts over about
+// a second traps, so a stage whose copies never complete fails the launch
+// instead of hanging the card.  Both are bound by HBM bytes, as the
+// per-class kernels are.
+//
+// esc_stream_red takes slices and G as arguments for the same tool's sweep
+// of block shapes; the wrapper of the main path passes the host's choice
+// and G = 4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -78,12 +104,44 @@ constexpr int kRedMaxGroup = 4;     // deepest row group compiled
 constexpr int kGroupMul = 2;        // float4s per thread of a grouped mul block
 constexpr int kBlocksPerSM = 3;     // register budget: 85 a thread
 constexpr int kMaxClasses = 16;     // classes of one grouped launch
+// the probe's pipeline: a producer warp beside kThreads consumers, the
+// deepest ring, the most blocks per SM asked, the shared memory a block
+// may have (sm_90), and the ring's header (its mbarriers) before the red
+// combine's scratch and the stages
+constexpr int kPipeThreads = kThreads + 32;
+constexpr int kPipeMaxStages = 8;
+constexpr int kPipeMaxGridFactor = 4;
+constexpr long long kPipeSmemLimit = 232448;
+constexpr int kPipeHeader = 2 * kPipeMaxStages * 8;
+constexpr int kRedPartBytes = 2 * kThreads * 16;
+constexpr long long kPipeHangCycles = 2000000000LL;
 
+// Where a body reads its operands, and how its threads meet: device memory
+// through the read-only path, the whole block at a barrier (the per-class
+// and grouped kernels); or a stage of the probe's shared-memory ring, the
+// consumer threads alone at named barrier 1 (the producer warp never joins).
+struct GlobalBody {
+  static __device__ __forceinline__ float4 load(const float4* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+
+struct RingBody {
+  static __device__ __forceinline__ float4 load(const float4* p) {
+    return *p;
+  }
+  static __device__ __forceinline__ void sync() {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+  }
+};
+
+template <class Body = GlobalBody>
 __device__ __forceinline__ void mul4(const float4* __restrict__ a,
                                      const float4* __restrict__ b,
                                      float4* __restrict__ out, long long i) {
-  const float4 x = __ldg(a + i);
-  const float4 y = __ldg(b + i);
+  const float4 x = Body::load(a + i);
+  const float4 y = Body::load(b + i);
   out[i] = make_float4(x.x * y.x, x.y * y.y, x.z * y.z, x.w * y.w);
 }
 
@@ -93,18 +151,6 @@ __global__ void esc_stream_mul_kernel(const float4* __restrict__ a,
                                       float4* __restrict__ out, long long n4) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n4) mul4(a, b, out, i);
-}
-
-// A block of per_block float4s, its threads striding through them.
-__global__ void esc_stream_mul_blocked_kernel(const float4* __restrict__ a,
-                                              const float4* __restrict__ b,
-                                              float4* __restrict__ out,
-                                              long long n4,
-                                              long long per_block) {
-  const long long base = (long long)blockIdx.x * per_block;
-  const long long end = min(base + per_block, n4);
-  for (long long i = base + threadIdx.x; i < end; i += blockDim.x)
-    mul4(a, b, out, i);
 }
 
 // Kahan step: s + c carries the running sum, v is the next term.
@@ -148,7 +194,7 @@ __device__ __forceinline__ float4 kahan_value(const Sum4& t) {
 // The sum over rows l0, l0 + stride, ... (R of them, a multiple of G) of
 // a[l][j] * b[l][j]: G loads of each operand in flight, G independent
 // compensated sums, combined in the order 0 .. G - 1.
-template <int G>
+template <int G, class Body>
 __device__ __forceinline__ Sum4 red_rows(const float4* __restrict__ a,
                                            const float4* __restrict__ b,
                                            long long n4, long long j, int l0,
@@ -163,8 +209,8 @@ __device__ __forceinline__ Sum4 red_rows(const float4* __restrict__ a,
     float4 x[G], y[G];
 #pragma unroll
     for (int u = 0; u < G; ++u) {
-      x[u] = __ldg(pa + u * step);
-      y[u] = __ldg(pb + u * step);
+      x[u] = Body::load(pa + u * step);
+      y[u] = Body::load(pb + u * step);
     }
 #pragma unroll
     for (int u = 0; u < G; ++u)
@@ -182,9 +228,10 @@ __device__ __forceinline__ Sum4 red_rows(const float4* __restrict__ a,
 }
 
 // One pass of a red block: chunk column j (< end, or the thread only joins
-// the barrier) of kThreads / slices columns, by `slices` row slices.  part
-// holds 2 * kThreads float4s (the two parts of every thread's sum) and is
-// free again when the pass returns.
+// the barrier) of kThreads / slices columns, by `slices` row slices; row l
+// of a and b starts at l * n4.  part holds 2 * kThreads float4s (the two
+// parts of every thread's sum) and is free again when the pass returns.
+template <class Body = GlobalBody>
 __device__ __forceinline__ void red_pass(const float4* __restrict__ a,
                                          const float4* __restrict__ b,
                                          float4* __restrict__ out, int L,
@@ -196,9 +243,11 @@ __device__ __forceinline__ void red_pass(const float4* __restrict__ a,
   Sum4 v = zero_sum();
   if (j < end) {
     switch (min(group, R)) {
-      case 1: v = red_rows<1>(a, b, n4, j, ty, slices, R); break;
-      case 2: v = red_rows<2>(a, b, n4, j, ty, slices, R); break;
-      default: v = red_rows<kRedMaxGroup>(a, b, n4, j, ty, slices, R); break;
+      case 1: v = red_rows<1, Body>(a, b, n4, j, ty, slices, R); break;
+      case 2: v = red_rows<2, Body>(a, b, n4, j, ty, slices, R); break;
+      default:
+        v = red_rows<kRedMaxGroup, Body>(a, b, n4, j, ty, slices, R);
+        break;
     }
   }
   if (slices == 1) {  // the whole block: no combine, no barrier
@@ -207,7 +256,7 @@ __device__ __forceinline__ void red_pass(const float4* __restrict__ a,
   }
   part[threadIdx.x] = v.s;
   part[kThreads + threadIdx.x] = v.c;
-  __syncthreads();
+  Body::sync();
   if (ty == 0 && j < end) {
     const int bx = kThreads / slices;
     for (int y = 1; y < slices; ++y) {
@@ -216,7 +265,7 @@ __device__ __forceinline__ void red_pass(const float4* __restrict__ a,
     }
     out[j] = kahan_value(v);
   }
-  __syncthreads();  // part is rewritten by the next pass
+  Body::sync();  // part is rewritten by the next pass
 }
 
 // The default launch: one pass per block.
@@ -229,21 +278,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   const int bx = kThreads / slices;
   red_pass(a, b, out, L, n4, (long long)blockIdx.x * bx + threadIdx.x % bx, n4,
            slices, group, part);
-}
-
-// A block of per_block chunk columns, in passes of kThreads / slices.
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-    esc_stream_red_blocked_kernel(const float4* __restrict__ a,
-                                  const float4* __restrict__ b,
-                                  float4* __restrict__ out, int L,
-                                  long long n4, int slices, int group,
-                                  long long per_block) {
-  __shared__ float4 part[2 * kThreads];
-  const int bx = kThreads / slices;
-  const long long base = (long long)blockIdx.x * per_block;
-  const long long end = min(base + per_block, n4);
-  for (long long j0 = base; j0 < end; j0 += bx)
-    red_pass(a, b, out, L, n4, j0 + threadIdx.x % bx, end, slices, group, part);
 }
 
 // One class of a grouped launch.  L = 1: a, b, out hold n4 float4s (mul).
@@ -293,6 +327,188 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
            cl.slices, cl.group, part);
 }
 
+// ---- the probe's pipeline: mbarriers and bulk copies (sm_90) ----------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the producer's arrival, with the bytes the stage's copies will bring
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Until the phase of parity `parity` has completed; traps after about a
+// second, which no stage of this kernel can legitimately take.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > kPipeHangCycles) __trap();
+}
+
+// bytes (a multiple of 16) from device memory to shared memory, both
+// 16-byte aligned, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The mul stages: stage s is elements [s * block, s * block + width) of a
+// and of b, at 0 and block floats into its slot.
+struct MulStages {
+  const float* a;
+  const float* b;
+  float* out;
+  long long n;      // elements, a multiple of 4
+  long long block;  // elements of a stage, a multiple of 4
+
+  __device__ __forceinline__ long long width(long long s) const {
+    return min(block, n - s * block);
+  }
+  __device__ __forceinline__ unsigned bytes(long long s) const {
+    return (unsigned)(8 * width(s));
+  }
+  __device__ __forceinline__ void load(float* slot, long long s,
+                                       uint64_t* full) const {
+    const unsigned w = (unsigned)(4 * width(s));
+    bulk_load(slot, a + s * block, w, full);
+    bulk_load(slot + block, b + s * block, w, full);
+  }
+  __device__ __forceinline__ void consume(const float* slot, long long s,
+                                          float4*) const {
+    const float4* x = reinterpret_cast<const float4*>(slot);
+    const float4* y = reinterpret_cast<const float4*>(slot + block);
+    float4* o = reinterpret_cast<float4*>(out + s * block);
+    const long long w4 = width(s) / 4;
+    for (long long i = threadIdx.x; i < w4; i += kThreads)
+      mul4<RingBody>(x, y, o, i);
+  }
+};
+
+// The red stages: stage s is chunk columns [s * block, s * block + width)
+// of the L rows of a and of b; row l of a at l * block floats into the
+// slot, row l of b at (L + l) * block.
+struct RedStages {
+  const float* a;
+  const float* b;
+  float* out;
+  long long n_pad;  // chunk columns, a multiple of 4
+  long long block;  // chunk columns of a stage, a multiple of 4
+  int L, slices, group;
+
+  __device__ __forceinline__ long long width(long long s) const {
+    return min(block, n_pad - s * block);
+  }
+  __device__ __forceinline__ unsigned bytes(long long s) const {
+    return (unsigned)(8 * L * width(s));
+  }
+  __device__ __forceinline__ void load(float* slot, long long s,
+                                       uint64_t* full) const {
+    const unsigned w = (unsigned)(4 * width(s));
+    for (int l = 0; l < L; ++l) {
+      bulk_load(slot + l * block, a + l * n_pad + s * block, w, full);
+      bulk_load(slot + (L + l) * block, b + l * n_pad + s * block, w, full);
+    }
+  }
+  __device__ __forceinline__ void consume(const float* slot, long long s,
+                                          float4* part) const {
+    const float4* x = reinterpret_cast<const float4*>(slot);
+    const float4* y = reinterpret_cast<const float4*>(slot + L * block);
+    float4* o = reinterpret_cast<float4*>(out + s * block);
+    const long long w4 = width(s) / 4, b4 = block / 4;
+    const int bx = kThreads / slices;
+    for (long long j0 = 0; j0 < w4; j0 += bx)
+      red_pass<RingBody>(x, y, o, L, b4, j0 + threadIdx.x % bx, w4, slices,
+                         group, part);
+  }
+};
+
+// Dynamic shared memory: [full mbarriers][empty mbarriers] in kPipeHeader
+// bytes, then part_bytes of the red combine's scratch, then `stages` slots
+// of slot_bytes.  Threads 0 .. kThreads - 1 consume, thread kThreads
+// produces, the rest of its warp idles.
+template <class Stages>
+__global__ void __launch_bounds__(kPipeThreads, 2)
+    esc_stream_pipe_kernel(const Stages st, long long n_stages, int stages,
+                           int part_bytes, long long slot_bytes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kPipeMaxStages;
+  float4* part = reinterpret_cast<float4*>(smem + kPipeHeader);
+  unsigned char* ring = smem + kPipeHeader + part_bytes;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < stages; ++k) {
+      mbar_init(full + k, 1);
+      mbar_init(empty + k, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int k = 0;           // the slot of the block's stage in hand
+  unsigned phase = 0;  // the parity of the slot's current use
+  if (threadIdx.x >= kThreads) {
+    if (threadIdx.x != kThreads) return;
+    for (long long s = blockIdx.x; s < n_stages; s += gridDim.x) {
+      // the first use of a slot waits on parity 1, which counts as done
+      mbar_wait(empty + k, phase ^ 1);
+      mbar_expect_tx(full + k, st.bytes(s));
+      st.load(reinterpret_cast<float*>(ring + k * slot_bytes), s, full + k);
+      if (++k == stages) {
+        k = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+  for (long long s = blockIdx.x; s < n_stages; s += gridDim.x) {
+    mbar_wait(full + k, phase);
+    st.consume(reinterpret_cast<const float*>(ring + k * slot_bytes), s,
+               part);
+    mbar_arrive(empty + k);
+    if (++k == stages) {
+      k = 0;
+      phase ^= 1;
+    }
+  }
+}
+
 bool pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }
 
 // What the red kernels take: rows that split evenly over the slices, and a
@@ -305,6 +521,46 @@ bool red_shape_ok(int L, long long n_pad, int slices, int group) {
     return false;
   const int R = L / slices, g = group < R ? group : R;
   return pow2(g) && R % g == 0;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The shared memory of one pipeline block (the wrapper's stage_smem).
+long long pipe_smem(long long slot_bytes, int stages, int part_bytes) {
+  return kPipeHeader + part_bytes + stages * slot_bytes;
+}
+
+// grid_factor blocks per SM, at most as many as fit on one, and at most one
+// per stage.
+template <class Stages>
+int launch_pipe(const Stages& st, long long n_stages, int stages,
+                int grid_factor, int part_bytes, long long slot_bytes,
+                cudaStream_t stream) {
+  const long long smem = pipe_smem(slot_bytes, stages, part_bytes);
+  if (stages < 1 || stages > kPipeMaxStages || grid_factor < 1 ||
+      grid_factor > kPipeMaxGridFactor || smem > kPipeSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = esc_stream_pipe_kernel<Stages>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, fit = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &fit, kernel, kPipeThreads, (size_t)smem)) != cudaSuccess)
+    return (int)e;
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long grid =
+      std::min<long long>((long long)std::min(grid_factor, fit) * sms,
+                          n_stages);
+  esc_stream_pipe_kernel<Stages>
+      <<<(unsigned)grid, kPipeThreads, (size_t)smem, stream>>>(
+      st, n_stages, stages, part_bytes, slot_bytes);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -378,36 +634,38 @@ extern "C" int esc_stream_group(const long long* table, int n,
   return (int)cudaGetLastError();
 }
 
-// The probe's launches (spada_tpu_torch/tools/probe_pallas_stream.py): as
-// above, with block elements (mul) or chunk columns (red) per CUDA block, a
-// positive multiple of 4.
+// The probe's launches (spada_tpu_torch/tools/probe_pallas_stream.py): the
+// pipeline above with `block` elements (mul) or chunk columns (red) a
+// stage, a positive multiple of 4, a ring of `stages` slots (1 to 8) and
+// grid_factor blocks per SM (1 to 4); every pointer 16-byte aligned.  A
+// ring over 227 KB of shared memory is refused.
 extern "C" int esc_stream_mul_blocked(const void* a, const void* b, void* out,
                                       long long n, long long block,
+                                      int stages, int grid_factor,
                                       void* stream) {
-  if (n <= 0 || n % 4 != 0 || block <= 0 || block % 4 != 0)
+  if (n <= 0 || n % 4 != 0 || block <= 0 || block % 4 != 0 ||
+      block > kPipeSmemLimit || !aligned16(a) || !aligned16(b) ||
+      !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  const long long n4 = n / 4, per_block = block / 4;
-  const long long blocks = (n4 + per_block - 1) / per_block;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  esc_stream_mul_blocked_kernel<<<(unsigned)blocks, kMulThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(a), static_cast<const float4*>(b),
-      static_cast<float4*>(out), n4, per_block);
-  return (int)cudaGetLastError();
+  const MulStages st{static_cast<const float*>(a),
+                     static_cast<const float*>(b), static_cast<float*>(out),
+                     n, block};
+  return launch_pipe(st, (n + block - 1) / block, stages, grid_factor, 0,
+                     8 * block, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int esc_stream_red_blocked(const void* a, const void* b, void* out,
                                       int L, long long n_pad, int slices,
-                                      int group, long long block,
-                                      void* stream) {
-  if (!red_shape_ok(L, n_pad, slices, group) || block <= 0 || block % 4 != 0)
+                                      int group, long long block, int stages,
+                                      int grid_factor, void* stream) {
+  if (!red_shape_ok(L, n_pad, slices, group) || block <= 0 ||
+      block % 4 != 0 || block > kPipeSmemLimit || !aligned16(a) ||
+      !aligned16(b) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  const long long n4 = n_pad / 4, per_block = block / 4;
-  const long long blocks = (n4 + per_block - 1) / per_block;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  esc_stream_red_blocked_kernel<<<(unsigned)blocks, kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(a), static_cast<const float4*>(b),
-      static_cast<float4*>(out), L, n4, slices, group, per_block);
-  return (int)cudaGetLastError();
+  const RedStages st{static_cast<const float*>(a),
+                     static_cast<const float*>(b), static_cast<float*>(out),
+                     n_pad, block, L, slices, group};
+  return launch_pipe(st, (n_pad + block - 1) / block, stages, grid_factor,
+                     slices > 1 ? kRedPartBytes : 0, 8LL * L * block,
+                     static_cast<cudaStream_t>(stream));
 }

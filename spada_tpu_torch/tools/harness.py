@@ -86,19 +86,21 @@ def gate(got, ref, limit: float, label: str) -> float:
     return err
 
 
-def call_s(call: Callable, dev, *args, warmup: int = 2,
-           reps: int = 10) -> float:
+def call_s(call: Callable, dev, *args, warmup: int = 2, reps: int = 10,
+           flush=None) -> float:
     """Median seconds of ``call(*args)``: on a CUDA ``dev`` its device
-    seconds (``cuda_time``), the timing's launches taken back out of
-    ``_build.launches`` so that the counts stay the path's own; on the CPU
-    wall seconds of ``reps`` calls after ``warmup``."""
+    seconds (``cuda_time``, L2 flushed before every call with ``flush``),
+    the timing's launches taken back out of ``_build.launches`` so that the
+    counts stay the path's own; on the CPU wall seconds of ``reps`` calls
+    after ``warmup``."""
     if dev.type == "cuda":
         from spada_tpu_torch import _build
         from spada_tpu_torch.utils.timing import cuda_time
 
         saved = _build.launches.copy()
         try:
-            return cuda_time(call, *args, warmup=warmup, reps=reps)[0]
+            return cuda_time(call, *args, warmup=warmup, reps=reps,
+                             flush=flush)[0]
         finally:
             _build.launches.clear()
             _build.launches.update(saved)

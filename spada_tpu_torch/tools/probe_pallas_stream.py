@@ -1,19 +1,36 @@
-"""The element class kernels at fixed block sizes (port of
-``tools/probe_pallas_stream.py``).
+"""The element class kernels as a bulk-copy pipeline, at a sweep of stage
+sizes (port of ``tools/probe_pallas_stream.py``).
 
-The TPU probe asked which block size lets a pipelined streaming kernel beat
-XLA's fused elementwise pass on the element path's mix.  Here the same
-sweep runs the port's element kernels (``csrc/esc_stream.cu``) as the main
-path launches them and, through :func:`esc_stream_mul_blocked` and
-:func:`esc_stream_red_blocked`, with the work of one CUDA block set to the
-TPU's block, beside one PyTorch call that computes the same function:
+The TPU probe asked whether an explicitly pipelined streaming kernel, Pallas's
+double-buffered block copies into VMEM, beats XLA's fused elementwise pass on
+the element path's mix, and at which block size.  The card's counterpart of
+that pipeline is :func:`esc_stream_mul_blocked` and
+:func:`esc_stream_red_blocked` (``csrc/esc_stream.cu``): a persistent grid of
+``grid_factor`` blocks per SM, each a ring of ``stages`` slots in shared
+memory that one producer thread fills with bulk asynchronous copies
+(``cp.async.bulk`` under mbarriers) while 256 threads consume them.  Their
+``block`` is the work of one stage: elements of each operand (mul), or chunk
+columns of each of the L rows (red).  The TPU's blocks (1024-2869 rows of
+1024 f32, 4-11.7 MB an operand; 2^20 chunk columns, 8 MB) have no
+counterpart: a block of the card has 227 KB of shared memory, and a stage
+that does not fit raises ``ValueError``.  So each row of the sweep answers
+the TPU question at the card's scale:
 
-- ``esc_stream_mul`` on [45904, 1024] f32 (the locpl L = 1 class size):
-  the main path's launch (512 elements per block) and the TPU's blocks of
-  1024, 2048 and 2869 rows of 1024, beside ``torch.mul``;
-- ``esc_stream_red`` at L = 2 on [2, 4478341 padded to 2^20] f32: the main
-  path's launch and the TPU's 2^20 chunk columns per block, beside
+- ``mul <k>KiB S=<s> k=<g>`` (the TPU's ``mul_kernel`` rows): ``esc_stream_mul``'s
+  function on [45904, 1024] f32 (the locpl L = 1 class), k KiB of each
+  operand a stage, ``STAGE_KIB`` x ``STAGES`` x ``GRID_FACTORS`` where the
+  blocks fit on an SM, beside ``mul default`` (the main path's
+  ``esc_stream_mul``, one float4 a thread, nothing staged) and
+  ``torch.mul`` (the fused elementwise pass);
+- ``red2 <k>KiB S=<s> k=<g>`` (the TPU's ``red_kernel`` rows): the column sums
+  at L = 2 of [2, 4478341 padded to 5 * 2^20] f32, the same sweep, beside
+  ``red2 default`` (the main path's ``esc_stream_red``) and
   ``torch.linalg.vecdot(a, b, dim=0)``.
+
+Every stage row is held bitwise to the main path's kernel (mul: ``a * b``;
+red: ``esc_stream_red``'s compensated sums in its order) and to the plain
+version.  The red operands (105 MB with the output) are about twice the L2
+cache, so the red rows are also timed with L2 flushed before every call.
 
 :func:`block_shape_sweep` times what the design of ``esc_stream_red`` and of
 the grouped launch chose, on the operands of a real plan (``chip_smoke.py``
@@ -45,62 +62,134 @@ from spada_tpu_torch.ops.element_stream import (_check_operands,
 
 ROWS = 45904           # rows of 1024: n = 47,005,696, the locpl L=1 class
 N2 = 4478341           # chunks of the locpl L=2 class
-CHL = 1 << 20          # the TPU red block: chunk columns per block
-MUL_BLOCK_ROWS = (1024, 2048, 2869)
+CHL = 1 << 20          # the TPU red block: the L = 2 operands pad to it
+#: the sweep: KiB of each operand a stage brings, ring depths, blocks per SM
+STAGE_KIB = (4, 8, 16, 32)
+STAGES = (2, 3, 4)
+GRID_FACTORS = (1, 2)
+#: the launch's defaults
+DEFAULT_STAGES = 4
+DEFAULT_GRID_FACTOR = 1
+
+# what csrc/esc_stream.cu's pipeline takes: ring depth, blocks per SM, the
+# shared memory of a block and of an SM on sm_90 (the runtime keeps 1 KB of
+# an SM's per block), the ring's header (its mbarriers) and the red
+# combine's scratch (a block whose rows are split over slices)
+MAX_STAGES = 8
+MAX_GRID_FACTOR = 4
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+_SMEM_RESERVED = 1024
+_PIPE_HEADER = 2 * MAX_STAGES * 8
+_RED_PART = 2 * 256 * 16
 
 
-def _check_block(kernel: str, block: int) -> None:
+def stage_smem(L: int, block: int, stages: int, slices: int = 1) -> int:
+    """Bytes of shared memory one block of the pipeline takes: a ring of
+    ``stages`` slots of ``block`` elements (mul, ``L`` = 1) or chunk columns
+    of L rows (red) of both operands, the mbarriers, and the red combine's
+    scratch where ``slices`` > 1."""
+    return (_PIPE_HEADER + (_RED_PART if slices > 1 else 0)
+            + stages * 8 * L * block)
+
+
+def fits_per_sm(smem: int, grid_factor: int) -> bool:
+    """Whether ``grid_factor`` blocks of ``smem`` bytes fit on one SM."""
+    return grid_factor * (smem + _SMEM_RESERVED) <= SMEM_PER_SM
+
+
+def _check_pipe(kernel: str, a: torch.Tensor, b: torch.Tensor, block: int,
+                stages: int, grid_factor: int, smem: int) -> None:
+    """What the pipeline takes, on every device: the CPU path runs the plain
+    version, but refuses what the card's launch would."""
     if block <= 0 or block % 4:
         raise ValueError(f"{kernel}: block must be a positive multiple of 4, "
                          f"got {block}")
+    if not 1 <= stages <= MAX_STAGES:
+        raise ValueError(f"{kernel}: stages must be 1 to {MAX_STAGES}, got "
+                         f"{stages}")
+    if not 1 <= grid_factor <= MAX_GRID_FACTOR:
+        raise ValueError(f"{kernel}: grid_factor must be 1 to "
+                         f"{MAX_GRID_FACTOR}, got {grid_factor}")
+    if a.shape[1] % 4:
+        raise ValueError(f"{kernel}: rows must be a multiple of 4 floats, got "
+                         f"{a.shape[1]}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{kernel}: operands must be contiguous")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{kernel}: bulk copies need 16-byte aligned "
+                         f"operands")
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{kernel}: a ring of {stages} stages of block "
+                         f"{block} takes {smem} bytes of shared memory, over "
+                         f"the {SMEM_PER_BLOCK} a block has")
 
 
-def esc_stream_mul_blocked(a: torch.Tensor, b: torch.Tensor,
-                           block: int) -> torch.Tensor:
-    """``esc_stream_mul`` with ``block`` elements per CUDA block.  CUDA
-    tensors run ``csrc/esc_stream.cu``; CPU tensors the plain version."""
-    _check_block("esc_stream_mul_blocked", block)
+def esc_stream_mul_blocked(a: torch.Tensor, b: torch.Tensor, block: int,
+                           stages: int = DEFAULT_STAGES,
+                           grid_factor: int = DEFAULT_GRID_FACTOR
+                           ) -> torch.Tensor:
+    """``esc_stream_mul``'s product through the bulk-copy pipeline, ``block``
+    elements of each operand a stage.  CUDA tensors run
+    ``csrc/esc_stream.cu``; CPU tensors the plain version."""
     _check_operands(a, b, "esc_stream_mul_blocked")
+    _check_pipe("esc_stream_mul_blocked", a, b, block, stages, grid_factor,
+                stage_smem(1, block, stages))
     if a.device.type == "cpu":
         return esc_stream_mul_reference(a, b)
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
     status = _build.load().esc_stream_mul_blocked(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), block,
-        _build.current_stream(a))
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), block, stages,
+        grid_factor, _build.current_stream(a))
     _build.check(status, "esc_stream_mul_blocked")
     _build.launches["esc_stream_mul_blocked"] += 1
     return out
 
 
-def esc_stream_red_blocked(a: torch.Tensor, b: torch.Tensor,
-                           block: int) -> torch.Tensor:
-    """``esc_stream_red`` with ``block`` chunk columns per CUDA block.
-    CUDA tensors run ``csrc/esc_stream.cu``; CPU tensors the plain
+def esc_stream_red_blocked(a: torch.Tensor, b: torch.Tensor, block: int,
+                           stages: int = DEFAULT_STAGES,
+                           grid_factor: int = DEFAULT_GRID_FACTOR
+                           ) -> torch.Tensor:
+    """``esc_stream_red``'s column sums, bit for bit, through the bulk-copy
+    pipeline, ``block`` chunk columns of the L rows of each operand a
+    stage.  CUDA tensors run ``csrc/esc_stream.cu``; CPU tensors the plain
     version."""
-    _check_block("esc_stream_red_blocked", block)
     _check_operands(a, b, "esc_stream_red_blocked")
+    L, n_pad = a.shape
+    slices = red_slices(L, n_pad // 4)
+    _check_pipe("esc_stream_red_blocked", a, b, block, stages, grid_factor,
+                stage_smem(L, block, stages, slices))
     if a.device.type == "cpu":
         return esc_stream_red_reference(a, b)
-    L, n_pad = a.shape
     out = torch.empty((1, n_pad), dtype=torch.float32, device=a.device)
     if n_pad == 0:
         return out
     if L == 0:
         return out.zero_()
-    slices = red_slices(L, n_pad // 4)
     status = _build.load().esc_stream_red_blocked(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), L, n_pad, slices,
-        red_group(L, slices), block, _build.current_stream(a))
+        red_group(L, slices), block, stages, grid_factor,
+        _build.current_stream(a))
     _build.check(status, "esc_stream_red_blocked")
     _build.launches["esc_stream_red_blocked"] += 1
     return out
 
 
+def stage_rows(L: int):
+    """[(label suffix, block, stages, grid_factor)]: the sweep's rows for a
+    kernel of ``L`` rows (1: mul), those whose blocks fit on an SM."""
+    return [(f"{kib}KiB S={s} k={g}", kib * 1024 // (4 * L), s, g)
+            for kib in STAGE_KIB for s in STAGES for g in GRID_FACTORS
+            if fits_per_sm(stage_smem(L, kib * 1024 // (4 * L), s), g)]
+
+
 def stream_cases(rows: int, n2: int, device, seed: int = 0):
-    """[(label, kernel name, kernel call, plain call, library call, (flops,
-    bytes))]: zero-argument calls on the probe's operands."""
+    """The probe's two kernels on its operands: [(kernel name, main-path
+    label, main-path call, [(stage label, block, stages, grid_factor,
+    call)], plain call, library call, (flops, bytes))], each call taking
+    no argument."""
     from spada_tpu_torch.config import stream_work
     from spada_tpu_torch.ops.element_stream import (esc_stream_mul,
                                                     esc_stream_red)
@@ -116,75 +205,112 @@ def stream_cases(rows: int, n2: int, device, seed: int = 0):
     a2[:, :n2] = rng.standard_normal((2, n2), np.float32)
     b2[:, :n2] = rng.standard_normal((2, n2), np.float32)
     a2, b2 = torch.from_numpy(a2).to(device), torch.from_numpy(b2).to(device)
-    mul_work, red_work = stream_work(1, a.numel()), stream_work(2, n2p)
 
-    def mul_plain():
-        return esc_stream_mul_reference(a, b)
+    def rows_of(kernel, x, y, L, prefix):
+        return [(f"{prefix} {suffix}", blk, s, g,
+                 lambda blk=blk, s=s, g=g: kernel(x, y, blk, s, g))
+                for suffix, blk, s, g in stage_rows(L)]
 
-    def mul_library():
-        return torch.mul(a, b)
-
-    def red_plain():
-        return esc_stream_red_reference(a2, b2)
-
-    def red_library():
-        return torch.linalg.vecdot(a2, b2, dim=0)
-
-    cases = [("mul default", "esc_stream_mul", lambda: esc_stream_mul(a, b),
-              mul_plain, mul_library, mul_work)]
-    cases += [(f"mul br={r}", "esc_stream_mul_blocked",
-               lambda r=r: esc_stream_mul_blocked(a, b, r * 1024),
-               mul_plain, mul_library, mul_work) for r in MUL_BLOCK_ROWS]
-    cases += [("red2 default", "esc_stream_red",
-               lambda: esc_stream_red(a2, b2), red_plain, red_library,
-               red_work),
-              (f"red2 chl={CHL}", "esc_stream_red_blocked",
-               lambda: esc_stream_red_blocked(a2, b2, CHL), red_plain,
-               red_library, red_work)]
-    return cases
+    return [("esc_stream_mul_blocked", "mul default",
+             lambda: esc_stream_mul(a, b),
+             rows_of(esc_stream_mul_blocked, a, b, 1, "mul"),
+             lambda: esc_stream_mul_reference(a, b),
+             lambda: torch.mul(a, b), stream_work(1, a.numel())),
+            ("esc_stream_red_blocked", "red2 default",
+             lambda: esc_stream_red(a2, b2),
+             rows_of(esc_stream_red_blocked, a2, b2, 2, "red2"),
+             lambda: esc_stream_red_reference(a2, b2),
+             lambda: torch.linalg.vecdot(a2, b2, dim=0),
+             stream_work(2, n2p))]
 
 
 def run(rows: int = ROWS, n2: int = N2, device="cuda",
         log: Callable[[str], None] = print) -> Dict[str, dict]:
-    """Each case once against its plain version, then timed on a CUDA
-    device.  Returns {label: {"kernel", "relerr", "max_abs_err", "ms",
-    "plain_ms", "library_ms", "bound_ms", "bound_by", "gbps"}} (times None
-    on the CPU)."""
-    from spada_tpu_torch.convert import check_device
+    """Each main-path launch and stage row once against the plain version
+    (and each stage row against the main path's bits), then timed on a
+    CUDA device.  Returns {label: {"kernel", "block", "stages",
+    "grid_factor", "exact", "relerr", "max_abs_err", "ms", "cold_ms",
+    "main_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "gbps"}};
+    ``exact`` says whether a stage row gave the main path's bits (None for
+    the main path's own row), ``cold_ms`` is the red rows' time with L2
+    flushed before every call; times are None on the CPU."""
     from spada_tpu_torch.config import roofline_bound
+    from spada_tpu_torch.convert import check_device
+    from spada_tpu_torch.tools.harness import call_s
 
     dev = check_device(device)
     cuda = dev.type == "cuda"
     name = torch.cuda.get_device_name(dev) if cuda else None
-    out = {}
-    for label, kname, kernel, plain, library, (flops, nbytes) in \
-            stream_cases(rows, n2, dev):
-        got, ref = kernel(), plain()
-        err = float((got - ref).abs().max())
-        bound, by = roofline_bound(flops, nbytes, name)
-        rec = {"kernel": kname, "max_abs_err": err,
-               "relerr": err / max(float(ref.abs().max()), 1e-30),
-               "bound_ms": bound * 1e3, "bound_by": by, "ms": None,
-               "plain_ms": None,
-               "library_ms": None, "gbps": None}
-        del got, ref
-        if cuda:
-            from spada_tpu_torch.utils.timing import cuda_time
+    # twice the 50 MB L2 of an H100
+    flush = (torch.empty(256 << 20, dtype=torch.uint8, device=dev) if cuda
+             else None)
 
-            t, _ = cuda_time(kernel)
-            tp, _ = cuda_time(plain)
-            tl, _ = cuda_time(library)
-            rec.update(ms=t * 1e3, plain_ms=tp * 1e3, library_ms=tl * 1e3,
-                       gbps=nbytes / t / 1e9)
-            log(f"  {label:18s} {t * 1e3:7.3f} ms {nbytes / t / 1e9:7.1f} "
-                f"GB/s (bound {bound * 1e3:.3f} ms)  plain {tp * 1e3:7.3f} "
-                f"ms  library {tl * 1e3:7.3f} ms  max|d|/max|ref| "
-                f"{rec['relerr']:.1e}")
-        else:
-            log(f"  {label:18s} max|d|/max|ref| {rec['relerr']:.1e} (plain "
-                f"version on the CPU, not timed)")
-        out[label] = rec
+    def device_ms(call, **kw):  # the timing's launches are not counted
+        return call_s(call, dev, **kw) * 1e3
+
+    out = {}
+    for kname, main_label, main, stage_calls, plain, library, (flops, nbytes) \
+            in stream_cases(rows, n2, dev):
+        ref, want = plain(), main()
+        scale = max(float(ref.abs().max()), 1e-30)
+        bound, by = roofline_bound(flops, nbytes, name)
+        red = kname.startswith("esc_stream_red")
+        common = {"bound_ms": bound * 1e3, "bound_by": by, "main_ms": None,
+                  "plain_ms": None, "library_ms": None}
+        if cuda:
+            common.update(plain_ms=device_ms(plain),
+                          library_ms=device_ms(library))
+        # the main path's launch first: its time goes beside every stage row
+        rows_ = [(main_label, kname.replace("_blocked", ""), None, None,
+                  None, main)]
+        rows_ += [(label, kname, blk, s, g, call)
+                  for label, blk, s, g, call in stage_calls]
+        for label, kernel, blk, s, g, call in rows_:
+            got = want if blk is None else call()
+            err = float((got - ref).abs().max())
+            rec = {**common, "kernel": kernel, "block": blk, "stages": s,
+                   "grid_factor": g,
+                   "exact": None if blk is None else torch.equal(got, want),
+                   "max_abs_err": err, "relerr": err / scale, "ms": None,
+                   "cold_ms": None, "gbps": None}
+            del got
+            if cuda:
+                ms = device_ms(call)
+                if blk is None:
+                    common["main_ms"] = ms
+                rec.update(ms=ms, main_ms=common["main_ms"],
+                           gbps=nbytes / ms / 1e6)
+                if red:
+                    rec["cold_ms"] = device_ms(call, flush=flush)
+            out[label] = rec
+            log(_row_line(label, rec))
+        if cuda and red:
+            log(f"  {'vecdot, L2 flushed':24s} "
+                f"{device_ms(library, flush=flush):7.3f} ms")
+        del ref, want
     return out
+
+
+def _row_line(label: str, rec: dict) -> str:
+    exact = {None: "", True: "  bitwise main", False: "  NOT bitwise main"}
+    head = f"  {label:24s}"
+    if rec["ms"] is None:
+        return (f"{head} max|d|/max|ref| {rec['relerr']:.1e}"
+                f"{exact[rec['exact']]} (plain version on the CPU, not timed)")
+    cold = (f" (L2 flushed {rec['cold_ms']:.3f})"
+            if rec["cold_ms"] is not None else "")
+    return (f"{head} {rec['ms']:7.3f} ms{cold} {rec['gbps']:7.1f} GB/s  "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_ms'] / rec['ms']:.0%})"
+            f"  main {rec['main_ms']:.3f}  library {rec['library_ms']:.3f}  "
+            f"plain {rec['plain_ms']:.3f} ms  max|d|/max|ref| "
+            f"{rec['relerr']:.1e}{exact[rec['exact']]}")
+
+
+def best_row(res: Dict[str, dict], kernel: str) -> str:
+    """The label of ``kernel``'s fastest stage row in :func:`run`'s
+    result."""
+    return min((label for label, r in res.items() if r["kernel"] == kernel),
+               key=lambda label: res[label]["ms"])
 
 
 def block_shape_sweep(pairs, Ls, log: Callable[[str], None] = print) -> dict:

@@ -15,7 +15,7 @@ real caller pays them.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,15 +25,18 @@ import torch
 _CYCLES_PER_S = 2e9
 
 
-def cuda_time(fn: Callable, *args, warmup: int = 2,
-              reps: int = 10) -> Tuple[float, List[float]]:
+def cuda_time(fn: Callable, *args, warmup: int = 2, reps: int = 10,
+              flush: Optional[torch.Tensor] = None
+              ) -> Tuple[float, List[float]]:
     """(median seconds, per-call seconds) of ``fn(*args)`` on the device.
 
     ``fn`` must not synchronise with the device.  At least one call is made
     before the timed ones, to measure how long the host takes to enqueue
     one, then ``reps`` whose outputs are held together, as the timed calls'
-    are.  Raises where there is no CUDA device: a CPU timing is not a device
-    number.
+    are.  With ``flush`` (a device tensor larger than the L2 cache), it is
+    zeroed before every call, outside the call's interval, so each call
+    finds its operands in device memory and not in L2.  Raises where there
+    is no CUDA device: a CPU timing is not a device number.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time needs a CUDA device")
@@ -41,6 +44,8 @@ def cuda_time(fn: Callable, *args, warmup: int = 2,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_warm):
+        if flush is not None:
+            flush.zero_()
         fn(*args)
     host_s = (time.perf_counter() - t0) / n_warm
     # the timed calls keep their outputs: let the allocator cache that much
@@ -50,16 +55,24 @@ def cuda_time(fn: Callable, *args, warmup: int = 2,
     held = [fn(*args) for _ in range(reps)]
     del held
     torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    # back to back, each call starts where the one before ended; after a
+    # flush, at an event of its own
+    starts = ([torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+              if flush is not None
+              else [torch.cuda.Event(enable_timing=True)] + ends[:-1])
     outs = []
     # twice the host's enqueue time of all reps, at most ~2 s
     torch.cuda._sleep(int(min(4e9, max(1e6, 2 * reps * host_s
                                         * _CYCLES_PER_S))))
-    events[0].record()
-    for ev in events[1:]:
+    for i, (start, end) in enumerate(zip(starts, ends)):
+        if flush is not None:
+            flush.zero_()
+        if flush is not None or i == 0:
+            start.record()
         outs.append(fn(*args))
-        ev.record()
-    events[-1].synchronize()
+        end.record()
+    ends[-1].synchronize()
     del outs
-    samples = [a.elapsed_time(b) * 1e-3 for a, b in zip(events, events[1:])]
+    samples = [a.elapsed_time(b) * 1e-3 for a, b in zip(starts, ends)]
     return float(np.median(samples)), samples

@@ -615,27 +615,67 @@ def test_probe_block_argument(cuda_device):
         tile_probe.tile_probe(*args, block="wgmma", **kw)
 
 
+# (L, n, block, stages, grid_factor): L = 1 runs the mul pipeline on
+# [n / 1024, 1024], L >= 2 the red pipeline on [L, n].  132 SMs or more
+# give each block a few stages at most of the wider cases, so the ring
+# wraps where stages are small: one-slot rings, tails (n not a multiple of
+# block), n below one stage, and L = 32 at n = 40000, whose rows the red
+# body splits over 8 slices (the combine through shared memory).
+STREAM_STAGE_CASES = [
+    (1, 4099 * 1024, 4, 1, 1),       # 16-byte stages, a one-slot ring
+    (1, 4099 * 1024, 1000, 2, 2),    # tail 376, about 16 stages a block
+    (1, 4099 * 1024, 8192, 3, 1),    # 32 KiB stages, tail 3072
+    (1, 3 * 1024, 8192, 3, 1),       # n below one stage
+    (2, 40000, 12, 3, 1),            # tail 4, about 25 stages a block
+    (2, 40000, 1024, 4, 2),          # tail 64
+    (2, 1000, 4096, 2, 1),           # n below one stage
+    (32, 40000, 44, 2, 1),           # slices 8, tail 4, the ring wraps
+    (32, 40000, 436, 2, 2),          # L = 32's largest slot at two stages
+    (32, 1020, 400, 1, 1),           # one-slot rings, tail 220
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("block", [4, 512, 4096, 1 << 20, 2869 * 1024])
-def test_stream_kernels_at_block_sizes(cuda_device, block):
-    """The probe's launches at any block size give the main path's values:
-    mul bitwise, red the same sums in the same order."""
-    rng = np.random.default_rng(block)
-    a = torch.from_numpy(rng.standard_normal((96, 1024), np.float32))
-    b = torch.from_numpy(rng.standard_normal((96, 1024), np.float32))
-    a, b = a.to(cuda_device), b.to(cuda_device)
-    got = _launched_once("esc_stream_mul_blocked",
-                         probe_pallas_stream.esc_stream_mul_blocked, a, b,
-                         block)
-    assert torch.equal(got, a * b)
-    for L in (2, 32):
-        x, y = a[:L].contiguous(), b[:L].contiguous()
-        got = _launched_once("esc_stream_red_blocked",
-                             probe_pallas_stream.esc_stream_red_blocked, x,
-                             y, block)
-        assert torch.equal(got, esc_stream_red(x, y))
-    with pytest.raises(ValueError, match="block"):
-        probe_pallas_stream.esc_stream_mul_blocked(a, b, 6)
+@pytest.mark.parametrize("L,n,block,stages,grid_factor", STREAM_STAGE_CASES)
+def test_stream_kernels_at_block_sizes(cuda_device, L, n, block, stages,
+                                       grid_factor):
+    """The probe's bulk-copy pipeline at any stage size, ring depth and
+    grid gives the main path's values: mul bitwise a * b, red bitwise
+    esc_stream_red (the same sums in the same order)."""
+    rng = np.random.default_rng(n + block)
+    shape = (n // 1024, 1024) if L == 1 else (L, n)
+    a = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        cuda_device)
+    b = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        cuda_device)
+    if L == 1:
+        got = _launched_once("esc_stream_mul_blocked",
+                             probe_pallas_stream.esc_stream_mul_blocked, a, b,
+                             block, stages, grid_factor)
+        assert torch.equal(got, a * b)
+        return
+    if L == 32 and n == 40000:
+        assert red_slices(L, n // 4) == 8
+    got = _launched_once("esc_stream_red_blocked",
+                         probe_pallas_stream.esc_stream_red_blocked, a, b,
+                         block, stages, grid_factor)
+    assert torch.equal(got, esc_stream_red(a, b))
+    assert _relerr(got, esc_stream_red_reference(a, b)) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_stream_kernels_refuse_tpu_blocks(cuda_device):
+    """The TPU probe's blocks (1024 rows of 1024 f32; 2^20 chunk columns)
+    do not fit in a block's shared memory: the wrappers raise and launch
+    nothing."""
+    a = torch.ones((1024, 1024), device=cuda_device)
+    a2 = torch.ones((2, 1 << 20), device=cuda_device)
+    before = dict(_build.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        probe_pallas_stream.esc_stream_mul_blocked(a, a, 1024 * 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        probe_pallas_stream.esc_stream_red_blocked(a2, a2, 1 << 20)
+    assert dict(_build.launches) == before
 
 
 @pytest.mark.cuda

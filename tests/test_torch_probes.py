@@ -298,17 +298,46 @@ def test_panel3d_library_call():
 
 def test_stream_probe_on_cpu():
     res = probe_pallas_stream.run(rows=16, n2=3000, device="cpu")
-    assert len(res) == 6
-    assert all(r["relerr"] == 0.0 and r["bound_ms"] > 0 for r in res.values())
-    for label, kname, kernel, plain, library, work in (
+    rows = {L: probe_pallas_stream.stage_rows(L) for L in (1, 2)}
+    assert len(res) == 2 + len(rows[1]) + len(rows[2])
+    assert all(r["relerr"] == 0.0 and r["bound_ms"] > 0 and r["ms"] is None
+               for r in res.values())
+    assert all(r["exact"] for r in res.values() if r["block"] is not None)
+    assert {r["kernel"] for r in res.values()} == {
+        "esc_stream_mul", "esc_stream_red", "esc_stream_mul_blocked",
+        "esc_stream_red_blocked"}
+    for kname, _, main, stage_calls, plain, library, work in (
             probe_pallas_stream.stream_cases(16, 3000, "cpu")):
-        got, lib = kernel(), library()
-        assert torch.equal(got, plain())
+        ref, lib = plain(), library()
+        assert torch.equal(main(), ref)
+        assert len(stage_calls) == len(rows[1 if "mul" in kname else 2])
+        for label, block, stages, grid_factor, call in stage_calls:
+            assert torch.equal(call(), ref), label
         if kname.startswith("esc_stream_mul"):
-            assert torch.equal(got, lib)
+            assert torch.equal(ref, lib)
         else:
-            np.testing.assert_allclose(got.numpy()[0], lib.numpy(),
+            np.testing.assert_allclose(ref.numpy()[0], lib.numpy(),
                                        rtol=1e-6, atol=1e-6)
+
+
+def test_stream_sweep_fits_the_card():
+    """Every stage row's blocks fit on an SM at its blocks per SM; each
+    kernel's sweep spans 4-32 KiB a stage, 2-4 stages, 1-2 blocks per SM;
+    and no TPU block fits in a block's shared memory."""
+    P = probe_pallas_stream
+    for L in (1, 2):
+        rows = P.stage_rows(L)
+        assert {r[2] for r in rows} == set(P.STAGES)
+        assert {r[3] for r in rows} == set(P.GRID_FACTORS)
+        assert {4 * L * r[1] // 1024 for r in rows} == set(P.STAGE_KIB)
+        for _, block, stages, grid_factor in rows:
+            smem = P.stage_smem(L, block, stages)
+            assert smem <= P.SMEM_PER_BLOCK
+            assert P.fits_per_sm(smem, grid_factor)
+        assert len(rows) == 19
+    for rows in (1024, 2048, 2869):
+        assert P.stage_smem(1, rows * 1024, 1) > P.SMEM_PER_BLOCK
+    assert P.stage_smem(2, P.CHL, 1) > P.SMEM_PER_BLOCK
 
 
 def test_stream_block_argument():
@@ -318,13 +347,58 @@ def test_stream_block_argument():
     mul_blocked = probe_pallas_stream.esc_stream_mul_blocked
     red_blocked = probe_pallas_stream.esc_stream_red_blocked
     assert torch.equal(mul_blocked(a, b, 2048), esc_stream_mul(a, b))
-    assert torch.equal(red_blocked(a, b, 1 << 20), esc_stream_red(a, b))
+    assert torch.equal(red_blocked(a, b, 512), esc_stream_red(a, b))
+    assert torch.equal(red_blocked(a, b, 4, 1, 4), esc_stream_red(a, b))
     assert torch.equal(esc_stream_red(a, b), (a * b).sum(0, keepdim=True))
     for bad in (0, -4, 6):
         with pytest.raises(ValueError, match="block"):
             mul_blocked(a, b, bad)
         with pytest.raises(ValueError, match="block"):
             red_blocked(a, b, bad)
+
+
+def _misaligned(rows, cols):
+    """A contiguous [rows, cols] f32 view 4 bytes past a 16-byte boundary."""
+    flat = torch.zeros(rows * cols + 4)
+    base = (-flat.data_ptr() // 4) % 4
+    return flat[base + 1:base + 1 + rows * cols].view(rows, cols)
+
+
+# (kernel, operand shape, block, stages, grid_factor, what the error names)
+STREAM_REFUSED = [
+    # a stage too large for a block's shared memory: the TPU's blocks, and
+    # the smallest ring over 227 KB
+    ("mul", (8, 1024), 1024 * 1024, 1, 1, "shared memory"),
+    ("mul", (8, 1024), 7264, 4, 1, "shared memory"),
+    ("red", (2, 1024), 1 << 20, 1, 1, "shared memory"),
+    ("red", (32, 1024), 444, 2, 1, "shared memory"),
+    # ring depth and blocks per SM out of range
+    ("mul", (8, 1024), 1024, 9, 1, "stages"),
+    ("red", (2, 1024), 1024, 0, 1, "stages"),
+    ("mul", (8, 1024), 1024, 2, 5, "grid_factor"),
+    # rows that are not a multiple of 4 floats, and misaligned operands
+    ("mul", (8, 1022), 1024, 2, 1, "multiple of 4"),
+    ("red", (2, 1022), 1024, 2, 1, "multiple of 4"),
+    ("mul", "misaligned", 1024, 2, 1, "16-byte aligned"),
+    ("red", "misaligned", 1024, 2, 1, "16-byte aligned"),
+]
+
+
+@pytest.mark.parametrize("kernel,shape,block,stages,grid_factor,match",
+                         STREAM_REFUSED)
+def test_stream_pipeline_refuses(kernel, shape, block, stages, grid_factor,
+                                 match):
+    """What the card's launch cannot take raises ValueError on the CPU
+    too, where the wrapper runs the plain version."""
+    if shape == "misaligned":
+        a = b = _misaligned(2, 1024)
+        assert a.is_contiguous() and a.data_ptr() % 16 == 4
+    else:
+        a = b = torch.ones(shape)
+    fn = (probe_pallas_stream.esc_stream_mul_blocked if kernel == "mul"
+          else probe_pallas_stream.esc_stream_red_blocked)
+    with pytest.raises(ValueError, match=match):
+        fn(a, b, block, stages, grid_factor)
 
 
 @pytest.mark.parametrize("argv", [
