@@ -135,9 +135,15 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    two minutes of host planning, is left to the tool; no verdict); (c)
    ``eval_adaptive`` at n = 8192 (``--quick``) on the row sets banded,
    loc-powerlaw, nn-bert-ffn1-blk32 and the graded FEM, which cover every
-   row type; (d) ``bench_value_refresh`` with 2 batches; (e) phase 4's two
-   plans side by side: T, tm histogram, W, blocks and
-   ``measure_device_perf``.
+   row type, the element side timed where dispatch picks it (the FEM must
+   be dispatched there); (d) ``bench_value_refresh`` with 2 batches; (e)
+   phase 4's two plans side by side: T, tm histogram, W, blocks and
+   ``measure_device_perf``; (f) the terms ``h100_config`` carries (the
+   per-T overheads, acc and fixed per tile dtype, ``element_fixed_s``),
+   the thin points of phase 4c's ``tile_spgemm`` cases beside the recorded
+   ones (``config._THIN_FIT``), and the graded FEM at 129 edges through
+   ``eval_adaptive`` with both sides timed and the dispatch's OK / WRONG
+   verdict (it must be dispatched to the element side).
 11. the last two reference tools (``spada_tpu_torch.tools``): (a)
    ``probe_op`` at its size (banded 16384^2, band 384, T = 384, bf16 then
    f32 tiles): the op dataflow's k-major worklist on the plain scatter-add
@@ -275,19 +281,6 @@ def library_time(fn, reps: int = 3) -> float:
         del out
         samples.append(start.elapsed_time(end) * 1e-3)
     return float(np.median(samples))
-
-
-def host_enqueue_s(fn, reps: int = 5) -> float:
-    """Host seconds one call of ``fn`` takes to enqueue its device work."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    dt = (time.perf_counter() - t0) / reps
-    torch.cuda.synchronize()
-    return dt
 
 
 #: the kernels that must run on tensor cores: the wide path of the four
@@ -887,10 +880,13 @@ def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
             log("  " + line)
 
     t0 = time.perf_counter()
+    ab = sweep_thin.banded_pair(32768)
     with main_path(totals) as counts:
         rows = sweep_thin.run(n=32768, device=dev, gate_rows=GATE_ROWS,
                               lib_whole=(THIN_LINE_CASE,),
-                              engines=sweep_thin.ENGINES, log=say)
+                              engines=sweep_thin.ENGINES, ab=ab, log=say)
+    # phase 10 (f) reads the tile_spgemm cases' item overheads
+    extra["thin_sweep"] = (rows, ab)
     require(all(r["block"] == ("mma_thin" if r["tm"] < 128 else "mma")
                 for r in rows),
             f"phase 4c: blocks "
@@ -939,6 +935,7 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
                                                     stream_operands)
     from spada_tpu_torch.io.workloads import localized_powerlaw_csr
     from spada_tpu_torch.ops.spgemm import measure_device_perf
+    from spada_tpu_torch.tools.harness import enqueue_s
     from spada_tpu_torch.tools.probe_pallas_stream import block_shape_sweep
     from spada_tpu_torch.utils.timing import cuda_time
 
@@ -1009,8 +1006,8 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
 
         t_k, t_p = time_pair(kernel_all, plain_all)
         t_l, _ = cuda_time(library_all, warmup=1, reps=10)
-        h_k = host_enqueue_s(kernel_all) / len(idx)
-        h_p = host_enqueue_s(plain_all) / len(idx)
+        h_k = enqueue_s(kernel_all, dev) / len(idx)
+        h_p = enqueue_s(plain_all, dev) / len(idx)
         b_s, by = roofline_bound(flops, nbytes, kind)
         log(f"  {name}: {len(idx)} classes, {nbytes / 1e9:.3f} GB  kernel "
             f"{t_k * 1e3:.3f} ms ({nbytes / t_k / 1e9:.0f} GB/s)  plain "
@@ -1046,7 +1043,7 @@ def run_locpl(dev, cfg, totals: dict, errs: dict, times: dict, extra: dict,
     work = [stream_work(L, c["n_pad"]) for L, c in zip(Ls, layout.classes)]
     flops, nbytes = (sum(w[j] for w in work) for j in (0, 1))
     b_s, by = roofline_bound(flops, nbytes, kind)
-    host = {k: host_enqueue_s(f) for k, f in (
+    host = {k: enqueue_s(f, dev) for k, f in (
         ("grouped", group_call), ("per class", per_class_call),
         ("plain", plain_call))}
     log(f"  one multiply, {len(Ls)} classes, {nbytes / 1e9:.3f} GB: grouped "
@@ -1961,10 +1958,13 @@ def run_calibration(dev, runs: dict, nn_ref, extra: dict,
         results = []
         for name, (a, b) in sets.items():
             if name in EVAL_SUBSET or name.startswith("fem-graded-"):
-                T, rows = eval_adaptive.eval_workload(name, a, b, dev,
-                                                      GATE_ROWS, say)
-                results.append((name, T, rows))
+                results.append((name, *eval_adaptive.eval_workload(
+                    name, a, b, dev, GATE_ROWS, say, element="dispatched")))
         say(eval_adaptive.report(results, 8192, card_name(dev)))
+        fem = results[-1]
+        require(fem[0].startswith("fem-graded-") and fem[3]["choice"]
+                == "element", f"(c) {fem[0]}: dispatched to "
+                f"{fem[3]['choice']}, not the element side")
 
     steps = (
         ("(a) probe_item_overhead, banded 32768^2", "tile_spgemm",
@@ -1991,6 +1991,52 @@ def run_calibration(dev, runs: dict, nn_ref, extra: dict,
                 > 0, f"{label}: launches {counts}")
     log("  (e) phase 4's plans of the nn pair, under the card's fit and "
         "under the reference's per-item terms:")
+    nn_plans_side_by_side(runs, nn_ref, extra)
+    t0 = time.perf_counter()
+    log("  (f) the card's terms, and the graded FEM's dispatch under them:")
+    with main_path(totals) as counts:
+        card_terms(dev, extra["thin_sweep"], say)
+    log(f"  (f): launches {counts}, {time.perf_counter() - t0:.1f} s, on "
+        f"{smi_name_power()}")
+    require(counts.get("tile_spgemm", 0) > 0
+            and counts.get("esc_stream_group", 0) > 0,
+            f"(f): launches {counts}")
+
+
+def card_terms(dev, thin_sweep, say) -> None:
+    """Phase 10 (f): the planner's terms ``h100_config`` carries (the per-T
+    overheads, acc and fixed per tile dtype, the element path's fixed
+    term), the thin points of phase 4c's tile_spgemm cases beside the
+    recorded ones, and the graded FEM at 129 edges (the full eval's size)
+    through ``eval_adaptive`` with both sides timed and its dispatch
+    verdict."""
+    from spada_tpu_torch.config import _THIN_FIT, h100_config
+    from spada_tpu_torch.io.workloads import fem_q1_graded_csr
+    from spada_tpu_torch.tools import eval_adaptive, probe_item_overhead
+    from spada_tpu_torch.tools.harness import card_name
+
+    name = card_name(dev)
+    rows, (a, b) = thin_sweep
+    now = probe_item_overhead.thin_points(rows, a, b, name)
+    for dt in ("float32", "bfloat16"):
+        cfg = h100_config(name, engine_dtype=dt)
+        say(f"{dt}: per-T overhead {cfg.engine_item_overhead_s}; acc "
+            f"{cfg.engine_acc_s_per_elem:.4e} s per element, fixed "
+            f"{cfg.engine_item_fixed_s * 1e9:.2f} ns; element_fixed_s "
+            f"{cfg.element_fixed_s * 1e6:.3f} us")
+        say("thin overheads ns, recorded / phase 4c's run: " + ", ".join(
+            f"tm {tm} {o * 1e9:.2f} / {now[dt][(tm, tn)][0] * 1e9:.2f}"
+            for (tm, tn), (o, _) in _THIN_FIT[dt].items()))
+    edges = eval_adaptive.fem_edges(16384)
+    fem = fem_q1_graded_csr(edges, edges, dtype=np.float32)
+    _, _, verdict = eval_adaptive.eval_workload(
+        f"fem-graded-{edges}", fem, fem, dev, GATE_ROWS, say)
+    require(verdict["choice"] == "element",
+            f"(f) the graded FEM dispatched to {verdict['choice']}")
+
+
+def nn_plans_side_by_side(runs: dict, nn_ref, extra: dict) -> None:
+    """Phase 10 (e): phase 4's two plans of the nn pair."""
     rows = nn_ref.shape[0]
     for label, run in runs.items():
         p = extra["nn_plans"][label]

@@ -11,9 +11,10 @@
 ``_print_first_rows``, ``_tile_bytes``, ``cmd_traffic`` and ``cmd_breuse``
 are copies of the reference CLI's, held equal to it by
 ``tests/test_torch_host.py``.  The ``run`` mode replaces the roofline
-constants and the per-item terms of the config by the card's profile (its
-datasheet peaks and the per-item fit for the tile dtype,
-:func:`spada_tpu_torch.config.card_profile`) and reports the device time
+constants, the per-item terms and the element path's fixed term of the
+config by the card's profile (its datasheet peaks, the per-item fit for
+the tile dtype and the element fit,
+:func:`spada_tpu_torch.config.card_config`) and reports the device time
 of the multiply (:func:`~spada_tpu_torch.ops.spgemm.measure_device_perf`); on the
 CPU, which has no device time, the wall time of a warm rerun.  ``plan``
 prints the panel plan without executing it; under ``--plan-scheme
@@ -38,7 +39,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from spada_tpu_torch.config import SpadaConfig, card_profile
+from spada_tpu_torch.config import SpadaConfig, card_config
 from spada_tpu_torch.convert import check_device
 from spada_tpu_torch.io.workloads import GemmWorkload, load_pickled_gemms
 from spada_tpu_torch.ops.spgemm import dispatch_dataflow, spgemm
@@ -386,8 +387,7 @@ def _execute(args):
     if args.mode == "run":
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else None)
-        config = dataclasses.replace(
-            config, **card_profile(name, config.engine_dtype))
+        config = card_config(config, name)
     w = load_workload(args, config)
     _print_gemm_stats(w)
     if args.mode == "traffic":

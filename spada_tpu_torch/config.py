@@ -26,9 +26,16 @@ measure them.  The per-item overhead terms (``engine_item_overhead_s``,
 ``engine_acc_s_per_elem``, ``engine_item_fixed_s``), which the planner adds
 per work item beyond those rates, are fitted on an H100 SXM
 (:func:`item_fit`, ``tools/probe_item_overhead.py``), one set per tile
-dtype, with ``acc`` and ``fixed`` held non-negative
-(:func:`fit_item_terms`); the other SKUs take the same values until they
-are measured.
+dtype, on square tiles, with ``acc`` and ``fixed`` held non-negative
+(:func:`fit_item_terms`); the thin row panels' points
+(:data:`_THIN_FIT`, ``tools/probe_item_overhead.py --thin``) are recorded
+beside them and not fitted into the planner's terms (see
+:func:`h100_config`).  The element path's fixed time per multiply, which
+the reference's ``estimate_element_time`` charges as a literal 30 us, is
+fitted on the same card (:func:`element_fit`,
+``tools/probe_dispatch_crossover.py --element-fit``) and carried by
+:class:`CardConfig`, the one field the reference's schema lacks.  The other
+SKUs take the same values until they are measured.
 """
 
 from __future__ import annotations
@@ -224,20 +231,56 @@ _ITEM_FIT = {
 }
 
 
-def fit_item_terms(points: dict) -> Tuple[float, float]:
-    """(acc, fixed): the least-squares fit of ``overhead ~= acc * T^2 +
-    fixed`` to ``{T: seconds per item}`` with both terms held >= 0.
+# The same overhead on thin row panels, by tile dtype and (tm, tn): one
+# tile_spgemm launch of uniform tm x 128 panels on banded_csr(32768, 32768,
+# 384) at tk = tn = 128 (tools/sweep_thin's tile_spgemm case), beyond
+# panel_cost_model's own term for it, over W; beside it the item time,
+# elapsed / W.  A record: the planner's terms are fitted on the square
+# points alone (see h100_config).  Measured by
+# spada_tpu_torch/tools/probe_item_overhead.py --thin on an NVIDIA H100 80GB
+# HBM3 at a 700.00 W power limit, 2026-10-17.
+_THIN_FIT = {
+    "float32": {(8, 128): (-6.881e-09, 1.423e-08),
+                (16, 128): (-7.773e-09, 1.488e-08),
+                (32, 128): (-2.637e-09, 2.311e-08),
+                (64, 128): (8.721e-09, 4.066e-08),
+                (128, 128): (4.335e-08, 8.766e-08)},
+    "bfloat16": {(8, 128): (-3.857e-09, 6.698e-09),
+                 (16, 128): (-4.016e-09, 7.312e-09),
+                 (32, 128): (-4.343e-09, 8.531e-09),
+                 (64, 128): (-3.854e-09, 1.211e-08),
+                 (128, 128): (1.66e-09, 2.381e-08)},
+}
+
+
+def item_shape(key) -> Tuple[int, int]:
+    """(tm, tn) of a point's key: T (a T x T tile) or (tm, tn)."""
+    return (key, key) if isinstance(key, (int, np.integer)) else tuple(key)
+
+
+def fit_item_terms(points: dict,
+                   item_s: Optional[dict] = None) -> Tuple[float, float]:
+    """(acc, fixed): the least-squares fit of ``overhead ~= acc * tm * tn +
+    fixed`` to ``{shape: seconds per item}`` with both terms held >= 0.  A
+    shape is T (a T x T tile) or (tm, tn).  With ``item_s``, the measured
+    time of an item of each shape, each residual counts relative to it, so
+    that a thin item's nanoseconds weigh as much as a 512^2 item's
+    microseconds, and an overhead at or below zero (the planner's own term
+    already at or above the measurement) still has a finite weight.
 
     The estimator and the densify scorer charge ``acc * tm * tn + fixed``
-    per item for every panel height.  The card's overhead grows about as
-    T^3, so the unconstrained fit (the reference's ``np.linalg.lstsq``)
-    puts a negative fixed term under it, a negative cost per thin item,
-    and the planner then prefers the thinnest panels.  With two terms the
-    constrained optimum is the best feasible of the fits on each subset of
-    the terms."""
-    t = np.asarray(list(points), np.float64)
+    per item for every panel height.  The card's overhead on square tiles
+    grows about as T^3, so the unconstrained fit (the reference's
+    ``np.linalg.lstsq``) puts a negative fixed term under it, a negative
+    cost per thin item, and the planner then prefers the thinnest panels.
+    With two terms the constrained optimum is the best feasible of the fits
+    on each subset of the terms."""
+    x = np.asarray([np.prod(item_shape(k)) for k in points], np.float64)
     y = np.asarray(list(points.values()), np.float64)
-    lhs = np.stack([t ** 2, np.ones_like(t)], axis=1)
+    w = (np.ones_like(y) if item_s is None
+         else 1.0 / np.asarray([item_s[k] for k in points], np.float64))
+    lhs = np.stack([x, np.ones_like(x)], axis=1) * w[:, None]
+    y = y * w
     best = None
     for cols in ((0, 1), (0,), (1,), ()):
         coef = np.zeros(2)
@@ -264,30 +307,109 @@ def item_fit(engine_dtype: str = "float32") -> dict:
             "engine_acc_s_per_elem": acc, "engine_item_fixed_s": fixed}
 
 
+#: the fixed time per multiply of the reference's element model
+#: (``estimate_element_time``'s literal)
+REFERENCE_ELEMENT_FIXED_S = 30e-6
+
+# The element path on the card: (the ESC plan's streamed bytes,
+# ops.spgemm.element_plan_bytes, and the device seconds of its
+# esc_stream_group launches, one per row slab) of each multiply of the
+# family: banded_fill_csr(n, 384, fill) A.B at n = 32768 and 8192, fills
+# 192..12, the graded FEM's A.A at 129 edges, and locpl.  Measured by
+# spada_tpu_torch/tools/probe_dispatch_crossover.py --element-fit on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit, 2026-10-17.
+_ELEMENT_FIT_CARD = "NVIDIA H100 80GB HBM3"
+_ELEMENT_FIT = {
+    "banded-fill 32768 192": (10830063988, 0.003531),
+    "banded-fill 32768 96": (2987260116, 0.0009801),
+    "banded-fill 32768 48": (777802852, 0.000258),
+    "banded-fill 32768 24": (207008148, 7.422e-05),
+    "banded-fill 32768 12": (54487472, 2.45e-05),
+    "banded-fill 8192 192": (2627537884, 0.000865),
+    "banded-fill 8192 96": (725150904, 0.0002413),
+    "banded-fill 8192 48": (188952812, 6.829e-05),
+    "banded-fill 8192 24": (50398288, 2.331e-05),
+    "banded-fill 8192 12": (13312320, 8.16e-06),
+    "fem-graded-129": (14470416, 8.768e-06),
+    "locpl 65536 32": (715605668, 0.0002448),
+}
+
+
+def fit_element_fixed(points: dict, hbm_bytes_per_s: float) -> float:
+    """``fixed``: the least-squares fit of ``t ~= bytes / hbm_bytes_per_s +
+    fixed`` to ``{name: (bytes, seconds)}``, each residual relative to its
+    t (the small multiplies, where the fixed time shows, weigh as much as
+    the large), held >= 0."""
+    b, t = (np.asarray(v, np.float64) for v in zip(*points.values()))
+    w = 1.0 / t ** 2
+    return max(0.0, float(np.sum(w * (t - b / hbm_bytes_per_s))
+                          / np.sum(w)))
+
+
+def element_fit() -> dict:
+    """``{"element_fixed_s": ...}``: :func:`fit_element_fixed` of the
+    recorded points at the datasheet byte rate of the card they were
+    measured on, one value for every card until each is measured."""
+    bw = datasheet_peaks(_ELEMENT_FIT_CARD)["hbm_bytes_per_s"]
+    return {"element_fixed_s": fit_element_fixed(_ELEMENT_FIT, bw)}
+
+
+@dataclasses.dataclass
+class CardConfig(SpadaConfig):
+    """``SpadaConfig`` with the one term of the card's profile that the
+    reference's schema has no field for: ``element_fixed_s``, the element
+    path's fixed time per multiply, which ``ops.spgemm.
+    estimate_element_time`` adds to the plan's bytes over the HBM rate.
+    Its default is the reference's literal, so a config of this class
+    prices what ``SpadaConfig`` prices until the card's fit is set."""
+
+    element_fixed_s: float = REFERENCE_ELEMENT_FIXED_S
+
+
 def card_profile(device_name: Optional[str] = None,
                  engine_dtype: str = "float32") -> dict:
-    """The ``SpadaConfig`` fields that describe the card named
-    ``device_name``: its datasheet peaks (:func:`datasheet_peaks`) and the
-    per-item terms fitted for ``engine_dtype`` tiles (:func:`item_fit`)."""
-    return {**datasheet_peaks(device_name), **item_fit(engine_dtype)}
+    """The :class:`CardConfig` fields that describe the card named
+    ``device_name``: its datasheet peaks (:func:`datasheet_peaks`), the
+    per-item terms fitted for ``engine_dtype`` tiles (:func:`item_fit`)
+    and the element path's fixed term (:func:`element_fit`)."""
+    return {**datasheet_peaks(device_name), **item_fit(engine_dtype),
+            **element_fit()}
+
+
+def card_config(config: SpadaConfig,
+                device_name: Optional[str] = None) -> CardConfig:
+    """``config``'s fields with the profile of the card named
+    ``device_name`` for its tile dtype (:func:`card_profile`) in place of
+    its own, as a :class:`CardConfig`."""
+    fields = {f.name: getattr(config, f.name)
+              for f in dataclasses.fields(config)}
+    return CardConfig(**{**fields,
+                         **card_profile(device_name, config.engine_dtype)})
 
 
 def h100_config(device_name: Optional[str] = None,
-                **overrides) -> SpadaConfig:
-    """``SpadaConfig`` with the card's profile (:func:`card_profile`: the
-    datasheet roofline, placeholders until measured, and the per-item terms
-    fitted for the tile dtype, ``overrides``' ``engine_dtype`` or
-    'float32'), then ``overrides``.
+                **overrides) -> CardConfig:
+    """:class:`CardConfig` with the card's profile (:func:`card_profile`:
+    the datasheet roofline, placeholders until measured, the per-item
+    terms fitted for the tile dtype, ``overrides``' ``engine_dtype`` or
+    'float32', and the element path's fixed term), then ``overrides``.
 
     Under these terms ``choose_tile_size`` takes T = 128 on most pairs (the
-    card's per-item overhead grows about as T^3).  The per-row-group
-    planner then takes tm = T on dense rows (the bench's nn pair: one
-    tm-128 segment), but tm 32-64 panels on sparse ones (banded, power-law,
-    rmat), which run several times slower on the card than tm = T: the
-    terms are fitted on square tiles and charge a thin item no fixed
-    cost."""
+    card's per-item overhead on square tiles grows about as T^3).  The
+    per-row-group planner then takes tm = T on dense rows (the bench's nn
+    pair: one tm-128 segment) and chooses among tm 8-128 on sparse ones by
+    the estimator's ``max(bytes / hbm, mxu / peak) + W * (acc * tm * tn +
+    fixed)``, ``acc`` and ``fixed`` fitted on square tiles.  The thin row
+    panels' points (:data:`_THIN_FIT`) are not in that fit: on thin panels
+    the estimator's byte term, each item's B tile read from HBM, is already
+    above the card's time (it reads them from L2), so their overhead is
+    negative, and the fit of the same form on square and thin points
+    together (``tools/probe_item_overhead.py --thin``) has ``fixed`` 0 and
+    an ``acc`` 9-24 times smaller.  Under that fit the planner picks
+    thicker panels, and on an NVIDIA H100 80GB HBM3 at 700 W cari ran
+    1.95x, banded 1.18x and nn-bert-ffn1-blk32 1.68x slower."""
     dtype = overrides.get("engine_dtype", "float32")
-    return SpadaConfig(**{**card_profile(device_name, dtype), **overrides})
+    return CardConfig(**{**card_profile(device_name, dtype), **overrides})
 
 
 def _is_half(dtype) -> bool:

@@ -22,8 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spada_tpu_torch.config import (SpadaConfig, datasheet_peaks,
-                                    matmul_peak_flops)
+from spada_tpu_torch.config import (REFERENCE_ELEMENT_FIXED_S, SpadaConfig,
+                                    datasheet_peaks, matmul_peak_flops)
 from spada_tpu_torch.sparse.bsr import BsrMatrix
 from spada_tpu_torch.sparse.csr import CsrMatrix
 from spada_tpu_torch.convert import (bsr_to_torch, c_tiles_to_numpy,
@@ -165,12 +165,16 @@ def estimate_element_time(a: CsrMatrix, b: CsrMatrix,
     (:func:`element_plan_bytes`) whenever the decision is ambiguous — i.e.
     ``tile_t`` falls between the bounds — or when no ``tile_t`` is given
     and E is small enough that the O(E) pattern product is cheap.
+
+    The fixed time per multiply is ``config.element_fixed_s`` where the
+    config carries the card's (:class:`~spada_tpu_torch.config.CardConfig`),
+    else the reference's 30 us.
     """
     from spada_tpu_torch.ops.element import expansion_products
 
     e = expansion_products(a, b)
     bw = config.hbm_bytes_per_s
-    overhead = 30e-6
+    overhead = getattr(config, "element_fixed_s", REFERENCE_ELEMENT_FIXED_S)
     if e == 0:
         return {"e_products": 0, "t_est": overhead, "bytes_model": "exact"}
     t_lo = (2 * e * 4 + e * 4) / bw + overhead      # zero padding

@@ -16,8 +16,15 @@ these rows are timed on CUDA events, engine time only:
 - ``spada``: the adaptive per-row-group plan (``plan_spgemm``), the sum of
   its per-segment ``tile_spgemm`` times as the reference sums them, with
   ``choose_tile_size``'s ``t_est`` at T beside it;
-- ``element (dispatched)``: where ``dispatch_dataflow`` picks the element
-  side, its one ``esc_stream_group`` launch.
+- ``element (dispatched)`` or ``element (not dispatched)``: the element
+  side, its ``esc_stream_group`` launch (one per row slab above 2^28
+  products, as ``spgemm_element`` splits them), on every workload
+  (``element="all"``, the default) or only where ``dispatch_dataflow``
+  picks it (``element="dispatched"``);
+- the dispatch's verdict: ``dispatch_dataflow``'s choice beside the
+  modelled and measured sides (the tile side is ``spada``, the plan the
+  main path runs), OK where the faster side measured is the one chosen,
+  WRONG where not, ``-`` where one side was not timed.
 
 The workloads are the reference's eight at n = 16384 (``--quick``: 8192),
 its generators and seeds, and C = A·A of the graded Q1 FEM
@@ -172,8 +179,12 @@ def _skip_memory(nbytes: int) -> str:
 
 
 def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
-                  log: Callable[[str], None] = print) -> tuple:
-    """(T, rows) of one workload (see the module docstring)."""
+                  log: Callable[[str], None] = print,
+                  element: str = "all") -> tuple:
+    """(T, rows, verdict) of one workload (see the module docstring);
+    ``element``: 'all' or 'dispatched', where the element side is timed;
+    verdict: {"choice", "tile_model_s", "element_model_s", "tile_s",
+    "element_s", "ok"}, the measured seconds None where not timed."""
     import torch
 
     from spada_tpu_torch.io.workloads import GemmWorkload
@@ -184,6 +195,8 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
     from spada_tpu_torch.plan.planner import choose_tile_size, plan_spgemm
     from spada_tpu_torch.sparse.bsr import BsrMatrix
 
+    if element not in ("all", "dispatched"):
+        raise ValueError(f"element={element!r}: 'all' or 'dispatched'")
     card = card_name(dev)
     T, det = choose_tile_size(a, b, bf16_config(card))
     cfg = bf16_config(card, T)
@@ -267,23 +280,46 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
                 note=f"(tm hist {plan.tm_histogram()}) gate {err:.1e}")
 
     choice, ddet = dispatch_dataflow(a, b, cfg)
-    if choice == "element":
+    e = ddet["element"]["e_products"]
+    e_s = None
+    if choice == "element" or element == "all":
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
         calls, csr = element_entry(a, b, dev, cap=cfg.element_cap)
         err = gate(csr[:gate_rows], ref, 1e-3, f"{name} element")
-        e = ddet["element"]["e_products"]
-        out.add("element (dispatched)",
-                device_s(lambda: [c() for c in calls], dev), e,
-                note=f"E={e} gate {err:.1e}")
+        e_s = device_s(lambda: [c() for c in calls], dev)
+        picked = "dispatched" if choice == "element" else "not dispatched"
+        out.add(f"element ({picked})", e_s, e,
+                ddet["element"]["t_est"],
+                note=f"E={e} in {len(calls)} launch(es), gate {err:.1e}")
         del calls, csr
+    t_s = out.rows.get("spada", (None,))[0]
+    t_s = None if isinstance(t_s, str) else t_s
+    ok = "-"
+    if t_s is not None and e_s is not None:
+        ok = "OK" if (choice == "tile") == (t_s <= e_s) else "WRONG"
+    verdict = {"choice": choice,
+               "tile_model_s": ddet["tile"][ddet["tile_T"]]["t_est"],
+               "element_model_s": ddet["element"]["t_est"], "tile_s": t_s,
+               "element_s": e_s, "ok": ok}
+    log(f"{name} dispatch: {verdict_line(verdict)}")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return T, out.rows
+    return T, out.rows, verdict
+
+
+def verdict_line(v: dict) -> str:
+    """One workload's dispatch verdict in a line."""
+    return (f"{v['choice']} (model tile {v['tile_model_s'] * 1e3:.4f} ms, "
+            f"element {v['element_model_s'] * 1e3:.4f}); measured spada "
+            f"{fmt_ms(v['tile_s'])}, element {fmt_ms(v['element_s'])} ms: "
+            f"{v['ok']}")
 
 
 def run(n: int = 16384, device="cuda", gate_rows: int = 2048,
-        log: Callable[[str], None] = print) -> list:
-    """[(workload, T, rows)] of every workload at size ``n``; prints the
-    markdown table."""
+        log: Callable[[str], None] = print, element: str = "all") -> list:
+    """[(workload, T, rows, verdict)] of every workload at size ``n``;
+    prints the markdown table."""
     from spada_tpu_torch.convert import check_device
 
     dev = check_device(device)
@@ -294,8 +330,8 @@ def run(n: int = 16384, device="cuda", gate_rows: int = 2048,
     results = []
     for name, (a, b) in sets.items():
         t0 = time.perf_counter()
-        T, rows = eval_workload(name, a, b, dev, gate_rows, log)
-        results.append((name, T, rows))
+        results.append((name, *eval_workload(name, a, b, dev, gate_rows,
+                                             log, element)))
         log(f"{name}: {time.perf_counter() - t0:.1f} s host+device")
     log(report(results, n, card_name(dev)))
     return results
@@ -308,7 +344,7 @@ def report(results, n: int, card: Optional[str]) -> str:
              f"({card or 'CPU: not timed'})", "",
              f"n={n}; engine time (bf16 tiles, f32 C), CUDA events; W = tile "
              "products issued (element: scalar products).", ""]
-    for name, T, rows in results:
+    for name, T, rows, verdict in results:
         lines += [f"## {name}  (tile={T})", "",
                   "| setting | engine ms | work items | model ms |",
                   "|---|---|---|---|"]
@@ -316,7 +352,7 @@ def report(results, n: int, card: Optional[str]) -> str:
             shown = s if isinstance(s, str) else fmt_ms(s)
             lines.append(f"| {label} | {shown} | {w} | "
                          f"{'' if model is None else fmt_ms(model)} |")
-        lines.append("")
+        lines += ["", f"dispatch: {verdict_line(verdict)}", ""]
     return "\n".join(lines)
 
 
@@ -325,8 +361,12 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--quick", action="store_true", help="n = 8192")
     p.add_argument("--n", type=int, default=None, help="matrix size")
+    p.add_argument("--element", default="all", choices=("all", "dispatched"),
+                   help="time the element side on every workload, or only "
+                        "where dispatch picks it")
     args = p.parse_args(argv)
-    run(args.n or (8192 if args.quick else 16384), device=args.device)
+    run(args.n or (8192 if args.quick else 16384), device=args.device,
+        element=args.element)
     return 0
 
 

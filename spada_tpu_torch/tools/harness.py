@@ -8,7 +8,8 @@
 - :func:`call_s`: the median seconds of a call, device seconds on a card
   (``utils.timing.cuda_time``, uncounted in ``_build.launches``), CPU wall
   seconds otherwise; :func:`device_s`: the same on a card, None on the
-  CPU, where there is no device time;
+  CPU, where there is no device time; :func:`enqueue_s`: the host's
+  seconds to enqueue a call on a card;
 - :func:`spawn_groups`, :func:`gloo_group` and :func:`rank_path`: gloo
   groups of spawned ranks on the CPU, each rank's result left in a file;
 - :data:`ITEM_TERMS` and :func:`reference_item_terms`: the planner's three
@@ -117,6 +118,30 @@ def call_s(call: Callable, dev, *args, warmup: int = 2, reps: int = 10,
 def device_s(call: Callable, dev) -> Optional[float]:
     """:func:`call_s` of ``call()`` on a CUDA ``dev``; None on the CPU."""
     return call_s(call, dev) if dev.type == "cuda" else None
+
+
+def enqueue_s(call: Callable, dev, reps: int = 5) -> Optional[float]:
+    """Host seconds one ``call()`` takes to enqueue its device work on a
+    CUDA ``dev`` (the device idle before and waited for after), its
+    launches taken back out of ``_build.launches``; None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    import torch
+
+    from spada_tpu_torch import _build
+
+    saved = _build.launches.copy()
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        dt = (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize(dev)
+        return dt
+    finally:
+        _build.launches.clear()
+        _build.launches.update(saved)
 
 
 def rank_path(workdir: str, rank: int) -> str:

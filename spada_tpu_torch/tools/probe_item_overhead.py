@@ -34,8 +34,28 @@ and ``SpadaConfig.fast()``'s).  Each launch's C is gated against scipy on
 its first 2048 rows: f32 to 1e-4 of max|C|, bf16 to 1e-2.  On the CPU the
 plain version runs, is gated, and is not timed (no fit).
 
+``--thin`` (:func:`run_thin`) also measures the same overhead where the
+per-row-group estimator and the densify scorer charge it, on thin row
+panels: ``tools/sweep_thin``'s ``tile_spgemm`` case (``banded_csr(m, m,
+384)``, m = ``--thin-n``, 32768; uniform panels of tm 8-128 at tk = tn =
+128, one launch each), the overhead of a (tm, tn) item
+
+    (elapsed - panel_cost_model's own term) / W,
+
+the model term ``max(bytes / hbm, mxu_flops / peak_flops_bf16)`` of
+``plan.estimator.panel_cost_model`` for that panel height, so that no part
+of the time is counted twice.  The reference fits square tiles only; these
+points are the port's.  It prints them as ``config._THIN_FIT`` records them
+(overhead, and the item time elapsed / W), then the constrained fit of
+``acc * tm * tn + fixed`` to them and the square points of the same run
+together (``config.fit_item_terms``, each residual relative to its item's
+time), with every point's residual.  The planner does not take that fit
+(``config.h100_config`` says why).
+
     python -m spada_tpu_torch.tools.probe_item_overhead
+    python -m spada_tpu_torch.tools.probe_item_overhead --thin
     python -m spada_tpu_torch.tools.probe_item_overhead --device cpu --n 2048
+    python -m spada_tpu_torch.tools.probe_item_overhead --thin --device cpu --n 2048 --thin-n 2048
 """
 
 from __future__ import annotations
@@ -43,7 +63,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -52,6 +72,8 @@ from spada_tpu_torch.tools.harness import (card_name, device_s,
                                            tile_rows)
 
 TS = (128, 256, 384, 512)
+#: the thin panels' tk = tn
+THIN_T = 128
 DTYPES = ("float32", "bfloat16")
 #: the gate on C's first rows, max|d| / max|ref|, by tile dtype
 GATE = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -195,15 +217,131 @@ def fit_table(points: Dict[int, dict]) -> str:
     return "\n".join(lines)
 
 
+def panel_model_s(a, bt, tm: int, config) -> tuple:
+    """(W, seconds): ``panel_cost_model``'s item count for uniform row
+    panels of height ``tm`` over all of A's rows against ``bt`` (B's
+    ``BTileStructure``), and its term other than the per-item overhead,
+    ``max(bytes / hbm, mxu_flops / peak_flops_bf16)``, at the tile dtype's
+    itemsize."""
+    from spada_tpu_torch.plan.estimator import panel_cost_model
+
+    itemsize = 2 if config.engine_dtype == "bfloat16" else 4
+    d = panel_cost_model(a, 0, a.shape[0], tm, bt, itemsize=itemsize)
+    return d["work"], max(d["bytes"] / config.hbm_bytes_per_s,
+                          d["mxu_flops"] / config.peak_flops_bf16)
+
+
+def thin_points(rows, a, b, card: Optional[str],
+                T: int = THIN_T) -> Dict[str, dict]:
+    """{dtype: {(tm, T): (overhead s, item s)}} of the timed
+    ``tile_spgemm`` cases of ``tools/sweep_thin`` rows on the pair ``a``,
+    ``b`` at tk = tn = ``T``: (elapsed - :func:`panel_model_s`) / W, and
+    elapsed / W, under ``h100_config(card)``'s rates."""
+    from spada_tpu_torch.config import h100_config
+    from spada_tpu_torch.plan.estimator import BTileStructure
+
+    bt = BTileStructure(b, T, T)
+    out: Dict[str, dict] = {}
+    for r in rows:
+        if r["engine"] != "tile_spgemm" or r["ms"] is None:
+            continue
+        cfg = h100_config(card, engine_dtype=r["dtype"])
+        W, model = panel_model_s(a, bt, r["tm"], cfg)
+        if W != r["W"]:
+            raise RuntimeError(f"tm={r['tm']}: panel_cost_model counts "
+                               f"W={W}, the worklist {r['W']}")
+        el = r["ms"] * 1e-3
+        out.setdefault(r["dtype"], {})[(r["tm"], T)] = ((el - model) / W,
+                                                        el / W)
+    return out
+
+
+def union_fit(points: dict) -> dict:
+    """The constrained fit of ``acc * tm * tn + fixed`` to ``points``
+    ({shape: (overhead s, item s)}, a shape T or (tm, tn)), each residual
+    relative to its item's time: {"acc", "fixed", "points": {shape:
+    (overhead s, item s, residual s)}}, residual = overhead - (acc * tm *
+    tn + fixed)."""
+    from spada_tpu_torch.config import fit_item_terms, item_shape
+
+    acc, fixed = fit_item_terms({k: o for k, (o, _) in points.items()},
+                                {k: s for k, (_, s) in points.items()})
+    return {"acc": acc, "fixed": fixed, "points": {
+        k: (o, s, o - (acc * int(np.prod(item_shape(k))) + fixed))
+        for k, (o, s) in points.items()}}
+
+
+def union_table(fit: dict) -> str:
+    """Markdown: every point of :func:`union_fit` with its fit and
+    residual, absolute and relative to the item's time."""
+    from spada_tpu_torch.config import item_shape
+
+    lines = ["| points | tm x tn | overhead ns/item | item ns | fit ns | "
+             "residual ns | residual / item |", "|---|---|---|---|---|---|---|"]
+    for k, (o, s, r) in fit["points"].items():
+        tm, tn = item_shape(k)
+        src = "square (T)" if not isinstance(k, tuple) else "thin (tm, tn)"
+        lines.append(f"| {src} | {tm} x {tn} | {o * 1e9:.2f} | "
+                     f"{s * 1e9:.2f} | {(o - r) * 1e9:.2f} | {r * 1e9:.2f} | "
+                     f"{r / s:+.1%} |")
+    return "\n".join(lines)
+
+
+def run_thin(n: int = 65536, thin_n: int = 32768, band: int = 384,
+             tms: Optional[Sequence[int]] = None,
+             dtypes: Sequence[str] = DTYPES, device="cuda",
+             gate_rows: int = 2048,
+             log: Callable[[str], None] = print) -> Dict[str, dict]:
+    """The square points (:func:`run` at ``n``), then the thin points on
+    the card (``tools/sweep_thin``'s ``tile_spgemm`` case at ``thin_n`` and
+    ``tms``, default the sweep's, gated), then per dtype the fit of both
+    together and its residuals.  Returns {dtype: {"points": {(tm, tn):
+    (overhead s, item s)}, "fit": :func:`union_fit`}}; on the CPU, where
+    nothing is timed, no dtype."""
+    from spada_tpu_torch.convert import check_device
+    from spada_tpu_torch.tools import sweep_thin
+
+    dev = check_device(device)
+    name = card_name(dev)
+    square = run(n, band, TS, dtypes, dev, gate_rows, log)
+    a, b = sweep_thin.banded_pair(thin_n, band)
+    rows = sweep_thin.run(thin_n, band, THIN_T, tms or sweep_thin.TMS,
+                          dtypes, dev, gate_rows, ab=(a, b), log=log)
+    out = {}
+    for dt, pts in thin_points(rows, a, b, name).items():
+        both = {T: (p["overhead_s"], p["elapsed_s"] / p["W"])
+                for T, p in square[dt]["points"].items()}
+        fit = union_fit({**both, **pts})
+        out[dt] = {"points": pts, "fit": fit}
+        log(f"\n{dt} tiles on {name}: thin points for config._THIN_FIT:")
+        log("    " + repr({k: (float(f"{o:.4g}"), float(f"{s:.4g}"))
+                           for k, (o, s) in pts.items()}))
+        log(union_table(fit))
+        log(f"fit on the square and thin points, relative to each item's "
+            f"time, terms >= 0: overhead ~= {fit['acc']:.4e} * tm * tn + "
+            f"{fit['fixed'] * 1e9:.2f} ns")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda")
-    p.add_argument("--n", type=int, default=65536, help="matrix size")
+    p.add_argument("--n", type=int, default=65536,
+                   help="matrix size of the square points")
     p.add_argument("--band", type=int, default=384, help="band half-width")
     p.add_argument("--dtypes", default=",".join(DTYPES))
+    p.add_argument("--thin", action="store_true",
+                   help="also the thin row panels' points, and the fit on "
+                        "both")
+    p.add_argument("--thin-n", type=int, default=32768,
+                   help="matrix size of the thin points")
     args = p.parse_args(argv)
-    run(args.n, args.band, dtypes=args.dtypes.split(","),
-        device=args.device)
+    if args.thin:
+        run_thin(args.n, args.thin_n, args.band,
+                 dtypes=args.dtypes.split(","), device=args.device)
+    else:
+        run(args.n, args.band, dtypes=args.dtypes.split(","),
+            device=args.device)
     return 0
 
 

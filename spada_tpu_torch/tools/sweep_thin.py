@@ -76,6 +76,14 @@ BITWISE = ("tile_stream og=1", "tile_panel")
 PAIRS = ("banded", "cari")
 
 
+def banded_pair(n: int = 32768, band: int = 384) -> tuple:
+    """The sweep's operands: ``banded_csr(n, n, band, seed=0 / 1)``, f32."""
+    from spada_tpu_torch.io.workloads import banded_csr
+
+    return (banded_csr(n, n, bandwidth=band, seed=0, dtype=np.float32),
+            banded_csr(n, n, bandwidth=band, seed=1, dtype=np.float32))
+
+
 def relerr(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max()
                  / ref.abs().max().clamp_min(1e-30))
@@ -87,10 +95,12 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
         lib_whole: Sequence[tuple] = (),
         engines: Sequence[str] = ("tile_spgemm",),
         pair: str = "banded", grid_chunks: Sequence[int] = (),
+        ab: Optional[tuple] = None,
         log: Callable[[str], None] = print) -> List[dict]:
     """Every (dtype, tm, engine case) case, gated and (on a card) timed;
     the engines run in :data:`ENGINES`' order, ``tile_spgemm`` added where
-    ``tile_stream`` or ``tile_panel`` is asked for.  Returns one dict per
+    ``tile_stream`` or ``tile_panel`` is asked for.  ``ab``: the banded
+    pair (:func:`banded_pair`) when the caller has it.  Returns one dict per
     case: engine (the case's label), kernel, dtype, tm, block, W, n_c, ms,
     ns_item, plain_ms, bound_ms, bound_by, lib_ns_item, lib_ms (the bmm of
     all W pairs, for the (dtype, tm) cases of ``lib_whole``, else None),
@@ -103,7 +113,7 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
     from spada_tpu_torch.convert import (bsr_to_torch, check_device,
                                          worklist_to_torch)
     from spada_tpu_torch.config import SpadaConfig
-    from spada_tpu_torch.io.workloads import GemmWorkload, banded_csr
+    from spada_tpu_torch.io.workloads import GemmWorkload
     from spada_tpu_torch.ops.engine import (grid_chunk, sm_count,
                                             thin_pieces, tile_block)
     from spada_tpu_torch.ops.worklist import build_worklist
@@ -128,8 +138,7 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
         a, b = w.a.astype(np.float32), w.b.astype(np.float32)
         what = f"cari {a.shape[0]} x {a.shape[1]}"
     else:
-        a = banded_csr(n, n, bandwidth=band, seed=0, dtype=np.float32)
-        b = banded_csr(n, n, bandwidth=band, seed=1, dtype=np.float32)
+        a, b = ab or banded_pair(n, band)
         what = f"banded {n}^2, band {band}"
     c_shape = (a.shape[0], b.shape[1])
     ref = first_rows_ref(a, b, gate_rows)

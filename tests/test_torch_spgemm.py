@@ -22,7 +22,8 @@ from spada_tpu.plan.planner import choose_tile_size, plan_spgemm
 from spada_tpu.plan.planner import execute_plan as jax_execute_plan
 from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch import cli
-from spada_tpu_torch.config import (SpadaConfig as PortConfig,
+from spada_tpu_torch.config import (REFERENCE_ELEMENT_FIXED_S, CardConfig,
+                                    SpadaConfig as PortConfig, card_config,
                                     datasheet_peaks, h100_config)
 from spada_tpu_torch.ops.spgemm import (_peak_flops, dispatch_dataflow,
                                         element_plan_bytes,
@@ -49,6 +50,13 @@ def _pairs(cari_workload):
     }
 
 
+def _reference_kind(cfg):
+    """``cfg``'s fields of the reference's schema, as a ``SpadaConfig``:
+    the card's peaks and per-item fit, the reference's element model."""
+    return PortConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(PortConfig)})
+
+
 def _oracle(a, b):
     return np.asarray((a.to_scipy() @ b.to_scipy()).todense())
 
@@ -61,15 +69,18 @@ def _close(got, ref):
 @pytest.mark.parametrize("name", ["cari", "locpl", "nn"])
 def test_spada_slice_matches_reference_and_scipy(cari_workload, name):
     a, b, route = _pairs(cari_workload)[name]
-    cfg = h100_config()
+    # the card's profile; the reference prices the element side with its
+    # own fixed time, so it takes the profile's fields of its schema
+    cfg, ref_cfg = h100_config(), _reference_kind(h100_config())
     choice, det = dispatch_dataflow(P(a), P(b), cfg)
-    ref_choice, ref_det = jax_spgemm_mod.dispatch_dataflow(a, b, cfg)
+    ref_choice, ref_det = jax_spgemm_mod.dispatch_dataflow(a, b, ref_cfg)
     assert choice == ref_choice == route
     assert det["tile_T"] == ref_det["tile_T"]
-    assert det["element"] == ref_det["element"]
+    assert det["tile"] == ref_det["tile"]
+    assert dispatch_dataflow(P(a), P(b), ref_cfg)[1] == ref_det
 
     res = spgemm(P(a), P(b), cfg, dataflow="spada", device="cpu")
-    ref = jax_spgemm_mod.spgemm(a, b, cfg, dataflow="spada")
+    ref = jax_spgemm_mod.spgemm(a, b, ref_cfg, dataflow="spada")
     assert res.engine_used == ref.engine_used == route
     got = res.todense()
     _close(got, ref.todense())
@@ -123,12 +134,39 @@ def test_bf16_tiles_close_to_scipy(cari_workload):
 
 def test_cost_models_match_reference(cari_workload):
     a, b, _ = _pairs(cari_workload)["locpl"]
-    cfg = h100_config()
+    # a config of the reference's kind: the reference's 30 us
+    cfg = PortConfig(**datasheet_peaks())
     assert (element_plan_bytes(P(a), P(b))
             == jax_spgemm_mod.element_plan_bytes(a, b))
     for tile_t in (None, 1e-5, 1e-3):
         assert (estimate_element_time(P(a), P(b), cfg, tile_t)
                 == jax_spgemm_mod.estimate_element_time(a, b, cfg, tile_t))
+
+
+@pytest.mark.parametrize("name", ["cari", "locpl"])
+@pytest.mark.parametrize("tile_t", [None, 1e-5, 1e-3])
+def test_card_config_charges_its_element_fixed_time(cari_workload, name,
+                                                    tile_t):
+    """Under a card config the element model charges ``element_fixed_s``
+    where the reference charges 30 us, and nothing else changes; a
+    ``CardConfig`` left at its default prices what the reference does."""
+    a, b, _ = _pairs(cari_workload)[name]
+    card = h100_config()
+    ref_kind = _reference_kind(card)
+    assert card.element_fixed_s != REFERENCE_ELEMENT_FIXED_S
+    default = CardConfig(**dataclasses.asdict(ref_kind))
+    assert default.element_fixed_s == REFERENCE_ELEMENT_FIXED_S == 30e-6
+    want = jax_spgemm_mod.estimate_element_time(a, b, ref_kind, tile_t)
+    assert estimate_element_time(P(a), P(b), default, tile_t) == want
+    got = estimate_element_time(P(a), P(b), card, tile_t)
+    assert got["e_products"] == want["e_products"]
+    if got["bytes_model"] == want["bytes_model"]:
+        assert got["t_est"] == pytest.approx(
+            want["t_est"] - REFERENCE_ELEMENT_FIXED_S + card.element_fixed_s,
+            rel=1e-12)
+    empty = P(random_csr(64, 64, 0.0, seed=0))
+    assert estimate_element_time(empty, empty, card)["t_est"] == \
+        card.element_fixed_s
 
 
 def test_run_spada_routes_and_matches_scipy(cari_workload):
@@ -300,8 +338,9 @@ def test_h100_profile():
     assert datasheet_peaks("NVIDIA H100 PCIe")["hbm_bytes_per_s"] == 2.0e12
     assert datasheet_peaks("NVIDIA H200")["hbm_bytes_per_s"] == 4.8e12
     # the per-item terms are the card's fit for the tile dtype
-    # (tools/probe_item_overhead.py on an H100 80GB HBM3 at 700 W), acc and
-    # fixed held >= 0 (the lstsq fit's fixed term is negative)
+    # (tools/probe_item_overhead.py on an H100 80GB HBM3 at 700 W): the
+    # per-T dict, acc and fixed on square tiles, held >= 0 (the lstsq
+    # fit's fixed term is negative)
     assert cfg.engine_item_overhead_s == {128: 6.131e-08, 256: 5.541e-07,
                                           384: 1.983e-06, 512: 4.577e-06}
     assert cfg.engine_acc_s_per_elem == pytest.approx(1.6096162e-11,
@@ -313,6 +352,12 @@ def test_h100_profile():
     assert bf16.engine_acc_s_per_elem == pytest.approx(3.4655986e-12,
                                                        rel=1e-7)
     assert bf16.engine_item_fixed_s == 0.0
+    # the element path's fixed time, fitted on the card
+    # (tools/probe_dispatch_crossover.py --element-fit), in place of the
+    # reference's 30 us, for either tile dtype
+    assert isinstance(cfg, CardConfig) and isinstance(bf16, CardConfig)
+    assert cfg.element_fixed_s == pytest.approx(4.8789908e-06, rel=1e-7)
+    assert bf16.element_fixed_s == cfg.element_fixed_s
     # an explicit override wins; everything else keeps the SpadaConfig
     # defaults
     mine = {128: 1e-7}
@@ -329,8 +374,41 @@ def test_h100_profile():
                        "engine_item_overhead_s", "engine_acc_s_per_elem",
                        "engine_item_fixed_s"):
             assert base[key] == value, key
+    assert set(base) - set(dataclasses.asdict(SpadaConfig())) == {
+        "element_fixed_s"}
     with pytest.raises(ValueError, match="engine_dtype"):
         h100_config(engine_dtype="float16")
+
+
+def test_card_config_keeps_the_reference_schema(tmp_path):
+    """The CLI's ``run`` puts the card's profile on a config of the
+    reference's schema (``card_config``); ``SpadaConfig``'s JSON stays the
+    reference's, and a ``CardConfig`` round-trips its own field."""
+    path = "config/default.json"
+    base = PortConfig.from_json(path)
+    base.engine_dtype = "bfloat16"
+    card = card_config(base)
+    want = h100_config(engine_dtype="bfloat16")
+    for f in dataclasses.fields(CardConfig):
+        if f.name in ("engine_item_overhead_s", "engine_acc_s_per_elem",
+                      "engine_item_fixed_s", "element_fixed_s",
+                      "hbm_bytes_per_s", "peak_flops_f32", "peak_flops_bf16",
+                      "ici_bytes_per_s"):
+            assert getattr(card, f.name) == getattr(want, f.name), f.name
+        else:
+            assert getattr(card, f.name) == getattr(base, f.name), f.name
+    out = tmp_path / "card.json"
+    for cfg, cls in ((card, CardConfig), (base, PortConfig)):
+        cfg.to_json(str(out))
+        got = cls.from_json(str(out))
+        # JSON keys are strings: the per-T dict comes back keyed by str(T)
+        per_t = {int(t): v for t, v in got.engine_item_overhead_s.items()}
+        assert per_t == cfg.engine_item_overhead_s
+        assert dataclasses.replace(
+            got, engine_item_overhead_s=per_t) == cfg
+    card.to_json(str(out))
+    with pytest.raises(ValueError, match="element_fixed_s"):
+        PortConfig.from_json(str(out))
 
 
 def test_cuda_time_needs_a_device():

@@ -27,7 +27,11 @@ from spada_tpu.ops.element_stream import (
 from spada_tpu.plan.planner import choose_tile_size as ref_choose_tile_size
 from spada_tpu.sparse.bsr import BsrValueMap as RefValueMap
 from spada_tpu.sparse.csr import CsrMatrix as RefCsr
-from spada_tpu_torch.config import SpadaConfig, fit_item_terms, h100_config
+from spada_tpu_torch.config import (_ELEMENT_FIT, _THIN_FIT,
+                                    REFERENCE_ELEMENT_FIXED_S, SpadaConfig,
+                                    datasheet_peaks, element_fit,
+                                    fit_element_fixed, fit_item_terms,
+                                    h100_config)
 from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch.ops.element import spgemm_element
 from spada_tpu_torch.ops.spgemm import dispatch_dataflow
@@ -180,9 +184,14 @@ def test_non_negative_fit_equals_nnls(seed):
 def test_config_fit_rewards_no_thin_item(dtype):
     """The config's per-item cost ``acc * tm * tn + fixed`` is positive at
     every panel height the planner tries, where the lstsq fit of the same
-    points is negative below tm * tn of about 27,000."""
+    points is negative below tm * tn of about 27,000.  The recorded thin
+    points sit below the estimator's own term at tm <= 32 (f32) and tm <=
+    64 (bf16), so their constrained fit, relative to each item's time,
+    shows no fixed term on the card."""
     cfg = h100_config(engine_dtype=dtype)
     pts = cfg.engine_item_overhead_s
+    assert (cfg.engine_acc_s_per_elem,
+            cfg.engine_item_fixed_s) == fit_item_terms(pts)
     l_acc, l_fixed, _ = probe_item_overhead.fit_overhead(list(pts),
                                                          list(pts.values()))
     assert l_fixed < 0
@@ -190,6 +199,133 @@ def test_config_fit_rewards_no_thin_item(dtype):
         assert (cfg.engine_acc_s_per_elem * tm * cfg.tile_n
                 + cfg.engine_item_fixed_s) > 0
     assert l_acc * 8 * 128 + l_fixed < 0
+    thin = _THIN_FIT[dtype]
+    assert sorted(thin) == [(tm, 128) for tm in (8, 16, 32, 64, 128)]
+    assert thin[(8, 128)][0] < 0 and thin[(32, 128)][0] < 0
+    assert all(s > 0 and s > o for o, s in thin.values())
+    fit = probe_item_overhead.union_fit(thin)
+    assert (fit["acc"], fit["fixed"]) == fit_item_terms(
+        {k: o for k, (o, _) in thin.items()},
+        {k: s for k, (_, s) in thin.items()})
+    assert fit["fixed"] == 0.0
+    assert fit["acc"] == pytest.approx(
+        {"float32": 6.6562807e-14, "bfloat16": 0.0}[dtype], rel=1e-7)
+    assert fit["acc"] < cfg.engine_acc_s_per_elem
+    for k, (o, s, r) in fit["points"].items():
+        assert (o, s) == thin[k]
+        assert r == pytest.approx(o - (fit["acc"] * k[0] * k[1]
+                                       + fit["fixed"]), rel=1e-12, abs=1e-24)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("relative", [False, True])
+def test_item_fit_on_panel_shapes_equals_nnls(seed, relative):
+    """``fit_item_terms`` on (tm, tn) and T points together is scipy's
+    non-negative least squares of the rows (tm * tn, 1), each row over its
+    item's time where one is given."""
+    from scipy.optimize import nnls
+
+    rng = np.random.default_rng(seed)
+    shapes = [128, 256, 384, 512] + [(tm, 128) for tm in (8, 16, 32, 64,
+                                                           128)]
+    x = np.array([t * t if isinstance(t, int) else t[0] * t[1]
+                  for t in shapes], np.float64)
+    acc, fixed = rng.uniform(1e-13, 2e-11), rng.uniform(0, 1e-8)
+    # odd seeds: overheads below zero on the thinnest items
+    ov = acc * x + fixed * (1 if seed % 2 == 0 else -1)
+    ov = ov * rng.uniform(0.7, 1.3, len(x))
+    item = np.abs(ov) + rng.uniform(5e-9, 5e-8, len(x))
+    pts, items = dict(zip(shapes, map(float, ov))), dict(zip(shapes,
+                                                             map(float,
+                                                                 item)))
+    w = 1 / item if relative else np.ones_like(item)
+    A = np.stack([x, np.ones_like(x)], axis=1) * w[:, None]
+    (n_acc, n_fixed), _ = nnls(A, ov * w)
+    got = fit_item_terms(pts, items if relative else None)
+    assert got[0] >= 0 and got[1] >= 0
+    assert got[0] == pytest.approx(n_acc, rel=1e-7, abs=1e-30)
+    assert got[1] == pytest.approx(n_fixed, rel=1e-7, abs=1e-20)
+    if not relative:
+        # T keys and (T, T) keys are the same points
+        sq = {(t, t): pts[t] for t in (128, 256, 384, 512)}
+        assert fit_item_terms(sq) == fit_item_terms(
+            {t: pts[t] for t in (128, 256, 384, 512)})
+
+
+def test_element_fixed_term_is_the_fit_of_the_recorded_points():
+    """``element_fixed_s`` is ``fit_element_fixed`` of the card's points at
+    the datasheet byte rate of the card they were measured on (an H100
+    SXM): the weighted mean of t - bytes / hbm with weights 1 / t^2, held
+    >= 0; every other card takes that one value until it is measured."""
+    cfg = h100_config()
+    bw = datasheet_peaks("NVIDIA H100 80GB HBM3")["hbm_bytes_per_s"]
+    assert bw == cfg.hbm_bytes_per_s == 3.35e12
+    assert len(_ELEMENT_FIT) == 12
+    assert cfg.element_fixed_s == fit_element_fixed(_ELEMENT_FIT, bw)
+    b, t = (np.array(v, np.float64) for v in zip(*_ELEMENT_FIT.values()))
+    w = 1 / t ** 2
+    want = float(np.sum(w * (t - b / bw)) / np.sum(w))
+    assert cfg.element_fixed_s == pytest.approx(want, rel=1e-12)
+    for other in ("NVIDIA H100 PCIe", "NVIDIA H200", "NVIDIA H100 NVL"):
+        card = h100_config(other)
+        assert card.hbm_bytes_per_s != bw
+        assert card.element_fixed_s == cfg.element_fixed_s == \
+            element_fit()["element_fixed_s"]
+    assert 0 < cfg.element_fixed_s < REFERENCE_ELEMENT_FIXED_S
+    # points all under their byte term fit no negative time
+    assert fit_element_fixed({"x": (1e9, 1e-4)}, 3.35e12) == 0.0
+    assert fit_element_fixed({"x": (0, 2e-6), "y": (3.35e6, 3e-6)},
+                             3.35e12) == pytest.approx(2e-6, rel=1e-9)
+
+
+@pytest.mark.parametrize("edges", [92, 129])
+def test_card_terms_send_the_graded_fem_to_the_element_side(edges):
+    """Under the card's bf16 profile the graded FEM (the eval's --quick and
+    full sizes) dispatches to the element side (measured on the card:
+    0.009 ms against 0.045 ms for the tile side at 129 edges), where the
+    reference's 30 us kept it on tiles."""
+    a = P(ref_workloads.fem_q1_graded_csr(edges, edges, dtype=np.float32))
+    cfg = eval_adaptive.bf16_config(None)
+    choice, det = dispatch_dataflow(a, a, cfg)
+    assert choice == "element"
+    assert det["tile_T"] == 128
+    ref_choice, _ = dispatch_dataflow(a, a, dataclasses.replace(
+        cfg, element_fixed_s=REFERENCE_ELEMENT_FIXED_S))
+    assert ref_choice == "tile"
+
+
+@pytest.mark.parametrize("name,square", [
+    ("banded", {64}), ("rmat", {32}), ("loc-powerlaw", {32}),
+    ("nn-bert-ffn1", {128}), ("nn-bert-ffn1-blk32", {32, 64})])
+def test_card_terms_plan_the_eval_row_sets(name, square):
+    """The per-row-group plans the eval's row sets take at n = 8192 (T =
+    128) under the card's bf16 terms, fitted on square tiles."""
+    from spada_tpu_torch.plan.planner import plan_spgemm
+
+    a, b = eval_adaptive.workloads(8192)[name]
+    T, _ = choose_tile_size(a, b, eval_adaptive.bf16_config(None))
+    assert T == 128
+    plan = plan_spgemm(a, b, eval_adaptive.bf16_config(None, T))
+    assert set(plan.tm_histogram()) == square
+
+
+def test_card_terms_keep_the_nn_plan():
+    """The nn pair's dense rows make W about proportional to 1 / tm, so
+    acc cancels between heights and the byte term keeps one tm-128
+    segment at T = 128 under the card's f32 terms (a cut of the bench's
+    pair: 4096^2 weight, 384-blocks at density 0.2, times 4096 x 1024
+    ReLU activations)."""
+    from spada_tpu_torch.plan.planner import plan_spgemm
+
+    a = P(ref_workloads.block_sparse_csr(4096, 4096, 384, 0.2, seed=5,
+                                         dtype=np.float32))
+    b = P(ref_workloads.relu_activation_csr(4096, 1024, 0.35, seed=6,
+                                            dtype=np.float32))
+    cfg = h100_config()
+    choice, det = dispatch_dataflow(a, b, cfg)
+    assert choice == "tile" and det["tile_T"] == 128
+    plan = plan_spgemm(a, b, cfg)
+    assert plan.tm_histogram() == {128: 4096}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -227,6 +363,9 @@ def test_crossover_configs():
             h100_config(engine_dtype="bfloat16"), f)
     assert {c.engine_dtype for c in cfgs.values()} == {"bfloat16"}
     assert cfgs["v5e"].hbm_bytes_per_s == cfgs["fit"].hbm_bytes_per_s
+    # the element model: the reference's 30 us, and the card's fit
+    assert cfgs["v5e"].element_fixed_s == REFERENCE_ELEMENT_FIXED_S
+    assert cfgs["fit"].element_fixed_s == h100_config().element_fixed_s
 
 
 @pytest.mark.parametrize("fill", [96, 24, 12])
@@ -243,11 +382,21 @@ def test_dispatch_under_the_fit_equals_reference(fill, dtype):
     rb = _reference_tool("probe_dispatch_crossover").banded_fill_csr(
         n, 384, fill, seed=fill + 1)
     cfg = h100_config(engine_dtype=dtype)
-    choice, det = dispatch_dataflow(a, b, cfg)
-    r_choice, r_det = ref_spgemm.dispatch_dataflow(ra, rb, cfg)
+    # the reference's schema: the card's per-item fit, its own element term
+    ref_cfg = SpadaConfig(**{f.name: getattr(cfg, f.name)
+                             for f in dataclasses.fields(SpadaConfig)})
+    choice, det = dispatch_dataflow(a, b, ref_cfg)
+    r_choice, r_det = ref_spgemm.dispatch_dataflow(ra, rb, ref_cfg)
     assert choice == r_choice
     assert det == r_det
-    assert choose_tile_size(a, b, cfg) == ref_choose_tile_size(ra, rb, cfg)
+    assert choose_tile_size(a, b, cfg) == ref_choose_tile_size(ra, rb,
+                                                                ref_cfg)
+    # under the card's element term the tile side is the same
+    card_choice, card_det = dispatch_dataflow(a, b, cfg)
+    assert card_det["tile"] == r_det["tile"]
+    assert card_det["tile_T"] == r_det["tile_T"]
+    assert card_det["element"]["t_est"] < r_det["element"]["t_est"]
+    assert card_choice == r_choice or card_choice == "element"
 
 
 def _nn_pair(scale=32):
@@ -361,9 +510,15 @@ def test_tools_need_a_card_unless_told_cpu(tool):
 @pytest.mark.parametrize("argv,expect", [
     (["probe_item_overhead", "--n", "1024", "--band", "64"],
      "overhead not timed"),
+    (["probe_item_overhead", "--thin", "--n", "1024", "--thin-n", "1024",
+      "--band", "64"], "| bfloat16 | 128 | mma | tile_spgemm |"),
     (["probe_dispatch_crossover", "--n", "1024", "--fills", "48,12"],
      "| verdict |"),
+    (["probe_dispatch_crossover", "--element-fit", "--fills", "48,12"],
+     "| fem-graded-33 |"),
     (["eval_adaptive", "--n", "512"], "## fem-graded-24"),
+    (["eval_adaptive", "--n", "512", "--element", "dispatched"],
+     "element not timed ms: -"),
     (["bench_value_refresh", "--scale", "32"], "element cold build"),
 ])
 def test_tool_entry_points_on_cpu(argv, expect):
