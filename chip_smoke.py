@@ -143,7 +143,13 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    the thin points of phase 4c's ``tile_spgemm`` cases beside the recorded
    ones (``config._THIN_FIT``), and the graded FEM at 129 edges through
    ``eval_adaptive`` with both sides timed and the dispatch's OK / WRONG
-   verdict (it must be dispatched to the element side).
+   verdict (it must be dispatched to the element side); (g) the card's
+   tile model (``plan/card_model.py``) and the parent's model beside the
+   measured ms on cari (the CLI), phase 4's two nn plans, every tile row of
+   (c) and phase 4c's ``tile_spgemm`` cases, with each model's median and
+   largest |residual|; (h) cari through the CLI's ``run`` and ``plan
+   --card``: both must print the same tile edge and plan lines, and ``plan
+   --card``'s panels must be the plan ``cli.plan_spada`` makes.
 11. the last two reference tools (``spada_tpu_torch.tools``): (a)
    ``probe_op`` at its size (banded 16384^2, band 384, T = 384, bf16 then
    f32 tiles): the op dataflow's k-major worklist on the plain scatter-add
@@ -1928,12 +1934,12 @@ def crossover_tile_only(fill: int, dev, say, n: int = 32768) -> None:
     tile = {}
     for k, cfg in X.configs(card_name(dev)).items():
         choice, det = dispatch_dataflow(a, b, cfg)
-        T = det["tile_T"]
+        T, t_model = X.tile_model(a, b, cfg)
         if T not in tile:
             tile[T] = X.tile_side(a, b, T, dev, ref, GATE_ROWS)
         t_s, w, err = tile[T]
         say(f"fill={fill} [{k}]: dispatch={choice} T={T} modeled tile "
-            f"{det['tile'][T]['t_est'] * 1e3:.3f} elem "
+            f"{t_model * 1e3:.3f} elem "
             f"{det['element']['t_est'] * 1e3:.3f} ms; measured tile "
             f"{fmt_ms(t_s)} ms W={w} gate {err:.1e}; element side not "
             f"measured here (E={det['element']['e_products']}), verdict -")
@@ -1953,9 +1959,11 @@ def run_calibration(dev, runs: dict, nn_ref, extra: dict,
         for line in s.splitlines() or [""]:
             log("    " + line)
 
+    evaluated = []
+
     def quick_eval():
         sets = eval_adaptive.workloads(8192)
-        results = []
+        results = evaluated
         for name, (a, b) in sets.items():
             if name in EVAL_SUBSET or name.startswith("fem-graded-"):
                 results.append((name, *eval_adaptive.eval_workload(
@@ -2001,6 +2009,115 @@ def run_calibration(dev, runs: dict, nn_ref, extra: dict,
     require(counts.get("tile_spgemm", 0) > 0
             and counts.get("esc_stream_group", 0) > 0,
             f"(f): launches {counts}")
+    t0 = time.perf_counter()
+    log("  (g) the card's tile model against the measured times, and (h) "
+        "the CLI's run against plan --card on cari:")
+    with main_path(totals) as counts:
+        cari_point = cari_run_is_plan_card(dev, say)
+    model_residuals(runs, extra, evaluated, cari_point, say)
+    log(f"  (g)-(h): launches {counts}, {time.perf_counter() - t0:.1f} s, "
+        f"on {smi_name_power()}")
+    require(counts.get("tile_spgemm", 0) > 0, f"(h): launches {counts}")
+
+
+def cari_run_is_plan_card(dev, say) -> tuple:
+    """Phase 10 (h): cari through the CLI's ``run`` and ``plan --card``
+    under the card's profile: the tile edge and plan lines ``run`` prints
+    (T, panels, tm histogram, the model's ms) must be the ones ``plan
+    --card`` prints, and ``plan --card``'s panels the plan
+    ``cli.plan_spada`` makes under the CLI's config.  Returns ("cari
+    (CLI)", measured s, (the card model's s, the parent model's s)) for
+    (g)."""
+    import torch
+
+    from spada_tpu_torch import cli
+    from spada_tpu_torch.config import SpadaConfig, card_config
+    from spada_tpu_torch.io.workloads import GemmWorkload
+    from spada_tpu_torch.tools.eval_adaptive import models
+
+    outs = {}
+    for mode, extra_args in (("run", ["--no-result"]), ("plan", ["--card"])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([mode, "spada", "SS", "cari", "config/default.json",
+                           "--device", str(dev), *extra_args])
+        require(rc == 0, f"(h) cari {mode} exited {rc}")
+        outs[mode] = out.getvalue().splitlines()
+
+    def decisions(lines):
+        return [ln for ln in lines if ln.startswith(("tile size:",
+                                                     "plan[", "densify:"))]
+
+    require(decisions(outs["run"]) == decisions(outs["plan"]),
+            f"(h) run printed {decisions(outs['run'])}, plan --card "
+            f"{decisions(outs['plan'])}")
+    printed = [tuple(int(x) for x in re.match(
+        r"\s+rows \[(\d+), (\d+)\)\s+tm=(\d+)", ln).groups())
+        for ln in outs["plan"] if ln.strip().startswith("rows [")]
+    config = card_config(SpadaConfig.from_json("config/default.json"),
+                         torch.cuda.get_device_name(dev))
+    w = GemmWorkload.from_suitesparse(config.ss_filepath, "cari")
+    run = cli.plan_spada(w.a, w.b, config, dev, densify=True,
+                         log=lambda s: None)
+    want = [(p.row_start, p.row_end, p.tm) for p in run.plan.panels]
+    require(printed == want[:20], f"(h) plan --card printed {printed}, "
+            f"plan_spada planned {want}")
+    ms = float(re.search(r"device perf: engine ([0-9.]+) ms",
+                         "\n".join(outs["run"])).group(1))
+    say(f"cari: run and plan --card print the same decisions "
+        f"{decisions(outs['plan'])}; panels {want}; engine {ms:.4f} ms")
+    return ("cari (CLI)", ms * 1e-3, models(run.a, run.b, run.plan,
+                                            run.config))
+
+
+def model_residuals(runs: dict, extra: dict, evaluated: list, cari_point,
+                    say) -> None:
+    """Phase 10 (g): the card model's t_est and the parent model's beside
+    the measured ms on cari (the CLI), phase 4's two nn plans and every
+    tile row of (c)'s eval, in one table with each model's median and
+    largest |residual|."""
+    from spada_tpu_torch.tools import eval_adaptive
+
+    points = [cari_point]
+    for label, run in runs.items():
+        points.append((f"nn [{label}] T={run.config.tile_k} "
+                       f"{run.plan.tm_histogram()}",
+                       extra["nn_plans"][label]["perf_ms"] * 1e-3,
+                       eval_adaptive.models(run.a, run.b, run.plan,
+                                            run.config)))
+    points += [(f"{name} (n = 8192) {label}", s, model)
+               for name, _, rows, _ in evaluated
+               for label, (s, _, model) in rows.items() if model is not None]
+    points += sweep_points(extra["thin_sweep"])
+    say(eval_adaptive.residual_table(points))
+
+
+def sweep_points(thin_sweep) -> list:
+    """Phase 4c's tile_spgemm cases as (g)'s points: each case's uniform
+    plan under both models, the pair's counts taken once per panel
+    height."""
+    from spada_tpu_torch.config import h100_config
+    from spada_tpu_torch.plan.card_model import (card_plan_cost, price_span,
+                                                 span_counts)
+    from spada_tpu_torch.plan.estimator import BTileStructure
+    from spada_tpu_torch.tools.eval_adaptive import parent_config
+
+    rows, (a, b) = thin_sweep
+    bt = BTileStructure(b, 128, 128)      # phase 4c's T
+    counts, points = {}, []
+    for r in rows:
+        if r["engine"] != "tile_spgemm":
+            continue
+        tm, dt = r["tm"], r["dtype"]
+        if tm not in counts:
+            counts[tm] = span_counts(a, 0, a.shape[0], tm, bt)
+        cfg = h100_config(engine_dtype=dt)
+        isz = 2 if dt == "bfloat16" else 4
+        model = tuple(card_plan_cost([price_span(counts[tm], tm, bt, isz,
+                                                 c)], c)[0]
+                      for c in (cfg, parent_config(cfg)))
+        points.append((f"sweep {dt} tm {tm}", r["ms"] * 1e-3, model))
+    return points
 
 
 def card_terms(dev, thin_sweep, say) -> None:
@@ -2023,7 +2140,11 @@ def card_terms(dev, thin_sweep, say) -> None:
         say(f"{dt}: per-T overhead {cfg.engine_item_overhead_s}; acc "
             f"{cfg.engine_acc_s_per_elem:.4e} s per element, fixed "
             f"{cfg.engine_item_fixed_s * 1e9:.2f} ns; element_fixed_s "
-            f"{cfg.element_fixed_s * 1e6:.3f} us")
+            f"{cfg.element_fixed_s * 1e6:.3f} us; the tile model's launch "
+            f"{cfg.tile_launch_s * 1e6:.3f} us, L2 "
+            f"{cfg.tile_l2_bytes_per_s / 1e12:.2f} TB/s over "
+            f"{cfg.tile_l2_bytes >> 20} MiB, {len(cfg.tile_item_s)} item "
+            f"and {len(cfg.tile_item_latency_s)} latency points")
         say("thin overheads ns, recorded / phase 4c's run: " + ", ".join(
             f"tm {tm} {o * 1e9:.2f} / {now[dt][(tm, tn)][0] * 1e9:.2f}"
             for (tm, tn), (o, _) in _THIN_FIT[dt].items()))

@@ -5,19 +5,23 @@
     python -m spada_tpu_torch.cli run spada SS cari config/default.json --device cpu
     python -m spada_tpu_torch.cli run spada SS cari config/default.json --plan-scheme profiled
     python -m spada_tpu_torch.cli plan spada SS cari config/default.json
+    python -m spada_tpu_torch.cli plan spada SS cari config/default.json --card --device cpu
     python -m spada_tpu_torch.cli traffic spada SS cari config/default.json
 
 ``build_parser``, ``load_workload``, ``_print_gemm_stats``,
 ``_print_first_rows``, ``_tile_bytes``, ``cmd_traffic`` and ``cmd_breuse``
 are copies of the reference CLI's, held equal to it by
 ``tests/test_torch_host.py``.  The ``run`` mode replaces the roofline
-constants, the per-item terms and the element path's fixed term of the
-config by the card's profile (its datasheet peaks, the per-item fit for
-the tile dtype and the element fit,
-:func:`spada_tpu_torch.config.card_config`) and reports the device time
+constants, the per-item terms, the element path's fixed term and the tile
+side's card terms of the config by the card's profile (its datasheet
+peaks, the fits for the tile dtype and the element fit,
+:func:`spada_tpu_torch.config.card_config`), so that it plans under the
+card's model (:mod:`spada_tpu_torch.plan.card_model`), and reports the device time
 of the multiply (:func:`~spada_tpu_torch.ops.spgemm.measure_device_perf`); on the
 CPU, which has no device time, the wall time of a warm rerun.  ``plan``
-prints the panel plan without executing it; under ``--plan-scheme
+prints the panel plan without executing it, the reference's plan at the
+config's tile edge, or with ``--card`` the plan ``run`` executes
+(:func:`plan_spada`); under ``--plan-scheme
 profiled`` (in ``run`` too) the planner times the tile engine on
 ``--device`` (:func:`~spada_tpu_torch.plan.execute.make_profiled_measure`).
 The ``traffic`` and ``breuse`` modes run the functional traffic model on
@@ -25,7 +29,7 @@ the host, as the reference's do.
 
 :func:`run_spada` is the adaptive main path, shared with ``chip_smoke.py``:
 tile/element dispatch -> tile-edge choice -> (optional densify) -> panel
-plan -> execution.
+plan (:func:`plan_spada`) -> execution.
 """
 
 from __future__ import annotations
@@ -64,18 +68,22 @@ class SpadaRun:
     row_remap: Optional[np.ndarray] = None
 
 
-def run_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
-              device="cuda", densify: bool = False,
-              log: Callable[[str], None] = print,
-              scheme: str = "analytic") -> SpadaRun:
-    """The adaptive ``spada`` dataflow, as ``spada_tpu.cli``'s ``run`` mode
-    sequences it: dispatch -> ``choose_tile_size`` -> ``plan_spgemm`` (under
-    ``scheme``, 'analytic' or 'profiled') -> ``spgemm(plan=)``.  ``config``
-    is copied, not changed."""
-    from spada_tpu_torch.plan.planner import choose_tile_size, plan_spgemm
+def plan_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
+               device="cuda", densify: bool = False,
+               log: Callable[[str], None] = print,
+               scheme: str = "analytic") -> SpadaRun:
+    """The decisions of :func:`run_spada`, without the multiply: dispatch ->
+    tile edge -> (densify) -> panel plan (``result`` None).  The tile edge
+    and the plan come from :func:`~spada_tpu_torch.plan.card_model.
+    planner_for`'s pair: the card's model under a ``CardConfig``, the
+    reference's ``choose_tile_size`` and ``plan_spgemm`` under a
+    ``SpadaConfig``.  ``config`` is copied, not changed; ``device`` is
+    where ``scheme='profiled'`` times the tile engine."""
+    from spada_tpu_torch.plan.card_model import planner_for
 
     config = dataclasses.replace(config)
     dev = check_device(device)
+    tile_size, planner = planner_for(config)
     det = None
     choice = "tile"
     if config.element_dispatch == "always":
@@ -89,13 +97,12 @@ def run_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
                 f"{det['element']['t_est']*1e3:.2f}ms vs tile "
                 f"{min(v['t_est'] for v in det['tile'].values())*1e3:.2f}ms)")
     if choice == "element":
-        res = spgemm(a, b, config, dataflow="element", device=dev)
-        return SpadaRun(res, "element", config, det, None, a, b)
+        return SpadaRun(None, "element", config, det, None, a, b)
 
     if det is not None:
         t_best, t_det = det["tile_T"], det["tile"]
     else:
-        t_best, t_det = choose_tile_size(a, b, config)
+        t_best, t_det = tile_size(a, b, config)
     row_remap = None
     if densify:
         w2, dplan = GemmWorkload("run", a, b).preprocess_densified(
@@ -105,24 +112,45 @@ def run_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
         else:
             log(f"densify: {dplan.candidate}")
             a, b, row_remap = w2.a, w2.b, w2.row_remap
-            t_best, t_det = choose_tile_size(a, b, config)
+            t_best, t_det = tile_size(a, b, config)
     if t_best != config.tile_k:
         config.tile_k = config.tile_n = t_best
         config.default_tm = t_best
         config.tm_choices = tuple(
             t for t in config.tm_choices if t <= t_best) + (t_best,)
-    ests = ", ".join(f"{k}: {v['t_est'] * 1e3:.2f}ms" for k, v in t_det.items())
+    ests = ", ".join(f"{k}: {'>=' if v.get('bound') else ''}"
+                     f"{v['t_est'] * 1e3:.2f}ms" for k, v in t_det.items())
     log(f"tile size: {t_best}  (model: {ests})")
     measure = None
     if scheme == "profiled":
         from spada_tpu_torch.plan.execute import make_profiled_measure
 
         measure = make_profiled_measure(a, b, config, dev)
-    plan = plan_spgemm(a, b, config, scheme=scheme, measure=measure)
+    plan = planner(a, b, config, scheme=scheme, measure=measure)
+    t_est = plan.meta.get("t_est")
     log(f"plan[{scheme}]: {len(plan.panels)} panels, "
-        f"tm histogram {plan.tm_histogram()}")
-    res = spgemm(a, b, config, dataflow="spada", plan=plan, device=dev)
-    return SpadaRun(res, "tile", config, det, plan, a, b, row_remap)
+        f"tm histogram {plan.tm_histogram()}"
+        + ("" if t_est is None else f", model {t_est * 1e3:.4f} ms"))
+    return SpadaRun(None, "tile", config, det, plan, a, b, row_remap)
+
+
+def run_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
+              device="cuda", densify: bool = False,
+              log: Callable[[str], None] = print,
+              scheme: str = "analytic") -> SpadaRun:
+    """The adaptive ``spada`` dataflow, as ``spada_tpu.cli``'s ``run`` mode
+    sequences it: :func:`plan_spada` (dispatch -> tile edge -> panel plan,
+    under ``scheme``, 'analytic' or 'profiled'), then ``spgemm(plan=)``, or
+    the element side where dispatch sends the pair.  ``config`` is copied,
+    not changed."""
+    run = plan_spada(a, b, config, device, densify, log, scheme)
+    dev = check_device(device)
+    if run.choice == "element":
+        res = spgemm(run.a, run.b, run.config, dataflow="element", device=dev)
+    else:
+        res = spgemm(run.a, run.b, run.config, dataflow="spada",
+                     plan=run.plan, device=dev)
+    return dataclasses.replace(run, result=res)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -211,6 +239,10 @@ def build_port_parser():
                      "(spada_tpu.cli on PyTorch)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
+    p.add_argument("--card", action="store_true",
+                   help="plan mode: the plan run executes, under the card's "
+                        "profile (the device's; on the CPU the datasheet's "
+                        "H100)")
     return p
 
 
@@ -347,17 +379,28 @@ def cmd_plan(args, config: SpadaConfig, w: GemmWorkload,
              device: torch.device) -> int:
     """The planner's decisions, printed as the reference's ``plan`` mode
     prints them; ``--plan-scheme profiled`` times the tile engine on
-    ``device``."""
-    from spada_tpu_torch.plan.planner import plan_spgemm
+    ``device``.  With ``--card`` the plan ``run`` executes: the card's
+    profile on the config, then :func:`plan_spada`'s dispatch, tile edge,
+    densify and plan."""
+    if args.card:
+        run = plan_spada(w.a, w.b, config, device,
+                         densify=args.densify == "auto",
+                         scheme=args.plan_scheme)
+        if run.choice == "element":
+            return 0
+        plan, n_rows = run.plan, run.a.shape[0]
+    else:
+        from spada_tpu_torch.plan.planner import plan_spgemm
 
-    measure = None
-    if args.plan_scheme == "profiled":
-        from spada_tpu_torch.plan.execute import make_profiled_measure
+        measure = None
+        if args.plan_scheme == "profiled":
+            from spada_tpu_torch.plan.execute import make_profiled_measure
 
-        measure = make_profiled_measure(w.a, w.b, config, device)
-    plan = plan_spgemm(w.a, w.b, config, scheme=args.plan_scheme,
-                       measure=measure)
-    print(f"{len(plan.panels)} panels over {w.a.shape[0]} rows "
+            measure = make_profiled_measure(w.a, w.b, config, device)
+        plan = plan_spgemm(w.a, w.b, config, scheme=args.plan_scheme,
+                           measure=measure)
+        n_rows = w.a.shape[0]
+    print(f"{len(plan.panels)} panels over {n_rows} rows "
           f"({plan.meta['n_groups']} row groups, "
           f"scheme {args.plan_scheme})")
     print(f"tm histogram (height -> rows): {plan.tm_histogram()}")
@@ -384,7 +427,7 @@ def _execute(args):
         config.engine_dtype = args.dtype
         if args.dtype == "bfloat16":
             config.precision = "default"
-    if args.mode == "run":
+    if args.mode == "run" or (args.mode == "plan" and args.card):
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else None)
         config = card_config(config, name)

@@ -34,8 +34,10 @@ beside them and not fitted into the planner's terms (see
 the reference's ``estimate_element_time`` charges as a literal 30 us, is
 fitted on the same card (:func:`element_fit`,
 ``tools/probe_dispatch_crossover.py --element-fit``) and carried by
-:class:`CardConfig`, the one field the reference's schema lacks.  The other
-SKUs take the same values until they are measured.
+:class:`CardConfig`, beside the terms of the card's own tile model
+(:func:`tile_terms`, ``tools/probe_item_overhead.py --latency --items``),
+which the reference's schema lacks.  The other SKUs take the same values
+until they are measured.
 """
 
 from __future__ import annotations
@@ -354,26 +356,147 @@ def element_fit() -> dict:
     return {"element_fixed_s": fit_element_fixed(_ELEMENT_FIT, bw)}
 
 
+#: the tile side's card terms in the reference's form: no item table (the
+#: per-item terms ``acc * tm * tn + fixed`` add to the byte/flop max), no
+#: latency, no L2 reuse (every item's tiles read from HBM), no launch
+REFERENCE_TILE_TERMS = {"tile_item_s": (), "tile_item_latency_s": (),
+                        "tile_l2_bytes_per_s": 0.0, "tile_l2_bytes": 0,
+                        "tile_launch_s": 0.0}
+
+
 @dataclasses.dataclass
 class CardConfig(SpadaConfig):
-    """``SpadaConfig`` with the one term of the card's profile that the
-    reference's schema has no field for: ``element_fixed_s``, the element
-    path's fixed time per multiply, which ``ops.spgemm.
-    estimate_element_time`` adds to the plan's bytes over the HBM rate.
-    Its default is the reference's literal, so a config of this class
-    prices what ``SpadaConfig`` prices until the card's fit is set."""
+    """``SpadaConfig`` with the terms of the card's profile that the
+    reference's schema has no field for.
+
+    - ``element_fixed_s``: the element path's fixed time per multiply,
+      which ``ops.spgemm.estimate_element_time`` adds to the plan's bytes
+      over the HBM rate.
+    - The tile side's card model (:mod:`spada_tpu_torch.plan.card_model`):
+      ``tile_item_s``, ``((tm, T, seconds), ...)``, the throughput time of
+      one tm x T x T item on a full grid; ``tile_item_latency_s``, the same
+      shapes' time per item of one block's run; ``tile_l2_bytes_per_s``, the
+      rate re-read tiles come at from L2, and ``tile_l2_bytes``, the L2
+      size that bounds that reuse; ``tile_launch_s``, the fixed time of one
+      launch of a plan segment.
+
+    The defaults are the reference's literal and the reference's form
+    (:data:`REFERENCE_TILE_TERMS`), so a config of this class prices what
+    ``SpadaConfig`` prices until the card's terms are set.  A JSON round
+    trip gives the tables back as tuples."""
 
     element_fixed_s: float = REFERENCE_ELEMENT_FIXED_S
+    tile_item_s: tuple = ()
+    tile_item_latency_s: tuple = ()
+    tile_l2_bytes_per_s: float = 0.0
+    tile_l2_bytes: int = 0
+    tile_launch_s: float = 0.0
+
+    def __post_init__(self):
+        for f in ("tile_item_s", "tile_item_latency_s"):
+            setattr(self, f, tuple((int(tm), int(t), float(s))
+                                   for tm, t, s in getattr(self, f)))
+
+
+# The tile side's card model, measured on the card (plan/card_model.py reads
+# these through CardConfig's tile_* fields).  _TILE_ITEM: by tile dtype,
+# {(tm, T): seconds per item}, one tile_spgemm launch of uniform tm x T
+# panels on banded_csr(32768, 32768, 384) at tk = tn = T (tools/sweep_thin's
+# pair; every grid above the card's 132 SMs), less its C tiles' f32 write at
+# the HBM rate, over W (the model adds each C tile's write back).
+# _TILE_LATENCY: by tile dtype, {(tm, T): seconds per item}, the slope of
+# one C tile's time over runs of 1, 2, 4 ... 64 items.  _TILE_LAUNCH_S: one
+# launch of a one-item worklist less one item's latency, the median over
+# the shapes.  _TILE_L2: (the highest rate, over the _TILE_ITEM points, at
+# which the re-read tiles arrived beyond the unique tiles' HBM time, bytes
+# per second; the card's L2 size in bytes).
+_TILE_FIT_SOURCE = {"card": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W",
+                    "date": "2026-10-17",
+                    "tool": "spada_tpu_torch/tools/probe_item_overhead.py "
+                            "--latency --items"}
+_TILE_ITEM: dict = {
+    "float32": {(8, 128): 1.368e-08, (16, 128): 1.425e-08,
+                (32, 128): 2.176e-08, (64, 128): 3.82e-08,
+                (128, 128): 8.257e-08, (8, 256): 5.402e-08,
+                (16, 256): 5.651e-08, (32, 256): 8.651e-08,
+                (64, 256): 1.51e-07, (128, 256): 3.226e-07,
+                (256, 256): 6.445e-07, (8, 384): 1.224e-07,
+                (16, 384): 1.262e-07, (32, 384): 1.978e-07,
+                (64, 384): 3.433e-07, (128, 384): 7.373e-07,
+                (384, 384): 2.183e-06, (8, 512): 2.13e-07,
+                (16, 512): 2.231e-07, (32, 512): 3.455e-07,
+                (64, 512): 6.06e-07, (128, 512): 1.277e-06,
+                (512, 512): 5.082e-06},
+    "bfloat16": {(8, 128): 6.236e-09, (16, 128): 6.542e-09,
+                 (32, 128): 7.214e-09, (64, 128): 9.519e-09,
+                 (128, 128): 1.87e-08, (8, 256): 2.496e-08,
+                 (16, 256): 2.628e-08, (32, 256): 2.79e-08,
+                 (64, 256): 3.59e-08, (128, 256): 7.061e-08,
+                 (256, 256): 1.405e-07, (8, 384): 5.566e-08,
+                 (16, 384): 5.848e-08, (32, 384): 6.329e-08,
+                 (64, 384): 8.166e-08, (128, 384): 1.624e-07,
+                 (384, 384): 4.79e-07, (8, 512): 9.897e-08,
+                 (16, 512): 1.045e-07, (32, 512): 1.121e-07,
+                 (64, 512): 1.391e-07, (128, 512): 2.766e-07,
+                 (512, 512): 1.105e-06},
+}
+_TILE_LATENCY: dict = {
+    "float32": {(8, 128): 2.721e-06, (16, 128): 2.77e-06,
+                (32, 128): 3.805e-06, (64, 128): 5.803e-06,
+                (128, 128): 1.073e-05, (8, 256): 5.317e-06,
+                (16, 256): 5.424e-06, (32, 256): 7.472e-06,
+                (64, 256): 1.138e-05, (128, 256): 2.081e-05,
+                (256, 256): 2.061e-05, (8, 384): 7.901e-06,
+                (16, 384): 8.2e-06, (32, 384): 1.119e-05,
+                (64, 384): 1.706e-05, (128, 384): 3.09e-05,
+                (384, 384): 3.111e-05, (8, 512): 1.11e-05,
+                (16, 512): 1.148e-05, (32, 512): 1.502e-05,
+                (64, 512): 2.271e-05, (128, 512): 4.143e-05,
+                (512, 512): 4.175e-05},
+    "bfloat16": {(8, 128): 8.325e-07, (16, 128): 8.784e-07,
+                 (32, 128): 1.054e-06, (64, 128): 1.438e-06,
+                 (128, 128): 2.422e-06, (8, 256): 1.643e-06,
+                 (16, 256): 1.734e-06, (32, 256): 2.096e-06,
+                 (64, 256): 2.797e-06, (128, 256): 4.587e-06,
+                 (256, 256): 4.585e-06, (8, 384): 2.435e-06,
+                 (16, 384): 2.588e-06, (32, 384): 3.121e-06,
+                 (64, 384): 4.19e-06, (128, 384): 6.864e-06,
+                 (384, 384): 6.868e-06, (8, 512): 3.244e-06,
+                 (16, 512): 3.463e-06, (32, 512): 4.148e-06,
+                 (64, 512): 5.545e-06, (128, 512): 9.081e-06,
+                 (512, 512): 9.148e-06},
+}
+_TILE_LAUNCH_S = 5.805e-06
+_TILE_L2 = (5.502e+12, 52428800)
+
+
+def tile_terms(engine_dtype: str = "float32") -> dict:
+    """The tile side's card terms of :class:`CardConfig` for tiles of
+    ``engine_dtype``, from the recorded tables; the reference's form
+    (:data:`REFERENCE_TILE_TERMS`) where none is recorded."""
+    if engine_dtype not in _TILE_ITEM:
+        raise ValueError(f"unknown engine_dtype {engine_dtype!r}")
+    if not _TILE_ITEM[engine_dtype]:
+        return dict(REFERENCE_TILE_TERMS)
+
+    def table(d):
+        return tuple((tm, t, s) for (tm, t), s in sorted(d.items()))
+
+    return {"tile_item_s": table(_TILE_ITEM[engine_dtype]),
+            "tile_item_latency_s": table(_TILE_LATENCY[engine_dtype]),
+            "tile_l2_bytes_per_s": _TILE_L2[0], "tile_l2_bytes": _TILE_L2[1],
+            "tile_launch_s": _TILE_LAUNCH_S}
 
 
 def card_profile(device_name: Optional[str] = None,
                  engine_dtype: str = "float32") -> dict:
     """The :class:`CardConfig` fields that describe the card named
     ``device_name``: its datasheet peaks (:func:`datasheet_peaks`), the
-    per-item terms fitted for ``engine_dtype`` tiles (:func:`item_fit`)
-    and the element path's fixed term (:func:`element_fit`)."""
+    per-item terms fitted for ``engine_dtype`` tiles (:func:`item_fit`),
+    the element path's fixed term (:func:`element_fit`) and the tile
+    side's card terms (:func:`tile_terms`)."""
     return {**datasheet_peaks(device_name), **item_fit(engine_dtype),
-            **element_fit()}
+            **element_fit(), **tile_terms(engine_dtype)}
 
 
 def card_config(config: SpadaConfig,
@@ -392,22 +515,22 @@ def h100_config(device_name: Optional[str] = None,
     """:class:`CardConfig` with the card's profile (:func:`card_profile`:
     the datasheet roofline, placeholders until measured, the per-item
     terms fitted for the tile dtype, ``overrides``' ``engine_dtype`` or
-    'float32', and the element path's fixed term), then ``overrides``.
+    'float32', the element path's fixed term and the tile side's card
+    terms), then ``overrides``.
 
-    Under these terms ``choose_tile_size`` takes T = 128 on most pairs (the
-    card's per-item overhead on square tiles grows about as T^3).  The
-    per-row-group planner then takes tm = T on dense rows (the bench's nn
-    pair: one tm-128 segment) and chooses among tm 8-128 on sparse ones by
-    the estimator's ``max(bytes / hbm, mxu / peak) + W * (acc * tm * tn +
-    fixed)``, ``acc`` and ``fixed`` fitted on square tiles.  The thin row
-    panels' points (:data:`_THIN_FIT`) are not in that fit: on thin panels
-    the estimator's byte term, each item's B tile read from HBM, is already
-    above the card's time (it reads them from L2), so their overhead is
-    negative, and the fit of the same form on square and thin points
-    together (``tools/probe_item_overhead.py --thin``) has ``fixed`` 0 and
-    an ``acc`` 9-24 times smaller.  Under that fit the planner picks
-    thicker panels, and on an NVIDIA H100 80GB HBM3 at 700 W cari ran
-    1.95x, banded 1.18x and nn-bert-ffn1-blk32 1.68x slower."""
+    Under these terms the port plans with the card's own tile model
+    (``plan.card_model``: per plan segment a launch plus the largest of
+    the byte term with L2 reuse, the items' throughput time with C's
+    write, and the longest run at one block's latency).  The reference's
+    form of the same planner (``REFERENCE_TILE_TERMS`` as overrides) uses
+    the per-item terms, fitted on square tiles: under them
+    ``choose_tile_size`` takes T = 128 on most pairs and the estimator's
+    ``max(bytes / hbm, mxu / peak) + W * (acc * tm * tn + fixed)`` chooses
+    the panel heights.  The thin row panels' points (:data:`_THIN_FIT`)
+    are not in that fit: the fit of the same form on square and thin
+    points together has ``fixed`` 0 and an ``acc`` 9-24 times smaller,
+    and under it cari ran 1.95x, banded 1.18x and nn-bert-ffn1-blk32 1.68x
+    slower on an NVIDIA H100 80GB HBM3 at 700 W."""
     dtype = overrides.get("engine_dtype", "float32")
     return CardConfig(**{**card_profile(device_name, dtype), **overrides})
 

@@ -155,6 +155,50 @@ def element_plan_bytes(a: CsrMatrix, b: CsrMatrix, cap: int = 512) -> dict:
             "bytes": 2 * n_padded * 4 + n_chunks * 4}
 
 
+#: above this many products an ambiguous element estimate reads the plan's
+#: bytes off a row sample (:func:`sampled_plan_bytes`) in place of the exact
+#: pattern product, whose host time grows with E (1.5-3 s at 2^25 products)
+ELEMENT_EXACT_CAP = 2**25
+#: the products of that row sample, about
+ELEMENT_SAMPLE_PRODUCTS = 2**21
+
+
+def sampled_plan_bytes(a: CsrMatrix, b: CsrMatrix, cap: int = 512,
+                       products: int = ELEMENT_SAMPLE_PRODUCTS) -> dict:
+    """:func:`element_plan_bytes` estimated from every s-th row of A, s
+    chosen so that the sample expands to about ``products`` products: the
+    sample's exact bytes, padded slots and chunks scaled by E over the
+    sample's products; ``sample_rows`` the rows it read."""
+    b_len = np.diff(np.asarray(b.indptr)).astype(np.int64)
+    per_nnz = b_len[np.asarray(a.indices)]
+    csum = np.concatenate([[0], np.cumsum(per_nnz)])
+    per_row = csum[np.asarray(a.indptr)[1:]] - csum[np.asarray(a.indptr)[:-1]]
+    e = int(per_row.sum())
+    stride = max(1, -(-e // max(products, 1)))
+    rows = np.arange(0, a.shape[0], stride)
+    e_s = int(per_row[rows].sum())
+    if e_s == 0:
+        return {"n_padded": 0, "n_chunks": 0, "nnz_c": 0, "bytes": 0,
+                "sample_rows": len(rows)}
+    sub = CsrMatrix.from_scipy(a.to_scipy()[rows].tocsr())
+    pb = element_plan_bytes(sub, b, cap=cap)
+    scale = e / e_s
+    return {**{k: int(round(v * scale)) for k, v in pb.items()},
+            "sample_rows": len(rows)}
+
+
+def element_bounds(e: int, config: SpadaConfig) -> Tuple[float, float]:
+    """(least, most) seconds of the element path for ``e`` products: no
+    padding, and every class padded to twice its length, two f32 operands
+    and one f32 output per product over the HBM rate, plus the fixed time
+    per multiply (``config.element_fixed_s`` where the config carries it,
+    else the reference's 30 us)."""
+    bw = config.hbm_bytes_per_s
+    overhead = getattr(config, "element_fixed_s", REFERENCE_ELEMENT_FIXED_S)
+    return ((2 * e * 4 + e * 4) / bw + overhead,
+            (2 * 2 * e * 4 + e * 4) / bw + overhead)
+
+
 def estimate_element_time(a: CsrMatrix, b: CsrMatrix,
                           config: SpadaConfig,
                           tile_t: Optional[float] = None) -> dict:
@@ -164,7 +208,11 @@ def estimate_element_time(a: CsrMatrix, b: CsrMatrix,
     the EXACT plan bytes via the pattern-product chunk histogram
     (:func:`element_plan_bytes`) whenever the decision is ambiguous — i.e.
     ``tile_t`` falls between the bounds — or when no ``tile_t`` is given
-    and E is small enough that the O(E) pattern product is cheap.
+    and E is small enough that the O(E) pattern product is cheap.  Where
+    the decision is ambiguous and E is above :data:`ELEMENT_EXACT_CAP`,
+    the bytes come from a row sample (:func:`sampled_plan_bytes`,
+    ``bytes_model`` 'sampled'); the reference runs the exact product there
+    at any E.
 
     The fixed time per multiply is ``config.element_fixed_s`` where the
     config carries the card's (:class:`~spada_tpu_torch.config.CardConfig`),
@@ -173,18 +221,21 @@ def estimate_element_time(a: CsrMatrix, b: CsrMatrix,
     from spada_tpu_torch.ops.element import expansion_products
 
     e = expansion_products(a, b)
-    bw = config.hbm_bytes_per_s
     overhead = getattr(config, "element_fixed_s", REFERENCE_ELEMENT_FIXED_S)
     if e == 0:
         return {"e_products": 0, "t_est": overhead, "bytes_model": "exact"}
-    t_lo = (2 * e * 4 + e * 4) / bw + overhead      # zero padding
-    t_hi = (2 * 2 * e * 4 + e * 4) / bw + overhead  # 2x worst case
+    bw = config.hbm_bytes_per_s
+    t_lo, t_hi = element_bounds(e, config)
     ambiguous = (tile_t is not None and t_lo < tile_t < t_hi)
     if ambiguous or (tile_t is None and e < 2**28):
-        pb = element_plan_bytes(a, b, cap=config.element_cap)
+        if ambiguous and e > ELEMENT_EXACT_CAP:
+            pb, kind = sampled_plan_bytes(a, b, config.element_cap), "sampled"
+        else:
+            pb, kind = element_plan_bytes(a, b, cap=config.element_cap), \
+                "exact"
         return {"e_products": e,
                 "t_est": pb["bytes"] / bw + overhead,
-                "bytes_model": "exact", **pb}
+                "bytes_model": kind, **pb}
     return {"e_products": e, "t_est": t_hi, "t_lo": t_lo,
             "bytes_model": "worst-case"}
 
@@ -194,10 +245,23 @@ def dispatch_dataflow(a: CsrMatrix, b: CsrMatrix,
     """Tile vs element engine choice by modeled time: clustered structure
     goes to tile products, scattered structure to the streaming element
     path.  Returns (choice, details) with the tile model per edge and the
-    chosen edge under ``'tile_T'``."""
-    from spada_tpu_torch.plan.planner import choose_tile_size
+    chosen edge under ``'tile_T'``.  The tile model is
+    :func:`~spada_tpu_torch.plan.card_model.planner_for`'s: the card's
+    model under a ``CardConfig``, ``choose_tile_size`` under a
+    ``SpadaConfig``.  The card's model prices no tile edge whose items
+    alone cost more than the element side's worst case (its ``t_est`` is
+    then that lower bound, ``"bound": True``): the element side is chosen
+    there whatever the tile side's full price."""
+    from spada_tpu_torch.ops.element import expansion_products
+    from spada_tpu_torch.plan.card_model import card_tile_size, planner_for
 
-    t_best, t_det = choose_tile_size(a, b, config)
+    tile_size = planner_for(config)[0]
+    if tile_size is card_tile_size:
+        t_best, t_det = card_tile_size(
+            a, b, config,
+            cutoff=element_bounds(expansion_products(a, b), config)[1])
+    else:
+        t_best, t_det = tile_size(a, b, config)
     t_tile = min(v["t_est"] for v in t_det.values())
     elem = estimate_element_time(a, b, config, tile_t=t_tile)
     choice = "element" if elem["t_est"] < t_tile else "tile"

@@ -16,11 +16,13 @@ tools they port (:mod:`.harness` holds what they share):
 
 - ``probe_item_overhead``: the per-item terms of ``config.h100_config``,
   fitted on ``tile_spgemm``; ``--thin``: the thin row panels' points;
+  ``--latency`` and ``--items``: the card's tile model's tables;
 - ``probe_dispatch_crossover``: the tile/element dispatch against both
   sides measured; ``--element-fit``: the element path's fixed term;
 - ``eval_adaptive``: the adaptive plan against fixed panel heights, the
   panel engine, densify and the element side, with each dispatch's
-  verdict;
+  verdict and each tile plan's t_est under the card's model and the
+  parent's beside its time;
 - ``bench_value_refresh``: the serving loop, fresh values into held tiles
   and operands;
 - ``probe_op``: the op dataflow's k-major engine (the plain scatter-add

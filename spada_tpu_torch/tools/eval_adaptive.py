@@ -1,10 +1,13 @@
 """Adaptive against fixed dataflows, on the card (port of
 ``tools/eval_adaptive.py``).
 
-For each workload the tile edge T is ``choose_tile_size``'s under the bf16
-profile, ``h100_config(engine_dtype="bfloat16", precision="default")``
-(the reference's ``SpadaConfig.fast()`` on the card's rates and fit), and
-these rows are timed on CUDA events, engine time only:
+For each workload the tile edge T and the plan are those ``run`` takes
+under the bf16 profile, ``h100_config(engine_dtype="bfloat16",
+precision="default")`` (the reference's ``SpadaConfig.fast()`` on the
+card's rates and terms): ``plan.card_model.planner_for``'s pair, the
+card's tile model.  These rows are timed on CUDA events, engine time
+only, each tile row with its t_est under the card's model and under the
+parent's (the reference's form, ``parent_config``) and both residuals:
 
 - ``tm32`` and ``tm<T>``: one fixed panel height, one ``tile_spgemm``
   launch of the uniform row worklist;
@@ -13,9 +16,8 @@ these rows are timed on CUDA events, engine time only:
   is timed);
 - ``tm<T>+densify <cand>``: the densify planner's layout at T, where it is
   not the identity;
-- ``spada``: the adaptive per-row-group plan (``plan_spgemm``), the sum of
-  its per-segment ``tile_spgemm`` times as the reference sums them, with
-  ``choose_tile_size``'s ``t_est`` at T beside it;
+- ``spada``: the adaptive per-row-group plan (``plan_spgemm_card``), the
+  sum of its per-segment ``tile_spgemm`` times as the reference sums them;
 - ``element (dispatched)`` or ``element (not dispatched)``: the element
   side, its ``esc_stream_group`` launch (one per row slab above 2^28
   products, as ``spgemm_element`` splits them), on every workload
@@ -23,7 +25,8 @@ these rows are timed on CUDA events, engine time only:
   picks it (``element="dispatched"``);
 - the dispatch's verdict: ``dispatch_dataflow``'s choice beside the
   modelled and measured sides (the tile side is ``spada``, the plan the
-  main path runs), OK where the faster side measured is the one chosen,
+  main path runs, and its model the card's t_est of that plan), OK where
+  the faster side measured is the one chosen,
   WRONG where not, ``-`` where one side was not timed.
 
 The workloads are the reference's eight at n = 16384 (``--quick``: 8192),
@@ -35,8 +38,10 @@ per-row-group planner exists for.  The reference's SMEM launch splits and
 whose tiles and C would not fit in the card's free memory prints
 ``skip(memory)`` with the bytes it needs; no smaller problem is timed in its
 place.  Every timed C is gated against scipy on its first 2048 rows (bf16
-tiles: 1e-2 of max|C|; the element side 1e-3).  The markdown table goes to
-stdout.  On the CPU the plain versions run and are gated, untimed.
+tiles: 1e-2 of max|C|; the element side 1e-3).  The markdown tables go to
+stdout, the last one every tile row's residuals under both models with
+each model's median and largest |residual| (:func:`residual_table`).  On
+the CPU the plain versions run and are gated, untimed.
 
     python -m spada_tpu_torch.tools.eval_adaptive [--quick]
     python -m spada_tpu_torch.tools.eval_adaptive --device cpu --n 1024
@@ -152,9 +157,36 @@ def bf16_config(name: Optional[str], T: Optional[int] = None):
                          if t < T) + (T,))
 
 
+def parent_config(cfg):
+    """``cfg`` with the tile side's card terms in the reference's form: the
+    parent's model (the reference's estimator on the card's square-tile
+    per-item fit), which the card's model replaced."""
+    import dataclasses
+
+    from spada_tpu_torch.config import REFERENCE_TILE_TERMS
+
+    return dataclasses.replace(cfg, **REFERENCE_TILE_TERMS)
+
+
+def models(a, b, plan, cfg) -> tuple:
+    """(the card's t_est, the parent's) of ``plan`` under ``cfg``
+    (``plan.card_model.plan_t_est``)."""
+    from spada_tpu_torch.plan.card_model import plan_t_est
+
+    (card, _), (parent, _) = plan_t_est(a, b, plan, cfg, parent_config(cfg))
+    return card, parent
+
+
+def residual(model, s) -> Optional[float]:
+    """(model - measured) / measured, None where either is missing."""
+    if model is None or s is None or isinstance(s, str):
+        return None
+    return (model - s) / s
+
+
 class _Rows:
     """One workload's rows: {label: (seconds | None | 'skip(memory) ...',
-    work items, model s or None)}."""
+    work items, (the card model's s, the parent model's s) or None)}."""
 
     def __init__(self, name: str, log):
         self.name, self.log = name, log
@@ -163,6 +195,11 @@ class _Rows:
     def add(self, label: str, s, w: int, model=None, note: str = ""):
         self.rows[label] = (s, w, model)
         shown = s if isinstance(s, str) else f"{fmt_ms(s)} ms"
+        if model is not None:
+            r = residual(model[0], s)
+            shown += (f", model {model[0] * 1e3:.4f} ms"
+                      + ("" if r is None else f" ({r:+.1%})")
+                      + f", parent's model {model[1] * 1e3:.4f} ms")
         self.log(f"{self.name} {label}: {shown} W={w} {note}".rstrip())
 
 
@@ -191,14 +228,16 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
     from spada_tpu_torch.ops.engine import prepare_worklist, run_worklist_panel
     from spada_tpu_torch.ops.spgemm import dispatch_dataflow
     from spada_tpu_torch.ops.worklist import build_worklist
+    from spada_tpu_torch.plan.card_model import planner_for
     from spada_tpu_torch.plan.execute import iter_plan_segments
-    from spada_tpu_torch.plan.planner import choose_tile_size, plan_spgemm
+    from spada_tpu_torch.plan.planner import ExecutionPlan, PanelSpec
     from spada_tpu_torch.sparse.bsr import BsrMatrix
 
     if element not in ("all", "dispatched"):
         raise ValueError(f"element={element!r}: 'all' or 'dispatched'")
     card = card_name(dev)
-    T, det = choose_tile_size(a, b, bf16_config(card))
+    tile_size, planner = planner_for(bf16_config(card))
+    T, det = tile_size(a, b, bf16_config(card))
     cfg = bf16_config(card, T)
     ref = first_rows_ref(a, b, gate_rows)
     c_shape = (a.shape[0], b.shape[1])
@@ -213,14 +252,16 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
         a_bsr = BsrMatrix.from_csr(a, tm, T, dtype=np.float32)
         wl = build_worklist(a_bsr, b_bsr, order="row")
         need = tile_bytes(a_bsr, b_bsr, wl, 2)
+        model = models(a, b, ExecutionPlan([PanelSpec(0, a.shape[0], tm)],
+                                           T, T), cfg)
         if not fits(dev, need + (need if tm == T else 0)):
-            out.add(label, _skip_memory(need), wl.n_items)
+            out.add(label, _skip_memory(need), wl.n_items, model)
             continue
         call = launch(a_bsr, wl)
         err = gate(tile_rows(call(), wl.c_tile_row, wl.c_tile_col, tm, T,
                              c_shape, gate_rows), ref, TILE_GATE,
                    f"{name} {label}")
-        out.add(label, device_s(call, dev), wl.n_items,
+        out.add(label, device_s(call, dev), wl.n_items, model,
                 note=f"gate {err:.1e}")
         del call
         if tm == T:
@@ -232,7 +273,7 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
                        f"{name} panel")
             del c
             call = prepare_worklist(wl, a_t, b_t, engine="panel")
-            out.add("panel", device_s(call, dev), wl.n_items,
+            out.add("panel", device_s(call, dev), wl.n_items, model,
                     note=f"gate {err:.1e}")
             del call, a_t, b_t
 
@@ -259,12 +300,13 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
                     note=f"gate {err:.1e}")
             del call
 
-    plan = plan_spgemm(a, b, cfg)
+    plan = planner(a, b, cfg)
     segs = list(iter_plan_segments(a, b_bsr, plan))
     need = sum(tile_bytes(a_bsr, b_bsr, wl, 2) for *_, a_bsr, wl in segs)
     W = sum(wl.n_items for *_, wl in segs)
+    spada_model = models(a, b, plan, cfg)
     if not fits(dev, need):
-        out.add("spada", _skip_memory(need), W, det[T]["t_est"])
+        out.add("spada", _skip_memory(need), W, spada_model)
     else:
         total, got = 0.0, None
         for tm, _, bases, a_bsr, wl in segs:
@@ -276,7 +318,7 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
             total = None if s is None else total + s
             del call
         err = gate(got, ref, TILE_GATE, f"{name} spada")
-        out.add("spada", total, W, det[T]["t_est"],
+        out.add("spada", total, W, spada_model,
                 note=f"(tm hist {plan.tm_histogram()}) gate {err:.1e}")
 
     choice, ddet = dispatch_dataflow(a, b, cfg)
@@ -290,8 +332,9 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
         e_s = device_s(lambda: [c() for c in calls], dev)
         picked = "dispatched" if choice == "element" else "not dispatched"
         out.add(f"element ({picked})", e_s, e,
-                ddet["element"]["t_est"],
-                note=f"E={e} in {len(calls)} launch(es), gate {err:.1e}")
+                note=f"E={e} in {len(calls)} launch(es), model "
+                     f"{ddet['element']['t_est'] * 1e3:.4f} ms, gate "
+                     f"{err:.1e}")
         del calls, csr
     t_s = out.rows.get("spada", (None,))[0]
     t_s = None if isinstance(t_s, str) else t_s
@@ -299,7 +342,7 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
     if t_s is not None and e_s is not None:
         ok = "OK" if (choice == "tile") == (t_s <= e_s) else "WRONG"
     verdict = {"choice": choice,
-               "tile_model_s": ddet["tile"][ddet["tile_T"]]["t_est"],
+               "tile_model_s": spada_model[0],
                "element_model_s": ddet["element"]["t_est"], "tile_s": t_s,
                "element_s": e_s, "ok": ok}
     log(f"{name} dispatch: {verdict_line(verdict)}")
@@ -338,21 +381,58 @@ def run(n: int = 16384, device="cuda", gate_rows: int = 2048,
 
 
 def report(results, n: int, card: Optional[str]) -> str:
-    """The reference's markdown, one table per workload, with the model's
-    ms beside ``spada``."""
+    """The reference's markdown, one table per workload, with each tile
+    plan's t_est under the card's model and under the parent's beside its
+    ms, then :func:`residual_table`."""
     lines = [f"# EVAL — adaptive planner vs fixed panel heights "
              f"({card or 'CPU: not timed'})", "",
              f"n={n}; engine time (bf16 tiles, f32 C), CUDA events; W = tile "
              "products issued (element: scalar products).", ""]
     for name, T, rows, verdict in results:
         lines += [f"## {name}  (tile={T})", "",
-                  "| setting | engine ms | work items | model ms |",
-                  "|---|---|---|---|"]
+                  "| setting | engine ms | work items | model ms | residual "
+                  "| parent's model ms | residual |",
+                  "|---|---|---|---|---|---|---|"]
         for label, (s, w, model) in rows.items():
             shown = s if isinstance(s, str) else fmt_ms(s)
+            cols = ["", "", "", ""]
+            if model is not None:
+                cols = [fmt_ms(model[0]), _pct(residual(model[0], s)),
+                        fmt_ms(model[1]), _pct(residual(model[1], s))]
             lines.append(f"| {label} | {shown} | {w} | "
-                         f"{'' if model is None else fmt_ms(model)} |")
+                         + " | ".join(cols) + " |")
         lines += ["", f"dispatch: {verdict_line(verdict)}", ""]
+    return "\n".join(lines + [residual_table(
+        [(f"{name} {label}", s, model)
+         for name, _, rows, _ in results
+         for label, (s, _, model) in rows.items() if model is not None])])
+
+
+def _pct(r: Optional[float]) -> str:
+    return "" if r is None else f"{r:+.1%}"
+
+
+def residual_table(points) -> str:
+    """Markdown: every (label, measured s, (card model s, parent model s))
+    point with both models' residuals, then each model's median |residual|
+    and largest |residual| over the measured points."""
+    lines = ["## the models' residuals", "",
+             "| point | measured ms | model ms | residual | parent's model "
+             "ms | residual |", "|---|---|---|---|---|---|"]
+    res = ([], [])
+    for label, s, (card, parent) in points:
+        r = (residual(card, s), residual(parent, s))
+        for acc, x in zip(res, r):
+            if x is not None:
+                acc.append(abs(x))
+        shown = s if isinstance(s, str) else fmt_ms(s)
+        lines.append(f"| {label} | {shown} | {fmt_ms(card)} | {_pct(r[0])} "
+                     f"| {fmt_ms(parent)} | {_pct(r[1])} |")
+    lines.append("")
+    for what, acc in zip(("the card's model", "the parent's model"), res):
+        lines.append(f"{what}: " + (
+            f"median |residual| {np.median(acc):.1%}, largest {max(acc):.1%}"
+            f" over {len(acc)} points" if acc else "no measured point"))
     return "\n".join(lines)
 
 

@@ -14,7 +14,8 @@
   groups of spawned ranks on the CPU, each rank's result left in a file;
 - :data:`ITEM_TERMS` and :func:`reference_item_terms`: the planner's three
   per-item fields, and their values in ``SpadaConfig`` (the reference's
-  fit on its own chip).
+  fit on its own chip) with the card model's terms in the reference's
+  form.
 """
 
 from __future__ import annotations
@@ -33,11 +34,14 @@ ITEM_TERMS = ("engine_item_overhead_s", "engine_acc_s_per_elem",
 
 def reference_item_terms() -> dict:
     """The per-item terms of ``SpadaConfig``'s defaults, a copy of the
-    reference's (fitted on its chip, not on the card)."""
-    from spada_tpu_torch.config import SpadaConfig
+    reference's (fitted on its chip, not on the card), and the tile side's
+    card terms in the reference's form (``config.REFERENCE_TILE_TERMS``),
+    so that a ``CardConfig`` given them plans as the reference does."""
+    from spada_tpu_torch.config import REFERENCE_TILE_TERMS, SpadaConfig
 
     base = SpadaConfig()
-    return {f: getattr(base, f) for f in ITEM_TERMS}
+    return {**{f: getattr(base, f) for f in ITEM_TERMS},
+            **REFERENCE_TILE_TERMS}
 
 
 def first_rows_ref(a, b, rows: int):

@@ -9,12 +9,14 @@ member:
 
 - ``dispatch_dataflow`` under ``h100_config(engine_dtype="bfloat16")``, the
   tile dtype the reference modelled and ran, once with the reference's
-  per-item terms and element fixed time (``SpadaConfig``'s per-item terms
-  and ``estimate_element_time``'s 30 us, fitted on its chip) and once with
-  the card's fit (``h100_config``'s own);
+  per-item terms, planner form and element fixed time (``SpadaConfig``'s
+  per-item terms, ``choose_tile_size`` and ``estimate_element_time``'s 30
+  us, fitted on its chip) and once with the card's (``h100_config``'s
+  own: the card's tile model, ``plan.card_model.card_tile_size``);
 - the tile side as the bench's tile entry runs it (``bench.py``
-  ``_tile_entry``): ``choose_tile_size``'s T under those terms, one uniform
-  row worklist, bf16 tiles, one ``tile_spgemm`` launch;
+  ``_tile_entry``): the T the tile model takes under those terms
+  (:func:`tile_model`), one uniform row worklist, bf16 tiles, one
+  ``tile_spgemm`` launch;
 - the element side as the bench's element entry runs it
   (``_element_entry``): ``spgemm_element(backend="auto")``'s one ESC plan
   and one ``esc_stream_group`` launch (one per row slab above 2^28
@@ -23,8 +25,8 @@ member:
   1e-2 of max|C|, the element side 1e-3) and timed on CUDA events.
 
 It prints the reference's table, one row per fill and set of terms: the
-dispatch, the modelled tile and element ms, the measured ones, the winner
-and OK / WRONG.  A WRONG row is a finding, not a failure.  On the CPU the
+dispatch, the modelled tile and element ms, the measured ones, each
+model's residual, the winner and OK / WRONG.  A WRONG row is a finding, not a failure.  On the CPU the
 plain versions run and are gated, and nothing is timed.
 
 ``--element-fit`` (:func:`run_element_fit`) measures the element model's
@@ -96,6 +98,17 @@ def configs(name: Optional[str]) -> dict:
             "fit": h100_config(name, engine_dtype="bfloat16")}
 
 
+def tile_model(a, b, cfg) -> tuple:
+    """(T, seconds): the tile edge and the tile model's time the main path
+    would run under ``cfg`` (``plan.card_model.planner_for``'s tile-edge
+    choice, in full; dispatch itself may leave a clearly slower tile side
+    at a bound)."""
+    from spada_tpu_torch.plan.card_model import planner_for
+
+    T, det = planner_for(cfg)[0](a, b, cfg)
+    return T, det[T]["t_est"]
+
+
 def tile_side(a, b, T: int, dev, ref, gate_rows: int) -> tuple:
     """(seconds or None, W, relerr): one bf16 ``tile_spgemm`` launch of the
     uniform T x T row worklist, gated to 1e-2."""
@@ -141,12 +154,12 @@ def run(fills: Sequence[int] = FILLS, n: int = 32768, band: int = 384,
         b = banded_fill_csr(n, band, fill, seed=fill + 1)
         ref = first_rows_ref(a, b, gate_rows)
         e = expansion_products(a, b)
-        decided = {k: dispatch_dataflow(a, b, cfg) for k, cfg in cfgs.items()}
+        decided = {k: (*dispatch_dataflow(a, b, cfg), *tile_model(a, b, cfg))
+                   for k, cfg in cfgs.items()}
         tile = {}
-        for k, (choice, det) in decided.items():
-            T = det["tile_T"]
+        for k, (choice, det, T, t_model) in decided.items():
             log(f"fill={fill} [{k}]: dispatch={choice} T={T} modeled tile "
-                f"{det['tile'][T]['t_est'] * 1e3:.3f} elem "
+                f"{t_model * 1e3:.3f} elem "
                 f"{det['element']['t_est'] * 1e3:.3f} ms "
                 f"({det['element'].get('bytes_model')})")
             if T not in tile:
@@ -160,15 +173,14 @@ def run(fills: Sequence[int] = FILLS, n: int = 32768, band: int = 384,
             f"gate {err:.1e} "
             f"({time.perf_counter() - t0:.1f} s host+device)")
         del calls, csr
-        for k, (choice, det) in decided.items():
-            T = det["tile_T"]
+        for k, (choice, det, T, t_model) in decided.items():
             t_s = tile[T][0]
             if t_s is None:
                 winner, ok = "-", "-"
             else:
                 winner = "tile" if t_s < e_s else "element"
                 ok = "OK" if winner == choice else "WRONG"
-            rows.append((fill, k, T, choice, det["tile"][T]["t_est"],
+            rows.append((fill, k, T, choice, t_model,
                          det["element"]["t_est"], t_s, e_s, winner, ok))
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -178,16 +190,21 @@ def run(fills: Sequence[int] = FILLS, n: int = 32768, band: int = 384,
 
 def table(rows) -> str:
     """The reference's markdown table, with the terms and T beside the
-    fill."""
+    fill and each side's model residual, (model - measured) / measured."""
     def ms(x):
-        return "not timed" if x is None else f"{x * 1e3:.3f}"
+        return "not timed" if x is None else f"{x * 1e3:.4f}"
+
+    def res(model, s):
+        return "" if s is None else f"{(model - s) / s:+.1%}"
 
     lines = ["| fill | terms | T | dispatch | model tile | model elem | "
-             "meas tile | meas elem | winner | verdict |",
-             "|---|---|---|---|---|---|---|---|---|---|"]
+             "meas tile | meas elem | tile residual | elem residual | "
+             "winner | verdict |",
+             "|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for fill, k, T, choice, mt, me, t_s, e_s, winner, ok in rows:
         lines.append(f"| {fill} | {k} | {T} | {choice} | {ms(mt)} | "
-                     f"{ms(me)} | {ms(t_s)} | {ms(e_s)} | {winner} | {ok} |")
+                     f"{ms(me)} | {ms(t_s)} | {ms(e_s)} | {res(mt, t_s)} | "
+                     f"{res(me, e_s)} | {winner} | {ok} |")
     return "\n".join(lines)
 
 

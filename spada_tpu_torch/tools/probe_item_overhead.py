@@ -52,8 +52,21 @@ together (``config.fit_item_terms``, each residual relative to its item's
 time), with every point's residual.  The planner does not take that fit
 (``config.h100_config`` says why).
 
+``--latency`` (:func:`run_latency`) and ``--items`` (:func:`run_items`)
+measure the terms of the card's own tile model (``plan/card_model.py``),
+which ``config.h100_config`` carries as ``_TILE_LATENCY``,
+``_TILE_LAUNCH_S``, ``_TILE_ITEM`` and ``_TILE_L2``: one block's time per
+item and one launch's time, from one C tile with runs of 1 to 64 items of
+each item shape the planner can pick (:func:`card_shapes`); then the time
+per item on a full grid and the L2 rate of re-read tiles, from the thin
+points' banded pair at every such shape.  Each prints the table
+``config.py`` records.  On the CPU both run at T = 128 alone
+(:data:`TS_CPU`), gated and untimed.
+
     python -m spada_tpu_torch.tools.probe_item_overhead
     python -m spada_tpu_torch.tools.probe_item_overhead --thin
+    python -m spada_tpu_torch.tools.probe_item_overhead --latency --items
+    python -m spada_tpu_torch.tools.probe_item_overhead --latency --items --device cpu --thin-n 2048 --band 64
     python -m spada_tpu_torch.tools.probe_item_overhead --device cpu --n 2048
     python -m spada_tpu_torch.tools.probe_item_overhead --thin --device cpu --n 2048 --thin-n 2048
 """
@@ -75,6 +88,11 @@ TS = (128, 256, 384, 512)
 #: the thin panels' tk = tn
 THIN_T = 128
 DTYPES = ("float32", "bfloat16")
+#: the run lengths of ``--latency``'s one C tile
+RUNS = (1, 2, 4, 8, 16, 32, 64)
+#: ``--latency`` and ``--items``' tile edges on the CPU, where nothing is
+#: timed
+TS_CPU = (128,)
 #: the gate on C's first rows, max|d| / max|ref|, by tile dtype
 GATE = {"float32": 1e-4, "bfloat16": 1e-2}
 
@@ -323,6 +341,202 @@ def run_thin(n: int = 65536, thin_n: int = 32768, band: int = 384,
     return out
 
 
+def card_shapes(ts: Sequence[int] = TS,
+                tms: Sequence[int] = (8, 16, 32, 64, 128)) -> list:
+    """(tm, T) of every item shape the planner can pick at tile edges
+    ``ts``: each of ``tms`` up to T, and T itself (``cli.run_spada``'s
+    tm choices at a chosen T)."""
+    return [(tm, T) for T in ts
+            for tm in sorted({*(t for t in tms if t <= T), T})]
+
+
+def _synthetic_tiles(tm: int, T: int, n: int, dt: str, dev, seed: int):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((n, tm, T), generator=g).to(dev, getattr(torch, dt))
+    b = torch.randn((n, T, T), generator=g).to(dev, getattr(torch, dt))
+    return a, b
+
+
+def run_latency(ts: Sequence[int] = TS, dtypes: Sequence[str] = DTYPES,
+                runs: Sequence[int] = RUNS, device="cuda",
+                log: Callable[[str], None] = print) -> Dict[str, dict]:
+    """The card's time per item of one block, and of one launch: for each
+    item shape of :func:`card_shapes` and tile dtype, one C tile whose run
+    is ``L`` items (item i: A tile i times B tile i, random tiles) for
+    each L of ``runs``, each one ``tile_spgemm`` launch
+    (``prepare_cached``) timed as ``ops.spgemm._time_segments`` times a
+    plan's launches (``harness.device_s``) and held to its plain version
+    (1e-5 of max|C|).  The latency is the least-squares slope of the time
+    over L, the intercept what the launch costs beyond its items.  Also
+    an empty worklist's call (one C tile, no item: the wrapper's zeroed C).
+    Returns {dtype: {"latency": {(tm, T): (slope s, intercept s, {L: s})},
+    "empty_s"}}, the times None on the CPU (checked, not timed), and logs
+    the tables ``config._TILE_LATENCY`` and ``_TILE_LAUNCH_S`` record."""
+    import torch
+
+    from spada_tpu_torch.convert import check_device
+    from spada_tpu_torch.ops.engine import (prepare_cached,
+                                            run_worklist_reference)
+
+    dev = check_device(device)
+    name = card_name(dev)
+    log(f"one C tile, runs of {list(runs)} items; card {name or 'none (cpu)'}")
+    out = {}
+    for dt in dtypes:
+        lat = {}
+        for tm, T in card_shapes(ts):
+            a, b = _synthetic_tiles(tm, T, max(runs), dt, dev, tm * 7 + T)
+            times = {}
+            for L in runs:
+                ids = np.arange(L, dtype=np.int32)
+                call = prepare_cached(a, b, ids, ids, np.zeros(L, np.int32),
+                                      1)
+                plain = run_worklist_reference(
+                    a, b, *(torch.from_numpy(x).to(dev) for x in
+                            (ids, ids, np.zeros(L, np.int32))), 1)
+                err = float((call() - plain).abs().max()
+                            / plain.abs().max().clamp_min(1e-30))
+                if not err <= 1e-5:
+                    raise RuntimeError(f"{dt} {tm}x{T}, run of {L}: kernel "
+                                       f"vs plain {err:.2e}")
+                times[L] = device_s(call, dev)
+            if None in times.values():
+                lat[(tm, T)] = (None, None, times)
+                continue
+            slope, icpt = np.polyfit(list(times), list(times.values()), 1)
+            lat[(tm, T)] = (float(slope), float(icpt), times)
+            log(f"  {dt:8s} {tm:3d} x {T:3d}: {slope * 1e9:8.1f} ns per "
+                f"item, intercept {icpt * 1e6:6.2f} us  (" + ", ".join(
+                    f"{L}: {t * 1e6:.1f}" for L, t in times.items()) + " us)")
+            del a, b
+        a, b = _synthetic_tiles(128, 128, 1, dt, dev, 0)
+        empty = prepare_cached(a, b, np.zeros(0, np.int32),
+                               np.zeros(0, np.int32), np.zeros(0, np.int32),
+                               1)
+        if float(empty().abs().max()) != 0.0:
+            raise RuntimeError("an empty worklist's C tile is not zero")
+        out[dt] = {"latency": lat, "empty_s": device_s(empty, dev)}
+    if dev.type == "cuda":
+        for dt, r in out.items():
+            log(f"\n{dt} tiles on {name}: for config._TILE_LATENCY:")
+            log("    " + repr({k: float(f"{v[0]:.4g}")
+                               for k, v in r["latency"].items()}))
+            log(f"empty worklist's call {r['empty_s'] * 1e6:.2f} us")
+        log(f"launch (median intercept, both dtypes) for "
+            f"config._TILE_LAUNCH_S: {launch_s(out):.4g}")
+    return out
+
+
+def launch_s(latency: Dict[str, dict]) -> float:
+    """The median over shapes and dtypes of :func:`run_latency`'s
+    intercepts: one launch's time beyond its items."""
+    return float(np.median([v[1] for r in latency.values()
+                            for v in r["latency"].values()]))
+
+
+def item_point(wl, tm: int, T: int, itemsize: int) -> dict:
+    """A worklist's counts as the card's model takes them: W, C tiles, the
+    longest run, the A tiles it uses and the B tiles it touches (each read
+    once from HBM, with C, as ``hbm`` bytes) and the bytes read again
+    (``reread``)."""
+    a_b, b_b = tm * T * itemsize, T * T * itemsize
+    W = int(wl.n_items)
+    ua, ub = len(np.unique(wl.a_tid)), len(np.unique(wl.b_tid))
+    runs = np.bincount(np.asarray(wl.o_tid), minlength=wl.n_c_tiles)
+    return {"W": W, "n_c": int(wl.n_c_tiles), "longest": int(runs.max()),
+            "hbm": ua * a_b + ub * b_b + wl.n_c_tiles * tm * T * itemsize,
+            "reread": (W - ua) * a_b + (W - ub) * b_b}
+
+
+def run_items(n: int = 32768, band: int = 384, ts: Sequence[int] = TS,
+              dtypes: Sequence[str] = DTYPES, device="cuda",
+              gate_rows: int = 2048,
+              log: Callable[[str], None] = print) -> Dict[str, dict]:
+    """The card's time per item on a full grid, and the L2 rate of re-read
+    tiles: ``tools/sweep_thin``'s banded pair (``banded_csr(n, n, band)``)
+    in uniform panels of every item shape of :func:`card_shapes`, one
+    ``tile_spgemm`` launch each, gated against scipy on C's first rows and
+    timed; every grid has more blocks than the card has SMs.  Per point:
+    the item time beside C's write, ``(elapsed - C tiles * tm * T * 4 /
+    hbm rate) / W`` (the model adds each C tile's f32 write back), and the
+    rate the re-read tiles came at beyond the distinct tiles' HBM time,
+    ``reread / (elapsed - hbm / hbm rate)``.  Returns
+    {dtype: {(tm, T): point}} (:func:`item_point` with ``elapsed_s``,
+    ``item_s`` and ``l2_rate``, the times None on the CPU) and logs the
+    tables ``config._TILE_ITEM`` and ``_TILE_L2`` record: the highest
+    rate, so that the byte term is at most every point's time."""
+    import torch
+
+    from spada_tpu_torch.config import datasheet_peaks
+    from spada_tpu_torch.convert import bsr_to_torch, check_device
+    from spada_tpu_torch.ops.engine import prepare_cached
+    from spada_tpu_torch.plan.card_model import block_pieces
+    from spada_tpu_torch.ops.worklist import build_worklist
+    from spada_tpu_torch.sparse.bsr import BsrMatrix
+    from spada_tpu_torch.tools import sweep_thin
+
+    dev = check_device(device)
+    name = card_name(dev)
+    hbm = datasheet_peaks(name)["hbm_bytes_per_s"]
+    a, b = sweep_thin.banded_pair(n, band)
+    ref = first_rows_ref(a, b, gate_rows)
+    log(f"banded {n}^2, band {band}; card {name or 'none (cpu)'}")
+    out: Dict[str, dict] = {dt: {} for dt in dtypes}
+    by_t: dict = {}
+    for tm, T in card_shapes(ts):
+        by_t.setdefault(T, []).append(tm)
+    for T, tms in by_t.items():
+        b_bsr = BsrMatrix.from_csr(b, T, T, dtype=np.float32)
+        for tm in tms:
+            a_bsr = BsrMatrix.from_csr(a, tm, T, dtype=np.float32)
+            wl = build_worklist(a_bsr, b_bsr, order="row")
+            for dt in dtypes:
+                tdt = getattr(torch, dt)
+                call = prepare_cached(
+                    bsr_to_torch(a_bsr, dev, tdt),
+                    bsr_to_torch(b_bsr, dev, tdt), wl.a_tid, wl.b_tid,
+                    wl.o_tid, wl.n_c_tiles)
+                err = gate(tile_rows(call(), wl.c_tile_row, wl.c_tile_col,
+                                     tm, T, (n, n), gate_rows), ref,
+                           GATE[dt], f"{dt} {tm}x{T}")
+                p = item_point(wl, tm, T, tdt.itemsize)
+                el = device_s(call, dev)
+                c_s = wl.n_c_tiles * tm * T * 4 / hbm
+                p.update(elapsed_s=el, relerr=err,
+                         blocks=wl.n_c_tiles * block_pieces(tm, T, T,
+                                                            tdt.itemsize),
+                         item_s=None if el is None else (el - c_s) / p["W"],
+                         l2_rate=None)
+                if el is not None and el > p["hbm"] / hbm:
+                    p["l2_rate"] = p["reread"] / (el - p["hbm"] / hbm)
+                out[dt][(tm, T)] = p
+                log(f"  {dt:8s} {tm:3d} x {T:3d}: W={p['W']:6d} "
+                    f"nC={p['n_c']:6d} blocks={p['blocks']:6d} longest "
+                    f"{p['longest']:3d} elapsed {fmt_ms(el)} ms = "
+                    + ("not timed" if el is None else
+                       f"{el / p['W'] * 1e9:.2f} ns/item, "
+                       f"{p['item_s'] * 1e9:.2f} beside C's write")
+                    + "; re-read "
+                    + ("-" if p["l2_rate"] is None else
+                       f"{p['l2_rate'] / 1e12:.2f} TB/s")
+                    + f"  gate {err:.1e}")
+                del call
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        rates = [p["l2_rate"] for r in out.values() for p in r.values()
+                 if p["l2_rate"] is not None]
+        l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+        for dt, r in out.items():
+            log(f"\n{dt} tiles on {name}: for config._TILE_ITEM:")
+            log("    " + repr({k: float(f"{p['item_s']:.4g}")
+                               for k, p in r.items()}))
+        log(f"for config._TILE_L2: ({max(rates):.4g}, {l2})")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda")
@@ -334,9 +548,27 @@ def main(argv=None):
                    help="also the thin row panels' points, and the fit on "
                         "both")
     p.add_argument("--thin-n", type=int, default=32768,
-                   help="matrix size of the thin points")
+                   help="matrix size of the thin points and of --items")
+    p.add_argument("--latency", action="store_true",
+                   help="the card model's per-item latency of one block and "
+                        "its launch time, per item shape")
+    p.add_argument("--items", action="store_true",
+                   help="the card model's time per item on a full grid and "
+                        "its L2 rate, per item shape, on the thin points' "
+                        "pair")
     args = p.parse_args(argv)
-    if args.thin:
+    dtypes = args.dtypes.split(",")
+    if args.latency or args.items:
+        from spada_tpu_torch.convert import check_device
+
+        # the CPU runs the plain versions, untimed: T = 128 alone
+        ts = TS_CPU if check_device(args.device).type == "cpu" else TS
+        if args.latency:
+            run_latency(ts, dtypes=dtypes, device=args.device)
+        if args.items:
+            run_items(args.thin_n, args.band, ts, dtypes=dtypes,
+                      device=args.device)
+    elif args.thin:
         run_thin(args.n, args.thin_n, args.band,
                  dtypes=args.dtypes.split(","), device=args.device)
     else:

@@ -22,7 +22,8 @@ from spada_tpu.plan.planner import choose_tile_size, plan_spgemm
 from spada_tpu.plan.planner import execute_plan as jax_execute_plan
 from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch import cli
-from spada_tpu_torch.config import (REFERENCE_ELEMENT_FIXED_S, CardConfig,
+from spada_tpu_torch.config import (REFERENCE_ELEMENT_FIXED_S,
+                                    REFERENCE_TILE_TERMS, CardConfig,
                                     SpadaConfig as PortConfig, card_config,
                                     datasheet_peaks, h100_config)
 from spada_tpu_torch.ops.spgemm import (_peak_flops, dispatch_dataflow,
@@ -30,6 +31,7 @@ from spada_tpu_torch.ops.spgemm import (_peak_flops, dispatch_dataflow,
                                         estimate_element_time,
                                         measure_device_perf, spgemm,
                                         spgemm_csr)
+from test_torch_card_model import assert_card_tile_side
 from spada_tpu_torch.plan.execute import execute_plan, make_profiled_measure
 from spada_tpu_torch.plan.planner import plan_spgemm as port_plan_spgemm
 from test_fuzz import _random_case
@@ -69,14 +71,14 @@ def _close(got, ref):
 @pytest.mark.parametrize("name", ["cari", "locpl", "nn"])
 def test_spada_slice_matches_reference_and_scipy(cari_workload, name):
     a, b, route = _pairs(cari_workload)[name]
-    # the card's profile; the reference prices the element side with its
-    # own fixed time, so it takes the profile's fields of its schema
+    # the card's profile; the reference prices both sides with its own
+    # models, so it takes the profile's fields of its schema.  Under the
+    # card's profile the tile side is the card's model
     cfg, ref_cfg = h100_config(), _reference_kind(h100_config())
     choice, det = dispatch_dataflow(P(a), P(b), cfg)
     ref_choice, ref_det = jax_spgemm_mod.dispatch_dataflow(a, b, ref_cfg)
     assert choice == ref_choice == route
-    assert det["tile_T"] == ref_det["tile_T"]
-    assert det["tile"] == ref_det["tile"]
+    assert_card_tile_side(P(a), P(b), cfg, det)
     assert dispatch_dataflow(P(a), P(b), ref_cfg)[1] == ref_det
 
     res = spgemm(P(a), P(b), cfg, dataflow="spada", device="cpu")
@@ -211,6 +213,70 @@ def test_cli_plan_prints_the_reference_lines(capsys):
     ref = capsys.readouterr().out.splitlines()
     assert cli.main(argv + ["--device", "cpu"]) == 0
     assert capsys.readouterr().out.splitlines() == ref
+
+
+def _printed_panels(lines):
+    import re
+
+    return [tuple(int(x) for x in re.match(
+        r"\s+rows \[(\d+), (\d+)\)\s+tm=(\d+)", ln).groups())
+        for ln in lines if ln.strip().startswith("rows [")]
+
+
+def test_cli_plan_card_prints_what_run_executes(capsys):
+    """``plan --card`` on the CPU plans under the card's profile (the
+    datasheet's H100) as ``run`` does: the same tile edge and plan lines,
+    and its panels are the plan ``run_spada`` executes."""
+    argv = ["spada", "SS", "cari", "config/default.json", "--device", "cpu"]
+    assert cli.main(["plan", *argv, "--card"]) == 0
+    plan_out = capsys.readouterr().out.splitlines()
+    assert cli.main(["run", *argv, "--no-result"]) == 0
+    run_out = capsys.readouterr().out.splitlines()
+
+    def decisions(lines):
+        return [ln for ln in lines
+                if ln.startswith(("tile size:", "plan[", "densify:"))]
+
+    assert decisions(plan_out) == decisions(run_out) != []
+    config = card_config(PortConfig.from_json("config/default.json"))
+    w = cli.load_workload(cli.build_port_parser().parse_args(
+        ["run", *argv]), config)
+    run = cli.run_spada(w.a, w.b, config, "cpu", densify=True,
+                        log=lambda s: None)
+    executed = [(p.row_start, p.row_end, p.tm) for p in run.plan.panels]
+    assert _printed_panels(plan_out) == executed
+    assert sorted({seg.tm for seg in run.result.segments}) == \
+        sorted({tm for _, _, tm in executed})
+
+
+def test_dispatch_caps_its_exact_pattern_product():
+    """Above ``ELEMENT_EXACT_CAP`` products an ambiguous element estimate
+    reads its bytes off a row sample: within 0.5% of the exact pattern
+    product's, in a small part of its time (an ambiguous pair of 1.8x the
+    cap)."""
+    import time
+
+    from spada_tpu_torch.ops.element import expansion_products
+    from spada_tpu_torch.ops.spgemm import ELEMENT_EXACT_CAP
+    from spada_tpu_torch.tools.probe_dispatch_crossover import \
+        banded_fill_csr
+
+    a = banded_fill_csr(16384, 384, 64, seed=1)
+    b = banded_fill_csr(16384, 384, 64, seed=2)
+    e = expansion_products(a, b)
+    assert e > ELEMENT_EXACT_CAP
+    cfg = h100_config()
+    t_lo = 3 * e * 4 / cfg.hbm_bytes_per_s + cfg.element_fixed_s
+    t_hi = 5 * e * 4 / cfg.hbm_bytes_per_s + cfg.element_fixed_s
+    t0 = time.perf_counter()
+    got = estimate_element_time(a, b, cfg, tile_t=(t_lo + t_hi) / 2)
+    sampled_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = element_plan_bytes(a, b, cap=cfg.element_cap)
+    exact_s = time.perf_counter() - t0
+    assert got["bytes_model"] == "sampled" and got["e_products"] == e
+    assert got["bytes"] == pytest.approx(exact["bytes"], rel=5e-3)
+    assert sampled_s < exact_s / 4
 
 
 def test_cli_run_profiled_on_cpu(cari_workload, capsys):
@@ -375,7 +441,7 @@ def test_h100_profile():
                        "engine_item_fixed_s"):
             assert base[key] == value, key
     assert set(base) - set(dataclasses.asdict(SpadaConfig())) == {
-        "element_fixed_s"}
+        "element_fixed_s", *REFERENCE_TILE_TERMS}
     with pytest.raises(ValueError, match="engine_dtype"):
         h100_config(engine_dtype="float16")
 
@@ -393,7 +459,7 @@ def test_card_config_keeps_the_reference_schema(tmp_path):
         if f.name in ("engine_item_overhead_s", "engine_acc_s_per_elem",
                       "engine_item_fixed_s", "element_fixed_s",
                       "hbm_bytes_per_s", "peak_flops_f32", "peak_flops_bf16",
-                      "ici_bytes_per_s"):
+                      "ici_bytes_per_s", *REFERENCE_TILE_TERMS):
             assert getattr(card, f.name) == getattr(want, f.name), f.name
         else:
             assert getattr(card, f.name) == getattr(base, f.name), f.name

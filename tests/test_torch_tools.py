@@ -28,13 +28,16 @@ from spada_tpu.plan.planner import choose_tile_size as ref_choose_tile_size
 from spada_tpu.sparse.bsr import BsrValueMap as RefValueMap
 from spada_tpu.sparse.csr import CsrMatrix as RefCsr
 from spada_tpu_torch.config import (_ELEMENT_FIT, _THIN_FIT,
-                                    REFERENCE_ELEMENT_FIXED_S, SpadaConfig,
+                                    REFERENCE_ELEMENT_FIXED_S,
+                                    REFERENCE_TILE_TERMS, SpadaConfig,
                                     datasheet_peaks, element_fit,
                                     fit_element_fixed, fit_item_terms,
                                     h100_config)
 from spada_tpu_torch.convert import from_reference as P
 from spada_tpu_torch.ops.element import spgemm_element
-from spada_tpu_torch.ops.spgemm import dispatch_dataflow
+from spada_tpu_torch.ops.spgemm import (dispatch_dataflow,
+                                        estimate_element_time)
+from test_torch_card_model import assert_card_tile_side
 from spada_tpu_torch.plan.planner import choose_tile_size
 from spada_tpu_torch.sparse.bsr import BsrMatrix
 from spada_tpu_torch.tools import (bench_value_refresh, eval_adaptive,
@@ -290,7 +293,8 @@ def test_card_terms_send_the_graded_fem_to_the_element_side(edges):
     assert choice == "element"
     assert det["tile_T"] == 128
     ref_choice, _ = dispatch_dataflow(a, a, dataclasses.replace(
-        cfg, element_fixed_s=REFERENCE_ELEMENT_FIXED_S))
+        cfg, element_fixed_s=REFERENCE_ELEMENT_FIXED_S,
+        **REFERENCE_TILE_TERMS))
     assert ref_choice == "tile"
 
 
@@ -391,12 +395,14 @@ def test_dispatch_under_the_fit_equals_reference(fill, dtype):
     assert det == r_det
     assert choose_tile_size(a, b, cfg) == ref_choose_tile_size(ra, rb,
                                                                 ref_cfg)
-    # under the card's element term the tile side is the same
+    # under the card's profile the tile side is the card's model, and the
+    # element side charges the card's fixed time
     card_choice, card_det = dispatch_dataflow(a, b, cfg)
-    assert card_det["tile"] == r_det["tile"]
-    assert card_det["tile_T"] == r_det["tile_T"]
-    assert card_det["element"]["t_est"] < r_det["element"]["t_est"]
-    assert card_choice == r_choice or card_choice == "element"
+    assert_card_tile_side(a, b, cfg, card_det)
+    t_tile = min(v["t_est"] for v in card_det["tile"].values())
+    assert card_det["element"] == estimate_element_time(a, b, cfg, t_tile)
+    assert card_choice == ("element" if card_det["element"]["t_est"]
+                           < t_tile else "tile")
 
 
 def _nn_pair(scale=32):
@@ -512,6 +518,8 @@ def test_tools_need_a_card_unless_told_cpu(tool):
      "overhead not timed"),
     (["probe_item_overhead", "--thin", "--n", "1024", "--thin-n", "1024",
       "--band", "64"], "| bfloat16 | 128 | mma | tile_spgemm |"),
+    (["probe_item_overhead", "--latency", "--items", "--thin-n", "1024",
+      "--band", "64"], "bfloat16 128 x 128: W="),
     (["probe_dispatch_crossover", "--n", "1024", "--fills", "48,12"],
      "| verdict |"),
     (["probe_dispatch_crossover", "--element-fit", "--fills", "48,12"],
