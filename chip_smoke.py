@@ -136,10 +136,16 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    ``eval_adaptive`` at n = 8192 (``--quick``) on the row sets banded,
    loc-powerlaw, nn-bert-ffn1-blk32 and the graded FEM, which cover every
    row type, the element side timed where dispatch picks it (the FEM must
-   be dispatched there); (d) ``bench_value_refresh`` with 2 batches; (e)
-   phase 4's two plans side by side: T, tm histogram, W, blocks and
-   ``measure_device_perf``; (f) the terms ``h100_config`` carries (the
-   per-T overheads, acc and fixed per tile dtype, ``element_fixed_s``),
+   be dispatched there), each workload's densify pick and host seconds
+   under the card's scorer and the parent's, and the ``spada+densify``
+   rows of both picks (blk32 must time one); (d) ``bench_value_refresh``
+   with 2 batches; (e) phase 4's two plans side by side: T, tm histogram,
+   W, blocks and ``measure_device_perf``, and each densify scorer's pick
+   and host seconds on nn at its T; (f) the resident blocks the card
+   reports for every item shape (``tile_resident_blocks``), beside the
+   record ``config._TILE_RESIDENT`` and ``_TILE_SMS``, the terms ``h100_config``
+   carries (the per-T overheads, acc and fixed per tile dtype,
+   ``element_fixed_s``),
    the thin points of phase 4c's ``tile_spgemm`` cases beside the recorded
    ones (``config._THIN_FIT``), and the graded FEM at 129 edges through
    ``eval_adaptive`` with both sides timed and the dispatch's OK / WRONG
@@ -148,8 +154,9 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    measured ms on cari (the CLI), phase 4's two nn plans, every tile row of
    (c) and phase 4c's ``tile_spgemm`` cases, with each model's median and
    largest |residual|; (h) cari through the CLI's ``run`` and ``plan
-   --card``: both must print the same tile edge and plan lines, and ``plan
-   --card``'s panels must be the plan ``cli.plan_spada`` makes.
+   --card``: both must print the same tile edge, densify and plan lines,
+   and ``plan --card``'s panels must be the plan ``cli.plan_spada``
+   makes.
 11. the last two reference tools (``spada_tpu_torch.tools``): (a)
    ``probe_op`` at its size (banded 16384^2, band 384, T = 384, bf16 then
    f32 tiles): the op dataflow's k-major worklist on the plain scatter-add
@@ -1912,8 +1919,8 @@ def _card_rank(rank: int, world: int, workdir: str) -> None:
 # --------------------------------------------------------------------------
 
 #: the eval's row sets that phase 10 (c) runs at n = 8192, with the graded
-#: FEM: between them every row type (tm32, tm<T>, panel, densify, spada, the
-#: dispatched element side)
+#: FEM: between them every row type (tm32, tm<T>, panel, spada, spada+densify
+#: under both scorers' picks, the dispatched element side)
 EVAL_SUBSET = ("banded", "loc-powerlaw", "nn-bert-ffn1-blk32")
 
 
@@ -1953,7 +1960,7 @@ def run_calibration(dev, runs: dict, nn_ref, extra: dict,
                                        eval_adaptive,
                                        probe_dispatch_crossover,
                                        probe_item_overhead)
-    from spada_tpu_torch.tools.harness import card_name
+    from spada_tpu_torch.tools.harness import card_name, fmt_ms
 
     def say(s):
         for line in s.splitlines() or [""]:
@@ -1969,6 +1976,20 @@ def run_calibration(dev, runs: dict, nn_ref, extra: dict,
                 results.append((name, *eval_adaptive.eval_workload(
                     name, a, b, dev, GATE_ROWS, say, element="dispatched")))
         say(eval_adaptive.report(results, 8192, card_name(dev)))
+        for name, _, rows, verdict in results:
+            (card, card_s), (parent, parent_s) = (
+                verdict["densify"][k] for k in ("card", "parent"))
+            say(f"{name}: densify's pick under the card's scorer {card} "
+                f"({card_s:.3f} s host), under the parent's {parent} "
+                f"({parent_s:.3f} s host); spada+densify rows: " + (", ".join(
+                    f"{label} {fmt_ms(v[0])} ms"
+                    for label, v in rows.items()
+                    if label.startswith("spada+densify")) or "none"))
+        blk = next(r for r in results if r[0] == "nn-bert-ffn1-blk32")
+        require(any(label.startswith("spada+densify")
+                    and isinstance(v[0], float) for label, v in
+                    blk[2].items()), f"(c) nn-bert-ffn1-blk32: no "
+                f"spada+densify row timed ({list(blk[2])})")
         fem = results[-1]
         require(fem[0].startswith("fem-graded-") and fem[3]["choice"]
                 == "element", f"(c) {fem[0]}: dispatched to "
@@ -2121,18 +2142,33 @@ def sweep_points(thin_sweep) -> list:
 
 
 def card_terms(dev, thin_sweep, say) -> None:
-    """Phase 10 (f): the planner's terms ``h100_config`` carries (the per-T
-    overheads, acc and fixed per tile dtype, the element path's fixed
-    term), the thin points of phase 4c's tile_spgemm cases beside the
-    recorded ones, and the graded FEM at 129 edges (the full eval's size)
+    """Phase 10 (f): the resident blocks the card reports for every item
+    shape, beside ``config._TILE_RESIDENT`` and ``_TILE_SMS`` (a record no
+    config carries); the planner's terms ``h100_config`` carries (the
+    per-T overheads, acc and fixed per tile dtype, the element path's
+    fixed term), the thin points of phase 4c's tile_spgemm cases beside
+    the recorded ones, and the graded FEM at 129 edges (the full eval's size)
     through ``eval_adaptive`` with both sides timed and its dispatch
     verdict."""
-    from spada_tpu_torch.config import _THIN_FIT, h100_config
+    from spada_tpu_torch.config import (_THIN_FIT, _TILE_RESIDENT,
+                                        _TILE_SMS, h100_config)
     from spada_tpu_torch.io.workloads import fem_q1_graded_csr
     from spada_tpu_torch.tools import eval_adaptive, probe_item_overhead
     from spada_tpu_torch.tools.harness import card_name
 
     name = card_name(dev)
+    # the resident blocks the card reports, beside the record (which no
+    # config carries: it is printed, not required)
+    now = probe_item_overhead.run_resident(device=dev, log=say)
+    differ = {dt: {k: (v, _TILE_RESIDENT[dt].get(k))
+                   for k, v in now[dt].items()
+                   if _TILE_RESIDENT[dt].get(k) != v}
+              for dt in ("float32", "bfloat16")}
+    say(f"resident blocks on {now['sms']} SMs "
+        + ("as config._TILE_RESIDENT / _TILE_SMS record them"
+           if now["sms"] == _TILE_SMS and not any(differ.values()) else
+           f"differ from the record ({_TILE_SMS} SMs; (card's, recorded): "
+           f"{differ})"))
     rows, (a, b) = thin_sweep
     now = probe_item_overhead.thin_points(rows, a, b, name)
     for dt in ("float32", "bfloat16"):
@@ -2157,7 +2193,8 @@ def card_terms(dev, thin_sweep, say) -> None:
 
 
 def nn_plans_side_by_side(runs: dict, nn_ref, extra: dict) -> None:
-    """Phase 10 (e): phase 4's two plans of the nn pair."""
+    """Phase 10 (e): phase 4's two plans of the nn pair, and each densify
+    scorer's pick and host seconds on it."""
     rows = nn_ref.shape[0]
     for label, run in runs.items():
         p = extra["nn_plans"][label]
@@ -2168,6 +2205,20 @@ def nn_plans_side_by_side(runs: dict, nn_ref, extra: dict) -> None:
     fit, v5e = (extra["nn_plans"][k]["perf_ms"] for k in NN_PLANS)
     log(f"    the fitted plan takes {fit / v5e:.3f}x the v5e-terms plan's "
         f"time, on {smi_name_power()}")
+    # each densify scorer on the pair at the fit's T: the layout and the
+    # host seconds (the card's scorer is what the uniform path and ``run``
+    # take under h100_config)
+    from spada_tpu_torch.plan.card_densify import densify_for
+    from spada_tpu_torch.tools.eval_adaptive import parent_config
+
+    run = runs[NN_PLANS[0]]
+    cfg, T = run.config, run.config.tile_k
+    for who, c in (("card", cfg), ("reference", parent_config(cfg))):
+        t0 = time.perf_counter()
+        pick = densify_for(c)(run.a, run.b, T, c)
+        log(f"    densify at T={T} under the {who}'s scorer: "
+            f"{'identity' if pick.is_identity else pick.candidate} in "
+            f"{time.perf_counter() - t0:.3f} s host")
 
 
 # --------------------------------------------------------------------------

@@ -47,6 +47,8 @@ _SIGNATURES = {
     # block (int* out: the block the launch ran on), stream
     "tile_spgemm_f32": [_P] * 6 + [_I] * 4 + [_P, _P],
     "tile_spgemm_bf16": [_P] * 6 + [_I] * 4 + [_P, _P],
+    # bf16, tm, tk, tn, block (int* out), blocks per SM (int* out)
+    "tile_spgemm_occupancy": [_I] * 4 + [_P, _P],
     # a, b, out, n, stream
     "esc_stream_mul": [_P, _P, _P, ctypes.c_longlong, _P],
     # a, b, out, L, n_pad, slices, group, stream

@@ -75,10 +75,13 @@ def plan_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
     """The decisions of :func:`run_spada`, without the multiply: dispatch ->
     tile edge -> (densify) -> panel plan (``result`` None).  The tile edge
     and the plan come from :func:`~spada_tpu_torch.plan.card_model.
-    planner_for`'s pair: the card's model under a ``CardConfig``, the
-    reference's ``choose_tile_size`` and ``plan_spgemm`` under a
-    ``SpadaConfig``.  ``config`` is copied, not changed; ``device`` is
-    where ``scheme='profiled'`` times the tile engine."""
+    planner_for`'s pair and the layout from :func:`~spada_tpu_torch.plan.
+    card_densify.densify_workload`: the card's model under a
+    ``CardConfig``, the reference's ``choose_tile_size``, ``plan_spgemm``
+    and ``choose_densify`` under a ``SpadaConfig``.  ``config`` is copied,
+    not changed; ``device`` is where ``scheme='profiled'`` times the tile
+    engine."""
+    from spada_tpu_torch.plan.card_densify import densify_workload
     from spada_tpu_torch.plan.card_model import planner_for
 
     config = dataclasses.replace(config)
@@ -105,8 +108,8 @@ def plan_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
         t_best, t_det = tile_size(a, b, config)
     row_remap = None
     if densify:
-        w2, dplan = GemmWorkload("run", a, b).preprocess_densified(
-            config, tm=t_best, tk=t_best, tn=t_best)
+        w2, dplan = densify_workload(GemmWorkload("run", a, b), config,
+                                     t_best)
         if dplan.is_identity:
             log("densify: identity (structure already aligned)")
         else:

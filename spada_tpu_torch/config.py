@@ -468,6 +468,31 @@ _TILE_LATENCY: dict = {
 }
 _TILE_LAUNCH_S = 5.805e-06
 _TILE_L2 = (5.502e+12, 52428800)
+# _TILE_RESIDENT: by tile dtype, {(tm, T): blocks of tile_spgemm's block for
+# the shape that one SM holds at once} (cudaOccupancyMaxActiveBlocksPer
+# Multiprocessor of the kernel as it launches); _TILE_SMS: the card's SMs.
+# Measured by spada_tpu_torch/tools/probe_item_overhead.py's run_resident
+# (--latency) on an NVIDIA H100 80GB HBM3 at 700.00 W, 2026-10-18.  A record,
+# as _THIN_FIT is: the model's term that priced the SMs' shared first wave
+# from them failed its rule on the card (blk32 planned tm 64 and ran 1.17x
+# its tm-32 plan; PERF.md, Findings), so no config carries them.
+_TILE_RESIDENT: dict = {
+    "float32": {(8, 128): 4, (16, 128): 4, (32, 128): 3, (64, 128): 2,
+                (128, 128): 1, (8, 256): 4, (16, 256): 4, (32, 256): 3,
+                (64, 256): 2, (128, 256): 1, (256, 256): 1, (8, 384): 4,
+                (16, 384): 4, (32, 384): 3, (64, 384): 2, (128, 384): 1,
+                (256, 384): 1, (384, 384): 1, (8, 512): 4, (16, 512): 4,
+                (32, 512): 3, (64, 512): 2, (128, 512): 1, (256, 512): 1,
+                (384, 512): 1, (512, 512): 1},
+    "bfloat16": {(8, 128): 4, (16, 128): 3, (32, 128): 3, (64, 128): 2,
+                 (128, 128): 1, (8, 256): 4, (16, 256): 3, (32, 256): 3,
+                 (64, 256): 2, (128, 256): 1, (256, 256): 1, (8, 384): 4,
+                 (16, 384): 3, (32, 384): 3, (64, 384): 2, (128, 384): 1,
+                 (256, 384): 1, (384, 384): 1, (8, 512): 4, (16, 512): 3,
+                 (32, 512): 3, (64, 512): 2, (128, 512): 1, (256, 512): 1,
+                 (384, 512): 1, (512, 512): 1},
+}
+_TILE_SMS = 132
 
 
 def tile_terms(engine_dtype: str = "float32") -> dict:

@@ -48,7 +48,8 @@
 // Launch: tile_spgemm_f32 / tile_spgemm_bf16 (plain C interface for ctypes)
 // enqueue one kernel on the given stream, write the block it runs on to
 // *block (tile_pipe.cuh's kBlock*: 0 mma, 1 thin, 2 wide, 3 narrow) and
-// return cudaGetLastError().
+// return cudaGetLastError().  tile_spgemm_occupancy launches nothing: it
+// reports the block a shape runs on and how many of it one SM holds at once.
 
 #include "tile_mma.cuh"
 #include "tile_mma_thin.cuh"
@@ -266,6 +267,59 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
   return (int)cudaGetLastError();
 }
 
+// The blocks of `kernel` (threads, dynamic shared memory smem) that stay
+// resident on one SM at once.
+template <class Kernel>
+int resident(Kernel* kernel, int threads, size_t smem, int* per_sm) {
+  const int err = spada::allow_smem(kernel, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                           threads, smem);
+}
+
+// The block launch() runs (tm, tk, tn) on, and how many of it stay resident
+// on one SM: the card's tile model (plan/card_model.py) prices a grid of
+// more blocks than the SMs hold at once wave by wave.  Launches nothing.
+template <typename T>
+int occupancy(int tm, int tk, int tn, int* block, int* per_sm) {
+  if (tm <= 0 || tk <= 0 || tn <= 0) return (int)cudaErrorInvalidValue;
+  if (spada::mma::takes<T>(tm, tk, tn)) {
+    *block = kBlockMma;
+    return resident(tile_spgemm_mma<T>, spada::mma::kThreads,
+                    kStages * spada::mma::Stage<T>::kBytes, per_sm);
+  }
+  if (spada::thin::takes<T>(tm, tk, tn)) {
+    *block = kBlockThin;
+    return spada::thin::with_rows(tm, [&](auto rows) {
+      constexpr int BM = decltype(rows)::value;
+      using S = spada::thin::Shape<T, BM>;
+      return resident(tile_spgemm_thin<T, BM>, S::kThreads,
+                      spada::thin::kStages<T> * S::kBytes, per_sm);
+    });
+  }
+  if (tm % kWide == 0 && tn % kWide == 0 && tk % kWideBK == 0) {
+    *block = kBlockWide;
+    return resident(tile_spgemm_wide<T>, 256, 0, per_sm);
+  }
+  if (tk % kNarrowBK != 0 || tn % kNarrowBN != 0)
+    return (int)cudaErrorInvalidValue;
+  const int bm = tm < 64 ? tm : 64;
+  if (tm % bm != 0) return (int)cudaErrorInvalidValue;
+  *block = kBlockNarrow;
+  switch (bm) {
+    case 8:
+      return resident(tile_spgemm_narrow<T, 8, 1>, 8 * 16, 0, per_sm);
+    case 16:
+      return resident(tile_spgemm_narrow<T, 16, 1>, 16 * 16, 0, per_sm);
+    case 32:
+      return resident(tile_spgemm_narrow<T, 32, 2>, 16 * 16, 0, per_sm);
+    case 64:
+      return resident(tile_spgemm_narrow<T, 64, 4>, 16 * 16, 0, per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int tile_spgemm_f32(const void* a_tiles, const void* b_tiles,
@@ -284,6 +338,13 @@ extern "C" int tile_spgemm_bf16(const void* a_tiles, const void* b_tiles,
                                 void* stream) {
   return launch<__nv_bfloat16>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr,
                                c_tiles, n_c, tm, tk, tn, block, stream);
+}
+
+// occupancy() of (tm, tk, tn) f32 (bf16 0) or bf16 (bf16 1) tiles.
+extern "C" int tile_spgemm_occupancy(int bf16, int tm, int tk, int tn,
+                                     int* block, int* per_sm) {
+  return bf16 ? occupancy<__nv_bfloat16>(tm, tk, tn, block, per_sm)
+              : occupancy<float>(tm, tk, tn, block, per_sm);
 }
 
 // The name of a CUDA error code, for the Python wrappers' exceptions.

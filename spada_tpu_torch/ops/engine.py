@@ -482,6 +482,32 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     return c
 
 
+def tile_resident_blocks(tm: int, tk: int, tn: int, dtype,
+                         device=None) -> tuple:
+    """(block, blocks per SM): the block :func:`tile_spgemm` runs tm x tk x
+    tn tiles of ``dtype`` on (:func:`tile_block`'s name) and how many of
+    it one SM of the CUDA ``device`` holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from
+    ``csrc/tile_spgemm.cu``'s ``tile_spgemm_occupancy``).  Launches
+    nothing; needs a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("tile_resident_blocks: no CUDA device")
+    bf16 = "bfloat16" in str(dtype)
+    lib = _build.load()
+    block, per_sm = ctypes.c_int(-1), ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None
+                           else torch.cuda.current_device()):
+        _build.check(lib.tile_spgemm_occupancy(
+            int(bf16), tm, tk, tn, ctypes.byref(block),
+            ctypes.byref(per_sm)), "tile_spgemm_occupancy")
+    got = _BLOCKS[block.value]
+    want = tile_block(tm, tk, tn, dtype)
+    if got != want:
+        raise RuntimeError(f"tile_spgemm_occupancy: tm={tm} tk={tk} tn={tn} "
+                           f"names the {got} block, tile_block {want}")
+    return got, per_sm.value
+
+
 def tile_stream(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                 a_tid: torch.Tensor, b_tid: torch.Tensor,
                 o_tid: torch.Tensor, item_ptr: torch.Tensor,

@@ -533,9 +533,10 @@ def _uniform_worklist(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
                       dataflow: str, tm: Optional[int] = None):
     """:func:`spgemm`'s uniform path up to its launch: the panel height,
     the C-invariant densification of ``'spada'`` (k-anchor / k-perm only:
-    C = (A Q)(Q^T B) exactly) and the worklist.  Returns (a, b as run, tm,
-    a_bsr, b_bsr, wl), tiles in f32 (the device dtype is chosen at
-    upload)."""
+    C = (A Q)(Q^T B) exactly; scored at that height by
+    ``plan.card_densify.densify_for``'s scorer) and the worklist.  Returns
+    (a, b as run, tm, a_bsr, b_bsr, wl), tiles in f32 (the device dtype is
+    chosen at upload)."""
     if tm is None:
         if dataflow == "op":
             from spada_tpu_torch.plan.planner import plan_op_dataflow
@@ -546,10 +547,11 @@ def _uniform_worklist(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
         else:
             tm = {"ip": 128}.get(dataflow, config.default_tm)
     if dataflow == "spada" and config.densify == "auto":
-        from spada_tpu_torch.plan.densify import apply_densify, choose_densify
+        from spada_tpu_torch.plan.card_densify import densify_for
+        from spada_tpu_torch.plan.densify import apply_densify
 
-        dplan = choose_densify(a, b, tm, config.tile_k, config.tile_n,
-                               config, allow_row_perm=False)
+        dplan = densify_for(config)(a, b, config.tile_k, config, tm=tm,
+                                    allow_row_perm=False, tn=config.tile_n)
         if not dplan.is_identity:
             a, b = apply_densify(a, b, dplan)
     a_bsr = BsrMatrix.from_csr(a, tm, config.tile_k, dtype=np.float32)

@@ -41,6 +41,7 @@ the card's pair under a ``CardConfig``, the reference's copies under a
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -353,16 +354,13 @@ def card_tile_size(a: CsrMatrix, b: CsrMatrix,
     shape, (T, {T: {"W", "bytes", "t_est", ...}}): at each T, the cheapest
     plan of one segment of uniform panels over all rows at a height the
     planner then tries (:func:`tile_heights`), priced by
-    :func:`card_plan_cost` (its launch included); ``tm`` that height,
-    ``bytes`` what it reads from HBM, with ``c_tiles``, ``longest`` and
-    ``blocks`` beside.  The A tiles of every height come from one pass
-    over A's nonzeros per T, at the heights' greatest common divisor; a
-    height whose items alone, at the card's throughput time, cost more
-    than the cheapest plan priced at that T is not priced (its cost is at
-    least that).  With ``cutoff`` (seconds), a T whose every height costs
-    at least that much in items alone is not priced either: its
-    ``t_est`` is that lower bound, marked ``"bound": True``.  Without an
-    item table (the reference's form) it is ``choose_tile_size``."""
+    :func:`card_plan_cost` (its launch included), as
+    :func:`cheapest_uniform` finds it; ``tm`` that height, ``bytes`` what
+    it reads from HBM, with ``c_tiles``, ``longest`` and ``blocks``
+    beside.  With ``cutoff`` (seconds), a T whose every height costs at
+    least that much by its lower bound is not priced: its ``t_est`` is
+    that bound, marked ``"bound": True``.  Without an item table (the
+    reference's form) it is ``choose_tile_size``."""
     config = config or CardConfig()
     if not getattr(config, "tile_item_s", ()):
         return choose_tile_size(a, b, config, candidates)
@@ -372,42 +370,136 @@ def card_tile_size(a: CsrMatrix, b: CsrMatrix,
     details = {}
     best_t, best_cost = candidates[0], float("inf")
     for T in candidates:
-        bt = BTileStructure(b, T, T)
-        heights = tile_heights(config, T)
-        g = int(np.gcd.reduce(heights))
-        fine = np.unique((rows // g) * bt.n_k_tiles + cols // T)
-        f_panel, f_k = fine // bt.n_k_tiles, fine % bt.n_k_tiles
-        tiles, bound = {}, {}
-        for tm in heights:
-            tiles[tm] = np.unique((f_panel // (tm // g)) * bt.n_k_tiles
-                                  + f_k)
-            W = int(bt.fanout(tiles[tm] % bt.n_k_tiles).sum())
-            bound[tm] = (getattr(config, "tile_launch_s", 0.0)
-                         + W * shape_time(config.tile_item_s, tm, T, T))
-        lowest = min(heights, key=lambda h: (bound[h], h))
-        if cutoff is not None and bound[lowest] >= cutoff:
-            details[T] = {"W": None, "bytes": None, "t_est": bound[lowest],
-                          "tm": lowest, "bound": True}
-            if bound[lowest] < best_cost:
-                best_cost, best_t = bound[lowest], T
-            continue
-        best = None
-        for tm in sorted(heights, key=lambda h: (bound[h], h)):
-            if best is not None and bound[tm] >= best[0]:
-                break
-            counts = _items(tiles[tm] // bt.n_k_tiles,
-                            tiles[tm] % bt.n_k_tiles, bt)
-            sp = price_span(counts, tm, bt, itemsize, config)
-            t, _ = card_plan_cost([sp], config)
-            if best is None or t < best[0] or (t == best[0] and tm < best[1]):
-                best = (t, tm, sp)
-        t, tm, sp = best
-        details[T] = {"W": sp["work"], "bytes": sp["hbm_bytes"],
-                      "t_est": t, "tm": tm, "c_tiles": sp["c_tiles"],
-                      "longest": sp["longest"], "blocks": sp["blocks"]}
-        if t < best_cost:
-            best_cost, best_t = t, T
+        got = cheapest_uniform(rows, cols, BTiles.of_csr(b, T),
+                               tile_heights(config, T), itemsize, config,
+                               cutoff)
+        if got.get("bound"):
+            details[T] = {"W": None, "bytes": None, "t_est": got["t_est"],
+                          "tm": got["tm"], "bound": True}
+        else:
+            sp = got["span"]
+            details[T] = {"W": sp["work"], "bytes": sp["hbm_bytes"],
+                          "t_est": got["t_est"], "tm": got["tm"],
+                          "c_tiles": sp["c_tiles"], "longest": sp["longest"],
+                          "blocks": sp["blocks"]}
+        if got["t_est"] < best_cost:
+            best_cost, best_t = got["t_est"], T
     return best_t, details
+
+
+@dataclasses.dataclass(frozen=True)
+class BTiles:
+    """B's T x T tiles by k-tile row, the arrays ``BTileStructure`` holds,
+    built from B's nonzeros' (row, col) index arrays alone
+    (:meth:`of_arrays`), so that a permuted or shifted B is described
+    without its CSR."""
+
+    tk: int
+    tn: int
+    n_k_tiles: int
+    n_tile_cols: int
+    tile_k: np.ndarray
+    tile_j: np.ndarray
+    rowptr: np.ndarray
+
+    @classmethod
+    def of_arrays(cls, rows: np.ndarray, cols: np.ndarray, shape: tuple,
+                  T: int) -> "BTiles":
+        """The tiles of the B of ``shape`` whose nonzeros sit at
+        (``rows``, ``cols``)."""
+        n_k, n_j = -(-shape[0] // T), -(-shape[1] // T)
+        uniq = np.unique((np.asarray(rows, np.int64) // T) * n_j
+                         + np.asarray(cols, np.int64) // T)
+        tile_k = uniq // n_j
+        rowptr = np.zeros(n_k + 1, np.int64)
+        np.cumsum(np.bincount(tile_k, minlength=n_k), out=rowptr[1:])
+        return cls(T, T, n_k, n_j, tile_k, uniq % n_j, rowptr)
+
+    @classmethod
+    def of_csr(cls, b: CsrMatrix, T: int) -> "BTiles":
+        return cls.of_arrays(np.repeat(np.arange(b.shape[0]),
+                                       np.diff(b.indptr)),
+                             b.indices, b.shape, T)
+
+    def fanout(self, k_tiles: np.ndarray) -> np.ndarray:
+        """The B tiles of each k-tile row in ``k_tiles``."""
+        return np.diff(self.rowptr)[k_tiles]
+
+
+def cheapest_uniform(rows: np.ndarray, cols: np.ndarray, bt: BTiles,
+                     heights: Sequence[int], itemsize: int, config,
+                     cutoff: Optional[float] = None) -> dict:
+    """The cheapest plan of one segment of uniform panels over all rows of
+    an A given by its nonzeros' ``rows`` and ``cols`` (any order), against
+    B's tiles ``bt`` (T x T), at one of ``heights``, priced by
+    :func:`card_plan_cost`: {"t_est", "tm", "span"}.  The A tiles of every
+    height come from one pass over the nonzeros, at the heights' greatest
+    common divisor, and each height gets a lower bound from its tiles
+    alone (:func:`_floor`); a height whose bound is at least the cheapest
+    plan priced is not priced.  With ``cutoff``, where every height's bound
+    is at least that much: {"t_est": the lowest bound, "tm", "bound":
+    True}."""
+    T = bt.tk
+    g = int(np.gcd.reduce(heights))
+    fine = np.unique((rows // g) * bt.n_k_tiles + cols // T)
+    f_panel, f_k = fine // bt.n_k_tiles, fine % bt.n_k_tiles
+    tiles, floor = {}, {}
+    for tm in heights:
+        tiles[tm] = np.unique((f_panel // (tm // g)) * bt.n_k_tiles + f_k)
+        floor[tm] = _floor(tiles[tm] // bt.n_k_tiles,
+                           tiles[tm] % bt.n_k_tiles, bt, tm, itemsize,
+                           config)
+    order = sorted(heights, key=lambda h: (floor[h], h))
+    if cutoff is not None and floor[order[0]] >= cutoff:
+        return {"t_est": floor[order[0]], "tm": order[0], "bound": True}
+    best = None
+    for tm in order:
+        # a height that cannot cost less (or as little at a lower tm)
+        if best is not None and (floor[tm], tm) > best[:2]:
+            break
+        counts = _items(tiles[tm] // bt.n_k_tiles, tiles[tm] % bt.n_k_tiles,
+                        bt)
+        sp = price_span(counts, tm, bt, itemsize, config)
+        t, _ = card_plan_cost([sp], config)
+        if best is None or (t, tm) < best[:2]:
+            best = (t, tm, sp)
+    return {"t_est": best[0], "tm": best[1], "span": best[2]}
+
+
+def _floor(ap: np.ndarray, ak: np.ndarray, bt: BTiles, tm: int,
+           itemsize: int, config) -> float:
+    """A lower bound of :func:`card_plan_cost` of one span of the distinct
+    A tiles (panel ``ap`` ascending, k-tile ``ak``) under the card's
+    terms, from their tiles without expanding their items: W, the A tiles
+    used, the B tiles touched, the panels and, per panel, its widest
+    k-tile's B tiles (its C tiles are at least that many); a B tile's
+    re-read at the faster of L2 and HBM, or from HBM where L2 holds less
+    than one panel's reads (a re-read comes at least a panel later); the
+    launch plus the larger of the byte and throughput terms
+    :func:`_price` gives them, less a hair for rounding."""
+    fan = bt.fanout(ak)
+    W = int(fan.sum())
+    if not W:
+        return 0.0
+    T = bt.tk
+    used = fan > 0
+    a_used = int(used.sum())
+    b_used = int(bt.fanout(np.unique(ak[used])).sum())
+    starts = np.flatnonzero(np.r_[True, ap[1:] != ap[:-1]])
+    c_write = int(np.maximum.reduceat(fan, starts).sum()) * tm * T * 4
+    a_b, b_b = tm * T * itemsize, T * T * itemsize
+    hbm = config.hbm_bytes_per_s
+    l2 = getattr(config, "tile_l2_bytes_per_s", 0.0)
+    if l2 > 0:
+        per_panel = (W * b_b + a_used * a_b) / len(starts)
+        again = hbm if config.tile_l2_bytes < per_panel else max(l2, hbm)
+        t_bytes = ((a_used * a_b + b_used * b_b + c_write) / hbm
+                   + (W - a_used) * a_b / l2 + (W - b_used) * b_b / again)
+    else:
+        t_bytes = (W * (a_b + b_b) + c_write * itemsize / 4) / hbm
+    t_thr = W * shape_time(config.tile_item_s, tm, T, T) + c_write / hbm
+    return ((getattr(config, "tile_launch_s", 0.0) + max(t_bytes, t_thr))
+            * (1 - 1e-9))
 
 
 def plan_spgemm_card(a: CsrMatrix, b: CsrMatrix,

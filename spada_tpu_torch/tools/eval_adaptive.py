@@ -14,10 +14,15 @@ parent's (the reference's form, ``parent_config``) and both residuals:
 - ``panel``: the ``tm<T>`` worklist on ``tile_panel`` (``run_worklist_
   panel``; the same prepared launch, ``prepare_worklist(engine="panel")``,
   is timed);
-- ``tm<T>+densify <cand>``: the densify planner's layout at T, where it is
-  not the identity;
 - ``spada``: the adaptive per-row-group plan (``plan_spgemm_card``), the
   sum of its per-segment ``tile_spgemm`` times as the reference sums them;
+- ``spada+densify <cand>``: what ``run`` runs with densify on, where the
+  layout is not the identity: the layout the config's scorer picks at T
+  (``plan.card_densify.densify_for``: the card's model), then the T and
+  the plan ``planner_for``'s pair takes on the transformed pair, timed as
+  ``spada``; where the parent's scorer (``parent_config``: the
+  reference's) picks another layout, that layout's row too.  Each
+  workload logs both scorers' picks and host seconds;
 - ``element (dispatched)`` or ``element (not dispatched)``: the element
   side, its ``esc_stream_group`` launch (one per row slab above 2^28
   products, as ``spgemm_element`` splits them), on every workload
@@ -228,8 +233,9 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
     from spada_tpu_torch.ops.engine import prepare_worklist, run_worklist_panel
     from spada_tpu_torch.ops.spgemm import dispatch_dataflow
     from spada_tpu_torch.ops.worklist import build_worklist
+    from spada_tpu_torch.plan.card_densify import (densify_for,
+                                                   densify_workload)
     from spada_tpu_torch.plan.card_model import planner_for
-    from spada_tpu_torch.plan.execute import iter_plan_segments
     from spada_tpu_torch.plan.planner import ExecutionPlan, PanelSpec
     from spada_tpu_torch.sparse.bsr import BsrMatrix
 
@@ -277,49 +283,30 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
                     note=f"gate {err:.1e}")
             del call, a_t, b_t
 
-    w2, dplan = GemmWorkload(name, a, b).preprocess_densified(
-        cfg, tm=T, tk=T, tn=T)
-    if dplan.is_identity:
-        log(f"{name} densify: identity (already aligned)")
-    else:
-        label = f"tm{T}+densify {dplan.candidate}"
-        a2 = BsrMatrix.from_csr(w2.a, T, T, dtype=np.float32)
-        b2 = BsrMatrix.from_csr(w2.b, T, T, dtype=np.float32)
-        wl = build_worklist(a2, b2, order="row")
-        need = tile_bytes(a2, b2, wl, 2)
-        if not fits(dev, need):
-            out.add(label, _skip_memory(need), wl.n_items)
-        else:
-            call = prepare_worklist(wl, _tiles_on(a2, dev),
-                                    _tiles_on(b2, dev), engine="cached")
-            err = gate(tile_rows(call(), wl.c_tile_row, wl.c_tile_col, T, T,
-                                 (w2.a.shape[0], w2.b.shape[1]), gate_rows),
-                       first_rows_ref(w2.a, w2.b, gate_rows), TILE_GATE,
-                       f"{name} {label}")
-            out.add(label, device_s(call, dev), wl.n_items,
-                    note=f"gate {err:.1e}")
-            del call
-
     plan = planner(a, b, cfg)
-    segs = list(iter_plan_segments(a, b_bsr, plan))
-    need = sum(tile_bytes(a_bsr, b_bsr, wl, 2) for *_, a_bsr, wl in segs)
-    W = sum(wl.n_items for *_, wl in segs)
-    spada_model = models(a, b, plan, cfg)
-    if not fits(dev, need):
-        out.add("spada", _skip_memory(need), W, spada_model)
-    else:
-        total, got = 0.0, None
-        for tm, _, bases, a_bsr, wl in segs:
-            call = launch(a_bsr, wl)
-            part = tile_rows(call(), wl.c_tile_row, wl.c_tile_col, tm, T,
-                             c_shape, gate_rows, bases)
-            got = part if got is None else got + part
-            s = device_s(call, dev)
-            total = None if s is None else total + s
-            del call
-        err = gate(got, ref, TILE_GATE, f"{name} spada")
-        out.add("spada", total, W, spada_model,
-                note=f"(tm hist {plan.tm_histogram()}) gate {err:.1e}")
+    spada_model = _time_plan(out, "spada", a, b, plan, cfg, dev, gate_rows)
+
+    # the layout each scorer picks at T, then the T and plan ``run`` takes
+    # on the transformed pair
+    picks = {}
+    for who, c in (("card", cfg), ("parent", parent_config(cfg))):
+        t0 = time.perf_counter()
+        picks[who] = (densify_for(c)(a, b, T, c), time.perf_counter() - t0)
+    log(f"{name} densify: the card's scorer picks "
+        f"{_pick(picks['card'][0])} in {picks['card'][1]:.3f} s, the "
+        f"parent's {_pick(picks['parent'][0])} in "
+        f"{picks['parent'][1]:.3f} s")
+    timed = set()
+    for who, (dplan, _) in picks.items():
+        if dplan.is_identity or dplan.candidate in timed:
+            continue
+        timed.add(dplan.candidate)
+        w2, _ = densify_workload(GemmWorkload(name, a, b), cfg, T, dplan)
+        T2, _ = tile_size(w2.a, w2.b, bf16_config(card))
+        cfg2 = bf16_config(card, T2)
+        _time_plan(out, f"spada+densify {dplan.candidate}", w2.a, w2.b,
+                   planner(w2.a, w2.b, cfg2), cfg2, dev, gate_rows,
+                   note=f"{who}'s pick, tile={T2}")
 
     choice, ddet = dispatch_dataflow(a, b, cfg)
     e = ddet["element"]["e_products"]
@@ -344,11 +331,56 @@ def eval_workload(name: str, a, b, dev, gate_rows: int = 2048,
     verdict = {"choice": choice,
                "tile_model_s": spada_model[0],
                "element_model_s": ddet["element"]["t_est"], "tile_s": t_s,
-               "element_s": e_s, "ok": ok}
+               "element_s": e_s, "ok": ok,
+               "densify": {who: (_pick(p), sec)
+                           for who, (p, sec) in picks.items()}}
     log(f"{name} dispatch: {verdict_line(verdict)}")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return T, out.rows, verdict
+
+
+def _pick(dplan) -> str:
+    """A densify plan's candidate, the identity by that name."""
+    return "identity" if dplan.is_identity else dplan.candidate
+
+
+def _time_plan(out: "_Rows", label: str, a, b, plan, cfg, dev,
+               gate_rows: int, note: str = "") -> tuple:
+    """Add the row ``label``: ``plan``'s segments on ``a``, ``b`` (tiles of
+    ``cfg``'s T), one ``tile_spgemm`` launch each, their times summed as
+    the reference sums them, C's first rows gated against scipy.  Returns
+    the plan's (card model, parent's model) t_est."""
+    from spada_tpu_torch.ops.engine import prepare_worklist
+    from spada_tpu_torch.plan.execute import iter_plan_segments
+    from spada_tpu_torch.sparse.bsr import BsrMatrix
+
+    T = plan.tile_k
+    b_bsr = BsrMatrix.from_csr(b, T, T, dtype=np.float32)
+    segs = list(iter_plan_segments(a, b_bsr, plan))
+    need = sum(tile_bytes(a_bsr, b_bsr, wl, 2) for *_, a_bsr, wl in segs)
+    W = sum(wl.n_items for *_, wl in segs)
+    model = models(a, b, plan, cfg)
+    if not fits(dev, need):
+        out.add(label, _skip_memory(need), W, model)
+        return model
+    total, got = 0.0, None
+    b_t = _tiles_on(b_bsr, dev)
+    for tm, _, bases, a_bsr, wl in segs:
+        call = prepare_worklist(wl, _tiles_on(a_bsr, dev), b_t,
+                                engine="cached")
+        part = tile_rows(call(), wl.c_tile_row, wl.c_tile_col, tm, T,
+                         (a.shape[0], b.shape[1]), gate_rows, bases)
+        got = part if got is None else got + part
+        s = device_s(call, dev)
+        total = None if s is None else total + s
+        del call
+    err = gate(got, first_rows_ref(a, b, gate_rows), TILE_GATE,
+               f"{out.name} {label}")
+    out.add(label, total, W, model,
+            note=f"({note + ', ' if note else ''}tm hist "
+                 f"{plan.tm_histogram()}) gate {err:.1e}")
+    return model
 
 
 def verdict_line(v: dict) -> str:

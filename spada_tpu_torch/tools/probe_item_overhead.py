@@ -52,20 +52,26 @@ together (``config.fit_item_terms``, each residual relative to its item's
 time), with every point's residual.  The planner does not take that fit
 (``config.h100_config`` says why).
 
-``--latency`` (:func:`run_latency`) and ``--items`` (:func:`run_items`)
-measure the terms of the card's own tile model (``plan/card_model.py``),
-which ``config.h100_config`` carries as ``_TILE_LATENCY``,
-``_TILE_LAUNCH_S``, ``_TILE_ITEM`` and ``_TILE_L2``: one block's time per
-item and one launch's time, from one C tile with runs of 1 to 64 items of
-each item shape the planner can pick (:func:`card_shapes`); then the time
-per item on a full grid and the L2 rate of re-read tiles, from the thin
-points' banded pair at every such shape.  Each prints the table
-``config.py`` records.  On the CPU both run at T = 128 alone
-(:data:`TS_CPU`), gated and untimed.
+``--latency`` (:func:`run_latency`, :func:`run_resident`) and ``--items``
+(:func:`run_items`) measure the terms of the card's own tile model
+(``plan/card_model.py``), which ``config.h100_config`` carries as
+``_TILE_LATENCY``, ``_TILE_LAUNCH_S``, ``_TILE_ITEM`` and ``_TILE_L2``
+(``_TILE_RESIDENT`` and ``_TILE_SMS`` are recorded beside them, carried
+by no config): one block's time per item and one
+launch's time, from one C tile with runs of 1 to 64 items of each item
+shape the planner can pick (:func:`card_shapes`), and how many blocks of
+each shape one SM holds; then the time per item on a full grid and the L2
+rate of re-read tiles, from the thin points' banded pair at every such
+shape.  Each prints the table ``config.py`` records.  On the CPU both run
+at T = 128 alone (:data:`TS_CPU`), gated and untimed, and the resident
+blocks are not measured.  ``--waves`` (:func:`run_waves`) times grids of
+equal runs from half a block per SM to 16 blocks per SM: how blocks that
+share SMs, and blocks past the first wave, take their time.
 
     python -m spada_tpu_torch.tools.probe_item_overhead
     python -m spada_tpu_torch.tools.probe_item_overhead --thin
     python -m spada_tpu_torch.tools.probe_item_overhead --latency --items
+    python -m spada_tpu_torch.tools.probe_item_overhead --waves
     python -m spada_tpu_torch.tools.probe_item_overhead --latency --items --device cpu --thin-n 2048 --band 64
     python -m spada_tpu_torch.tools.probe_item_overhead --device cpu --n 2048
     python -m spada_tpu_torch.tools.probe_item_overhead --thin --device cpu --n 2048 --thin-n 2048
@@ -537,6 +543,104 @@ def run_items(n: int = 32768, band: int = 384, ts: Sequence[int] = TS,
     return out
 
 
+#: the item shapes of :func:`run_resident`: every height the planner can
+#: pick at T = 128..512 (the eval's tm choices run to 384)
+RESIDENT_TMS = (8, 16, 32, 64, 128, 256, 384)
+
+
+def run_resident(ts: Sequence[int] = TS, dtypes: Sequence[str] = DTYPES,
+                 device="cuda",
+                 log: Callable[[str], None] = print) -> Optional[dict]:
+    """The card's resident blocks: for each item shape of
+    :func:`card_shapes` (heights :data:`RESIDENT_TMS`) and tile dtype, the
+    block ``tile_spgemm`` runs it on and how many of that block one SM
+    holds at once (``ops.engine.tile_resident_blocks``), and the card's SM
+    count.  Returns {"sms": n, dtype: {(tm, T): blocks per SM}} and logs
+    the tables ``config._TILE_RESIDENT`` and ``_TILE_SMS`` record; None on
+    the CPU, which has no such query."""
+    import torch
+
+    from spada_tpu_torch.convert import check_device
+    from spada_tpu_torch.ops.engine import tile_resident_blocks
+
+    dev = check_device(device)
+    if dev.type != "cuda":
+        log("resident blocks: not measured (no card)")
+        return None
+    out: dict = {"sms": torch.cuda.get_device_properties(
+        dev).multi_processor_count}
+    for dt in dtypes:
+        out[dt] = {}
+        for tm, T in card_shapes(ts, RESIDENT_TMS):
+            block, n = tile_resident_blocks(tm, T, T, dt, dev)
+            out[dt][(tm, T)] = n
+            log(f"  {dt:8s} {tm:3d} x {T:3d}: {block:11s} {n} per SM")
+    log(f"\non {card_name(dev)}: for config._TILE_RESIDENT:")
+    log("    " + repr({dt: out[dt] for dt in dtypes}))
+    log(f"for config._TILE_SMS: {out['sms']}")
+    return out
+
+
+#: :func:`run_waves`' item shapes (dtype, tm, T) and grids (blocks per SM)
+WAVE_SHAPES = (("float32", 8, 128), ("float32", 32, 128),
+               ("float32", 64, 128), ("float32", 128, 128),
+               ("bfloat16", 8, 128), ("bfloat16", 32, 128),
+               ("bfloat16", 64, 128), ("bfloat16", 128, 128),
+               ("bfloat16", 64, 256))
+WAVE_GRIDS = (0.5, 1, 1.5, 2, 3, 4, 6, 8, 12, 16)
+
+
+def run_waves(run: int = 4, shapes=WAVE_SHAPES, grids=WAVE_GRIDS,
+              device="cuda",
+              log: Callable[[str], None] = print) -> Dict[tuple, dict]:
+    """One ``tile_spgemm`` launch of N C tiles with a run of ``run`` items
+    each (item i: A tile i % 64 times B tile i % 64, random tiles), for N
+    = SMs times each of ``grids``, at each item shape of ``shapes``: how a
+    grid's time grows once its blocks share SMs and once they exceed what
+    the SMs hold at once (beside the card model's latency term, ``plan/
+    card_model.py``, which prices neither).  Each launch held to its plain version (1e-5 of
+    max|C|) and timed as :func:`run_latency` times.  Returns {(dtype, tm,
+    T): {N: seconds}}; on the CPU two small grids, checked, untimed."""
+    import torch
+
+    from spada_tpu_torch.convert import check_device
+    from spada_tpu_torch.ops.engine import (prepare_cached,
+                                            run_worklist_reference)
+    from spada_tpu_torch.plan.card_model import block_pieces
+
+    dev = check_device(device)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 2)
+    log(f"grids of C tiles with runs of {run} items; card "
+        f"{card_name(dev) or 'none (cpu)'}, {sms} SMs")
+    out: Dict[tuple, dict] = {}
+    for dt, tm, T in shapes:
+        a, b = _synthetic_tiles(tm, T, 64, dt, dev, tm * 7 + T)
+        pieces = block_pieces(tm, T, T, 2 if dt == "bfloat16" else 4)
+        times = {}
+        for g in grids if dev.type == "cuda" else grids[:2]:
+            n_c = max(1, int(round(g * sms / pieces)))
+            items = np.arange(n_c * run, dtype=np.int32)
+            ids = items % 64
+            o = (items // run).astype(np.int32)
+            call = prepare_cached(a, b, ids, ids, o, n_c)
+            plain = run_worklist_reference(
+                a, b, *(torch.from_numpy(x).to(dev) for x in (ids, ids, o)),
+                n_c)
+            err = float((call() - plain).abs().max()
+                        / plain.abs().max().clamp_min(1e-30))
+            if not err <= 1e-5:
+                raise RuntimeError(f"{dt} {tm}x{T}, {n_c} C tiles: kernel "
+                                   f"vs plain {err:.2e}")
+            times[n_c * pieces] = device_s(call, dev)
+            del call, plain
+        out[(dt, tm, T)] = times
+        log(f"  {dt:8s} {tm:3d} x {T:3d}: " + ", ".join(
+            f"{n}: {fmt_ms(t)}" for n, t in times.items()) + " ms by blocks")
+        del a, b
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda")
@@ -556,18 +660,26 @@ def main(argv=None):
                    help="the card model's time per item on a full grid and "
                         "its L2 rate, per item shape, on the thin points' "
                         "pair")
+    p.add_argument("--waves", action="store_true",
+                   help="grids of C tiles from one block per SM to 16, "
+                        "runs of 4 and 16 items: how blocks that share SMs "
+                        "run")
     args = p.parse_args(argv)
     dtypes = args.dtypes.split(",")
-    if args.latency or args.items:
+    if args.latency or args.items or args.waves:
         from spada_tpu_torch.convert import check_device
 
         # the CPU runs the plain versions, untimed: T = 128 alone
         ts = TS_CPU if check_device(args.device).type == "cpu" else TS
         if args.latency:
             run_latency(ts, dtypes=dtypes, device=args.device)
+            run_resident(ts, dtypes=dtypes, device=args.device)
         if args.items:
             run_items(args.thin_n, args.band, ts, dtypes=dtypes,
                       device=args.device)
+        if args.waves:
+            for length in (4, 16):
+                run_waves(length, device=args.device)
     elif args.thin:
         run_thin(args.n, args.thin_n, args.band,
                  dtypes=args.dtypes.split(","), device=args.device)

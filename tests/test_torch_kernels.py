@@ -730,3 +730,22 @@ def test_spgemm_csr_slabs_equal_one_shot(cuda_device):
     np.testing.assert_array_equal(many.indptr, one.indptr)
     np.testing.assert_array_equal(many.indices, one.indices)
     np.testing.assert_array_equal(many.data, one.data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tm,tk,tn", [
+    (8, 128, 128), (16, 128, 128), (32, 128, 128), (64, 256, 256),
+    (128, 128, 128), (512, 512, 512), (128, 40, 128), (8, 128, 64)])
+def test_resident_blocks_query(cuda_device, tm, tk, tn, dtype):
+    """``tile_resident_blocks`` names ``tile_block``'s block for the shape,
+    launches nothing, and finds at least one block per SM; the tensor-core
+    block of 128 rows fills an SM."""
+    before = dict(_build.launches)
+    block, per_sm = engine.tile_resident_blocks(tm, tk, tn, dtype,
+                                                cuda_device)
+    assert dict(_build.launches) == before
+    assert block == engine.tile_block(tm, tk, tn, dtype)
+    assert per_sm >= 1
+    if block == "mma":
+        assert per_sm == 1

@@ -524,7 +524,10 @@ def test_tools_need_a_card_unless_told_cpu(tool):
      "| verdict |"),
     (["probe_dispatch_crossover", "--element-fit", "--fills", "48,12"],
      "| fem-graded-33 |"),
+    (["probe_item_overhead", "--waves"], "bfloat16  64 x 256"),
     (["eval_adaptive", "--n", "512"], "## fem-graded-24"),
+    (["eval_adaptive", "--n", "512"],
+     "nn-bert-ffn1-blk32 densify: the card's scorer picks identity"),
     (["eval_adaptive", "--n", "512", "--element", "dispatched"],
      "element not timed ms: -"),
     (["bench_value_refresh", "--scale", "32"], "element cold build"),
