@@ -49,6 +49,7 @@ from spada_tpu_torch.io.workloads import GemmWorkload, load_pickled_gemms
 from spada_tpu_torch.ops.spgemm import dispatch_dataflow, spgemm
 from spada_tpu_torch.plan.planner import ExecutionPlan
 from spada_tpu_torch.sparse.csr import CsrMatrix
+from spada_tpu_torch.utils import trace
 from spada_tpu_torch.utils.metrics import PerfReport, format_report
 
 
@@ -80,7 +81,25 @@ def plan_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
     ``CardConfig``, the reference's ``choose_tile_size``, ``plan_spgemm``
     and ``choose_densify`` under a ``SpadaConfig``.  ``config`` is copied,
     not changed; ``device`` is where ``scheme='profiled'`` times the tile
-    engine."""
+    engine.  Recorded as the span ``plan`` (attributes ``choice`` and
+    ``t_est_s``, the modelled seconds of the chosen side where a model
+    priced it) with the children ``plan.dispatch``, ``plan.tile_edge``,
+    ``plan.densify`` and ``plan.panels``."""
+    with trace.span("plan") as attrs:
+        run = _plan_spada(a, b, config, device, densify, log, scheme)
+        attrs["choice"] = run.choice
+        if run.plan is not None:
+            t_est = run.plan.meta.get("t_est")
+        else:
+            t_est = run.dispatch and run.dispatch["element"]["t_est"]
+        if t_est is not None:
+            attrs["t_est_s"] = t_est
+    return run
+
+
+def _plan_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig, device,
+                densify: bool, log: Callable[[str], None],
+                scheme: str) -> SpadaRun:
     from spada_tpu_torch.plan.card_densify import densify_workload
     from spada_tpu_torch.plan.card_model import planner_for
 
@@ -93,7 +112,8 @@ def plan_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
         choice = "element"
         log("dataflow dispatch: element (forced by element_dispatch)")
     elif config.element_dispatch == "auto":
-        choice, det = dispatch_dataflow(a, b, config)
+        with trace.span("plan.dispatch"):
+            choice, det = dispatch_dataflow(a, b, config)
         if choice == "element":
             log(f"dataflow dispatch: element "
                 f"(E={det['element']['e_products']}, modeled "
@@ -105,17 +125,20 @@ def plan_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
     if det is not None:
         t_best, t_det = det["tile_T"], det["tile"]
     else:
-        t_best, t_det = tile_size(a, b, config)
+        with trace.span("plan.tile_edge"):
+            t_best, t_det = tile_size(a, b, config)
     row_remap = None
     if densify:
-        w2, dplan = densify_workload(GemmWorkload("run", a, b), config,
-                                     t_best)
+        with trace.span("plan.densify"):
+            w2, dplan = densify_workload(GemmWorkload("run", a, b), config,
+                                         t_best)
         if dplan.is_identity:
             log("densify: identity (structure already aligned)")
         else:
             log(f"densify: {dplan.candidate}")
             a, b, row_remap = w2.a, w2.b, w2.row_remap
-            t_best, t_det = tile_size(a, b, config)
+            with trace.span("plan.tile_edge"):
+                t_best, t_det = tile_size(a, b, config)
     if t_best != config.tile_k:
         config.tile_k = config.tile_n = t_best
         config.default_tm = t_best
@@ -124,12 +147,13 @@ def plan_spada(a: CsrMatrix, b: CsrMatrix, config: SpadaConfig,
     ests = ", ".join(f"{k}: {'>=' if v.get('bound') else ''}"
                      f"{v['t_est'] * 1e3:.2f}ms" for k, v in t_det.items())
     log(f"tile size: {t_best}  (model: {ests})")
-    measure = None
-    if scheme == "profiled":
-        from spada_tpu_torch.plan.execute import make_profiled_measure
+    with trace.span("plan.panels"):
+        measure = None
+        if scheme == "profiled":
+            from spada_tpu_torch.plan.execute import make_profiled_measure
 
-        measure = make_profiled_measure(a, b, config, dev)
-    plan = planner(a, b, config, scheme=scheme, measure=measure)
+            measure = make_profiled_measure(a, b, config, dev)
+        plan = planner(a, b, config, scheme=scheme, measure=measure)
     t_est = plan.meta.get("t_est")
     log(f"plan[{scheme}]: {len(plan.panels)} panels, "
         f"tm histogram {plan.tm_histogram()}"

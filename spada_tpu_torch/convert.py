@@ -16,6 +16,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from spada_tpu_torch.utils import trace
+
 
 @dataclasses.dataclass
 class DeviceWorkList:
@@ -94,17 +96,20 @@ def bsr_to_torch(bsr, device, dtype: torch.dtype = torch.float32
     """
     dev = check_device(device)
     host = torch.from_numpy(np.ascontiguousarray(bsr.tiles, np.float32))
-    return host.to(device=dev, dtype=dtype).contiguous()
+    with trace.span("layout.upload", bytes=host.numel() * dtype.itemsize):
+        return host.to(device=dev, dtype=dtype).contiguous()
 
 
 def stream_operands_to_torch(ops: Sequence[Tuple[np.ndarray, np.ndarray]],
                              device) -> tuple:
     """Per-class (a, b) stream operands -> a tuple of f32 tensor pairs."""
     dev = check_device(device)
-    return tuple(
-        (torch.from_numpy(np.ascontiguousarray(av, np.float32)).to(dev),
-         torch.from_numpy(np.ascontiguousarray(bv, np.float32)).to(dev))
-        for av, bv in ops)
+    with trace.span("layout.upload",
+                    bytes=sum(4 * (av.size + bv.size) for av, bv in ops)):
+        return tuple(
+            (torch.from_numpy(np.ascontiguousarray(av, np.float32)).to(dev),
+             torch.from_numpy(np.ascontiguousarray(bv, np.float32)).to(dev))
+            for av, bv in ops)
 
 
 def from_reference(obj):

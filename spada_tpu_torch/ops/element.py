@@ -27,6 +27,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from spada_tpu_torch.sparse.csr import CsrMatrix
+from spada_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -72,6 +73,7 @@ def expansion_products(a: CsrMatrix, b: CsrMatrix) -> int:
     return int(np.dot(acol, np.diff(b.indptr).astype(np.int64)))
 
 
+@trace.spanned("layout.structure")
 def build_esc_plan(a: CsrMatrix, b: CsrMatrix, cap: int = 512,
                    backend: str = "auto") -> EscPlan:
     """Symbolic phase: expand, sort (host), and bucket the product schedule.

@@ -34,6 +34,7 @@ import torch
 
 from spada_tpu_torch import _build
 from spada_tpu_torch.ops.element import EscPlan
+from spada_tpu_torch.utils import trace
 
 _LANES = 1024          # L=1 row width
 _BLOCK_BYTES = 1 << 23  # ~8 MB operand blocks (sets the padding granule)
@@ -85,6 +86,7 @@ def _class_geometry(L: int, n: int) -> dict:
     return {"L": L, "n": n, "n_pad": n_pad, "chl": chl}
 
 
+@trace.spanned("layout.structure")
 def build_stream_layout(plan: EscPlan) -> StreamLayout:
     """Geometry + padded extraction map (structure only, value-free)."""
     classes = [_class_geometry(bk.L, bk.a_gidx.shape[0])
@@ -111,25 +113,26 @@ def stream_operands(layout: StreamLayout, plan: EscPlan, a, b,
                     dtype=np.float32) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Gather operand values into the padded stream layout (host, per value
     refresh).  L=1 -> [rows, 1024]; L>=2 -> transposed [L, n_pad]."""
-    a_ext = np.append(a.data, 0.0).astype(dtype)
-    b_ext = np.append(b.data, 0.0).astype(dtype)
-    out = []
-    for bk, c in zip(plan.buckets, layout.classes):
-        n, L = c["n"], c["L"]
-        if L == 1:
-            av = np.zeros(c["n_pad"], dtype)
-            bv = np.zeros(c["n_pad"], dtype)
-            av[:n] = a_ext[bk.a_gidx[:, 0]]
-            bv[:n] = b_ext[bk.b_gidx[:, 0]]
-            out.append((av.reshape(c["rows"], _LANES),
-                        bv.reshape(c["rows"], _LANES)))
-        else:
-            av = np.zeros((L, c["n_pad"]), dtype)
-            bv = np.zeros((L, c["n_pad"]), dtype)
-            av[:, :n] = a_ext[bk.a_gidx].T
-            bv[:, :n] = b_ext[bk.b_gidx].T
-            out.append((av, bv))
-    return out
+    with trace.span("layout.fill", products=layout.n_products):
+        a_ext = np.append(a.data, 0.0).astype(dtype)
+        b_ext = np.append(b.data, 0.0).astype(dtype)
+        out = []
+        for bk, c in zip(plan.buckets, layout.classes):
+            n, L = c["n"], c["L"]
+            if L == 1:
+                av = np.zeros(c["n_pad"], dtype)
+                bv = np.zeros(c["n_pad"], dtype)
+                av[:n] = a_ext[bk.a_gidx[:, 0]]
+                bv[:n] = b_ext[bk.b_gidx[:, 0]]
+                out.append((av.reshape(c["rows"], _LANES),
+                            bv.reshape(c["rows"], _LANES)))
+            else:
+                av = np.zeros((L, c["n_pad"]), dtype)
+                bv = np.zeros((L, c["n_pad"]), dtype)
+                av[:, :n] = a_ext[bk.a_gidx].T
+                bv[:, :n] = b_ext[bk.b_gidx].T
+                out.append((av, bv))
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -313,42 +316,54 @@ def esc_stream_group(pairs, Ls: Sequence[int],
     :func:`esc_stream_red` would, bit for bit.  CUDA tensors run
     ``esc_stream_group`` of ``csrc/esc_stream.cu``; CPU tensors the plain
     versions.  ``order``: see :func:`group_table`."""
-    if len(pairs) != len(Ls):
-        raise ValueError(f"esc_stream_group: {len(pairs)} operand pairs for "
-                         f"{len(Ls)} classes")
-    if not pairs:
-        return ()
-    for (a, b), L in zip(pairs, Ls):
-        _check_operands(a, b, "esc_stream_group")
-        if L != 1 and a.shape[0] != L:
-            raise ValueError(f"esc_stream_group: a class of L={L} has "
-                             f"operands {tuple(a.shape)}")
-    dev = pairs[0][0].device
-    if any(a.device != dev for a, _ in pairs):
-        raise ValueError("esc_stream_group: classes on several devices")
-    if dev.type == "cpu":
-        return tuple(esc_stream_mul_reference(a, b) if L == 1
-                     else esc_stream_red_reference(a, b)
-                     for (a, b), L in zip(pairs, Ls))
-    classes = tuple((L, a.numel() if L == 1 else a.shape[1])
-                    for (a, _), L in zip(pairs, Ls))
-    rows, n_blocks = _group_launch_of(
-        classes, None if order is None else tuple(order))
-    outs = tuple(torch.empty_like(a) if L == 1
-                 else a.new_empty((1, a.shape[1]))
-                 for (a, _), L in zip(pairs, Ls))
-    if n_blocks == 0:
+    t = (trace.launch("esc_stream_group", classes=len(pairs))
+         if trace.active() else None)
+    try:
+        if len(pairs) != len(Ls):
+            raise ValueError(f"esc_stream_group: {len(pairs)} operand pairs "
+                             f"for {len(Ls)} classes")
+        if not pairs:
+            return ()
+        for (a, b), L in zip(pairs, Ls):
+            _check_operands(a, b, "esc_stream_group")
+            if L != 1 and a.shape[0] != L:
+                raise ValueError(f"esc_stream_group: a class of L={L} has "
+                                 f"operands {tuple(a.shape)}")
+        dev = pairs[0][0].device
+        if any(a.device != dev for a, _ in pairs):
+            raise ValueError("esc_stream_group: classes on several devices")
+        if dev.type == "cpu":
+            if t is not None:
+                t.step("launch.call", block="plain")
+            return tuple(esc_stream_mul_reference(a, b) if L == 1
+                         else esc_stream_red_reference(a, b)
+                         for (a, b), L in zip(pairs, Ls))
+        classes = tuple((L, a.numel() if L == 1 else a.shape[1])
+                        for (a, _), L in zip(pairs, Ls))
+        rows, n_blocks = _group_launch_of(
+            classes, None if order is None else tuple(order))
+        if t is not None:
+            t.step("launch.alloc")
+        outs = tuple(torch.empty_like(a) if L == 1
+                     else a.new_empty((1, a.shape[1]))
+                     for (a, _), L in zip(pairs, Ls))
+        if n_blocks == 0:
+            return outs
+        if t is not None:
+            t.step("launch.call")
+        args = []
+        for i, L, n4, slices, group, first in rows:
+            args += (pairs[i][0].data_ptr(), pairs[i][1].data_ptr(),
+                     outs[i].data_ptr(), L, n4, slices, group, first)
+        table = (ctypes.c_longlong * len(args))(*args)
+        status = _build.load().esc_stream_group(
+            table, len(rows), n_blocks, _build.current_stream(outs[0]))
+        _build.check(status, "esc_stream_group")
+        _build.launches["esc_stream_group"] += 1
         return outs
-    args = []
-    for i, L, n4, slices, group, first in rows:
-        args += (pairs[i][0].data_ptr(), pairs[i][1].data_ptr(),
-                 outs[i].data_ptr(), L, n4, slices, group, first)
-    table = (ctypes.c_longlong * len(args))(*args)
-    status = _build.load().esc_stream_group(
-        table, len(rows), n_blocks, _build.current_stream(outs[0]))
-    _build.check(status, "esc_stream_group")
-    _build.launches["esc_stream_group"] += 1
-    return outs
+    finally:
+        if t is not None:
+            t.end()
 
 
 def stream_execute(layout: StreamLayout, operands) -> tuple:

@@ -55,6 +55,7 @@ import torch
 
 from spada_tpu_torch import _build
 from spada_tpu_torch.convert import item_ptr_of, tile_ptr_of
+from spada_tpu_torch.utils import trace
 
 _PRECISIONS = ("highest", "default")
 _ENGINES = ("cached", "streaming", "panel", "pallas_grid", "xla")
@@ -363,7 +364,8 @@ def _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles: int,
 
 
 def _on(dev: torch.device, *arrays):
-    return tuple(torch.from_numpy(x).to(dev) for x in arrays)
+    with trace.span("layout.upload", bytes=sum(x.nbytes for x in arrays)):
+        return tuple(torch.from_numpy(x).to(dev) for x in arrays)
 
 
 # --------------------------------------------------------------------------
@@ -458,28 +460,40 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     the thin block also as ``"tile_spgemm_thin"``: the kernel reports the
     block it ran on, and a block other than :func:`tile_block`'s raises.
     """
-    _check_tile_args("tile_spgemm", a_tiles, b_tiles, 2, a_tid=a_tid,
-                     b_tid=b_tid, tile_ptr=tile_ptr)
-    tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
-    n_c = int(tile_ptr.shape[0]) - 1
-    if a_tiles.device.type == "cpu":
-        return run_worklist_reference(
-            a_tiles, b_tiles, a_tid, b_tid,
-            _run_o_ids(tile_ptr, a_tid.shape[0]), n_c)
-    c = torch.empty((n_c, tm, tn), dtype=torch.float32,
-                    device=a_tiles.device)
-    block = _has_work("tile_spgemm", n_c, a_tid.shape[0], tm, tk, tn,
-                      a_tiles.dtype)
-    if block is None:
-        return c.zero_()
-    lib = _build.load()
-    fn = (lib.tile_spgemm_f32 if a_tiles.dtype == torch.float32
-          else lib.tile_spgemm_bf16)
-    _launch_reporting("tile_spgemm", block, (tm, tk, tn), a_tiles, fn,
-                      a_tiles.data_ptr(), b_tiles.data_ptr(),
-                      a_tid.data_ptr(), b_tid.data_ptr(), tile_ptr.data_ptr(),
-                      c.data_ptr(), n_c, tm, tk, tn)
-    return c
+    t = (trace.launch("tile_spgemm", items=int(a_tid.shape[0]))
+         if trace.active() else None)
+    try:
+        _check_tile_args("tile_spgemm", a_tiles, b_tiles, 2, a_tid=a_tid,
+                         b_tid=b_tid, tile_ptr=tile_ptr)
+        tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
+        n_c = int(tile_ptr.shape[0]) - 1
+        if a_tiles.device.type == "cpu":
+            if t is not None:
+                t.step("launch.call", block="plain")
+            return run_worklist_reference(
+                a_tiles, b_tiles, a_tid, b_tid,
+                _run_o_ids(tile_ptr, a_tid.shape[0]), n_c)
+        block = _has_work("tile_spgemm", n_c, a_tid.shape[0], tm, tk, tn,
+                          a_tiles.dtype)
+        if t is not None:
+            t.step("launch.alloc", block=block)
+        c = torch.empty((n_c, tm, tn), dtype=torch.float32,
+                        device=a_tiles.device)
+        if block is None:
+            return c.zero_()
+        if t is not None:
+            t.step("launch.call")
+        lib = _build.load()
+        fn = (lib.tile_spgemm_f32 if a_tiles.dtype == torch.float32
+              else lib.tile_spgemm_bf16)
+        _launch_reporting("tile_spgemm", block, (tm, tk, tn), a_tiles, fn,
+                          a_tiles.data_ptr(), b_tiles.data_ptr(),
+                          a_tid.data_ptr(), b_tid.data_ptr(),
+                          tile_ptr.data_ptr(), c.data_ptr(), n_c, tm, tk, tn)
+        return c
+    finally:
+        if t is not None:
+            t.end()
 
 
 def tile_resident_blocks(tm: int, tk: int, tn: int, dtype,
@@ -528,32 +542,46 @@ def tile_stream(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     tensor-core blocks); a launch of the thin block also counts as
     ``"tile_stream_thin"``, from the block the kernel reports.
     """
-    _check_tile_args("tile_stream", a_tiles, b_tiles, 2, a_tid=a_tid,
-                     b_tid=b_tid, o_tid=o_tid, item_ptr=item_ptr)
-    if ogroup < 1 or item_ptr.shape[0] != -(-n_c_tiles // ogroup) + 1:
-        raise ValueError("tile_stream: item_ptr needs ceil(n_c_tiles / "
-                         "ogroup) + 1 entries, ogroup >= 1")
-    if not 2 <= nbuf <= 16:
-        raise ValueError(f"tile_stream: nbuf must be in 2..16, got {nbuf}")
-    tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
-    if a_tiles.device.type == "cpu":
-        return tile_stream_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
-                                     item_ptr, n_c_tiles, ogroup, nbuf)
-    c = torch.empty((n_c_tiles, tm, tn), dtype=torch.float32,
-                    device=a_tiles.device)
-    block = _has_work("tile_stream", n_c_tiles, a_tid.shape[0], tm, tk, tn,
-                      a_tiles.dtype)
-    if block is None:
-        return c.zero_()
-    lib = _build.load()
-    fn = (lib.tile_stream_f32 if a_tiles.dtype == torch.float32
-          else lib.tile_stream_bf16)
-    _launch_reporting("tile_stream", block, (tm, tk, tn), a_tiles, fn,
-                      a_tiles.data_ptr(), b_tiles.data_ptr(),
-                      a_tid.data_ptr(), b_tid.data_ptr(), o_tid.data_ptr(),
-                      item_ptr.data_ptr(), c.data_ptr(), n_c_tiles, ogroup,
-                      tm, tk, tn, nbuf)
-    return c
+    t = (trace.launch("tile_stream", items=int(a_tid.shape[0]))
+         if trace.active() else None)
+    try:
+        _check_tile_args("tile_stream", a_tiles, b_tiles, 2, a_tid=a_tid,
+                         b_tid=b_tid, o_tid=o_tid, item_ptr=item_ptr)
+        if ogroup < 1 or item_ptr.shape[0] != -(-n_c_tiles // ogroup) + 1:
+            raise ValueError("tile_stream: item_ptr needs ceil(n_c_tiles / "
+                             "ogroup) + 1 entries, ogroup >= 1")
+        if not 2 <= nbuf <= 16:
+            raise ValueError(f"tile_stream: nbuf must be in 2..16, got "
+                             f"{nbuf}")
+        tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
+        if a_tiles.device.type == "cpu":
+            if t is not None:
+                t.step("launch.call", block="plain")
+            return tile_stream_reference(a_tiles, b_tiles, a_tid, b_tid,
+                                         o_tid, item_ptr, n_c_tiles, ogroup,
+                                         nbuf)
+        block = _has_work("tile_stream", n_c_tiles, a_tid.shape[0], tm, tk,
+                          tn, a_tiles.dtype)
+        if t is not None:
+            t.step("launch.alloc", block=block)
+        c = torch.empty((n_c_tiles, tm, tn), dtype=torch.float32,
+                        device=a_tiles.device)
+        if block is None:
+            return c.zero_()
+        if t is not None:
+            t.step("launch.call")
+        lib = _build.load()
+        fn = (lib.tile_stream_f32 if a_tiles.dtype == torch.float32
+              else lib.tile_stream_bf16)
+        _launch_reporting("tile_stream", block, (tm, tk, tn), a_tiles, fn,
+                          a_tiles.data_ptr(), b_tiles.data_ptr(),
+                          a_tid.data_ptr(), b_tid.data_ptr(),
+                          o_tid.data_ptr(), item_ptr.data_ptr(),
+                          c.data_ptr(), n_c_tiles, ogroup, tm, tk, tn, nbuf)
+        return c
+    finally:
+        if t is not None:
+            t.end()
 
 
 def tile_panel(a_tiles_t: torch.Tensor, b_tiles: torch.Tensor,
@@ -572,30 +600,44 @@ def tile_panel(a_tiles_t: torch.Tensor, b_tiles: torch.Tensor,
     the tensor-core blocks); a launch of the thin block also counts as
     ``"tile_panel_thin"``, from the block the kernel reports.
     """
-    _check_tile_args("tile_panel", a_tiles_t, b_tiles, 1, a_tid=a_tid,
-                     b_tid=b_tid, tile_ptr=tile_ptr)
-    if out_dtype not in _TILE_DTYPES:
-        raise TypeError(f"tile_panel: out_dtype must be float32 or "
-                        f"bfloat16, got {out_dtype}")
-    tk, tm, tn = a_tiles_t.shape[1], a_tiles_t.shape[2], b_tiles.shape[2]
-    n_c = int(tile_ptr.shape[0]) - 1
-    if a_tiles_t.device.type == "cpu":
-        return tile_panel_reference(a_tiles_t, b_tiles, a_tid, b_tid,
-                                    tile_ptr, out_dtype)
-    c = torch.empty((n_c, tm, tn), dtype=out_dtype, device=b_tiles.device)
-    block = _has_work("tile_panel", n_c, a_tid.shape[0], tm, tk, tn,
-                      a_tiles_t.dtype)
-    if block is None:
-        return c.zero_()
-    lib = _build.load()
-    fn = (lib.tile_panel_f32 if a_tiles_t.dtype == torch.float32
-          else lib.tile_panel_bf16)
-    _launch_reporting("tile_panel", block, (tm, tk, tn), b_tiles, fn,
-                      a_tiles_t.data_ptr(), b_tiles.data_ptr(),
-                      a_tid.data_ptr(), b_tid.data_ptr(), tile_ptr.data_ptr(),
-                      c.data_ptr(), n_c, tm, tk, tn,
-                      int(out_dtype == torch.bfloat16))
-    return c
+    t = (trace.launch("tile_panel", items=int(a_tid.shape[0]))
+         if trace.active() else None)
+    try:
+        _check_tile_args("tile_panel", a_tiles_t, b_tiles, 1, a_tid=a_tid,
+                         b_tid=b_tid, tile_ptr=tile_ptr)
+        if out_dtype not in _TILE_DTYPES:
+            raise TypeError(f"tile_panel: out_dtype must be float32 or "
+                            f"bfloat16, got {out_dtype}")
+        tk, tm, tn = (a_tiles_t.shape[1], a_tiles_t.shape[2],
+                      b_tiles.shape[2])
+        n_c = int(tile_ptr.shape[0]) - 1
+        if a_tiles_t.device.type == "cpu":
+            if t is not None:
+                t.step("launch.call", block="plain")
+            return tile_panel_reference(a_tiles_t, b_tiles, a_tid, b_tid,
+                                        tile_ptr, out_dtype)
+        block = _has_work("tile_panel", n_c, a_tid.shape[0], tm, tk, tn,
+                          a_tiles_t.dtype)
+        if t is not None:
+            t.step("launch.alloc", block=block)
+        c = torch.empty((n_c, tm, tn), dtype=out_dtype,
+                        device=b_tiles.device)
+        if block is None:
+            return c.zero_()
+        if t is not None:
+            t.step("launch.call")
+        lib = _build.load()
+        fn = (lib.tile_panel_f32 if a_tiles_t.dtype == torch.float32
+              else lib.tile_panel_bf16)
+        _launch_reporting("tile_panel", block, (tm, tk, tn), b_tiles, fn,
+                          a_tiles_t.data_ptr(), b_tiles.data_ptr(),
+                          a_tid.data_ptr(), b_tid.data_ptr(),
+                          tile_ptr.data_ptr(), c.data_ptr(), n_c, tm, tk, tn,
+                          int(out_dtype == torch.bfloat16))
+        return c
+    finally:
+        if t is not None:
+            t.end()
 
 
 def tile_grid(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
@@ -623,31 +665,44 @@ def _tile_grid_launch(a_tiles, b_tiles, a_tid, b_tid, o_tid, n_c_tiles: int,
     """:func:`tile_grid` with the thin path's G given (``chunk``; None:
     :func:`grid_chunk`'s), for the tests and the sweep that measure the
     rule."""
-    _check_tile_args("tile_grid", a_tiles, b_tiles, 2, a_tid=a_tid,
-                     b_tid=b_tid, o_tid=o_tid)
-    tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
-    if a_tiles.device.type == "cpu":
-        return tile_grid_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
-                                   n_c_tiles)
-    c = torch.zeros((n_c_tiles, tm, tn), dtype=torch.float32,
-                    device=a_tiles.device)
-    n_items = int(a_tid.shape[0])
-    block = _has_work("tile_grid", n_c_tiles, n_items, tm, tk, tn,
-                      a_tiles.dtype)
-    if block is None:
+    t = (trace.launch("tile_grid", items=int(a_tid.shape[0]))
+         if trace.active() else None)
+    try:
+        _check_tile_args("tile_grid", a_tiles, b_tiles, 2, a_tid=a_tid,
+                         b_tid=b_tid, o_tid=o_tid)
+        tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
+        if a_tiles.device.type == "cpu":
+            if t is not None:
+                t.step("launch.call", block="plain")
+            return tile_grid_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
+                                       n_c_tiles)
+        n_items = int(a_tid.shape[0])
+        block = _has_work("tile_grid", n_c_tiles, n_items, tm, tk, tn,
+                          a_tiles.dtype)
+        if chunk is None:
+            chunk = (grid_chunk(n_items, thin_pieces(tm, tn),
+                                sm_count(a_tiles.device))
+                     if block == "mma_thin" else 1)
+        if t is not None:
+            t.step("launch.alloc", block=block)
+        c = torch.zeros((n_c_tiles, tm, tn), dtype=torch.float32,
+                        device=a_tiles.device)
+        if block is None:
+            return c
+        if t is not None:
+            t.step("launch.call")
+        lib = _build.load()
+        fn = (lib.tile_grid_f32 if a_tiles.dtype == torch.float32
+              else lib.tile_grid_bf16)
+        _launch_reporting("tile_grid", block, (tm, tk, tn), a_tiles, fn,
+                          a_tiles.data_ptr(), b_tiles.data_ptr(),
+                          a_tid.data_ptr(), b_tid.data_ptr(),
+                          o_tid.data_ptr(), c.data_ptr(), n_items, tm, tk,
+                          tn, int(chunk))
         return c
-    if chunk is None:
-        chunk = (grid_chunk(n_items, thin_pieces(tm, tn),
-                            sm_count(a_tiles.device))
-                 if block == "mma_thin" else 1)
-    lib = _build.load()
-    fn = (lib.tile_grid_f32 if a_tiles.dtype == torch.float32
-          else lib.tile_grid_bf16)
-    _launch_reporting("tile_grid", block, (tm, tk, tn), a_tiles, fn,
-                      a_tiles.data_ptr(), b_tiles.data_ptr(),
-                      a_tid.data_ptr(), b_tid.data_ptr(), o_tid.data_ptr(),
-                      c.data_ptr(), n_items, tm, tk, tn, int(chunk))
-    return c
+    finally:
+        if t is not None:
+            t.end()
 
 
 @functools.lru_cache(maxsize=None)

@@ -30,6 +30,7 @@ from spada_tpu_torch.convert import (bsr_to_torch, c_tiles_to_numpy,
                                      check_device, synchronize)
 from spada_tpu_torch.ops.engine import run_worklist
 from spada_tpu_torch.ops.worklist import build_worklist
+from spada_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -256,12 +257,13 @@ def dispatch_dataflow(a: CsrMatrix, b: CsrMatrix,
     from spada_tpu_torch.plan.card_model import card_tile_size, planner_for
 
     tile_size = planner_for(config)[0]
-    if tile_size is card_tile_size:
-        t_best, t_det = card_tile_size(
-            a, b, config,
-            cutoff=element_bounds(expansion_products(a, b), config)[1])
-    else:
-        t_best, t_det = tile_size(a, b, config)
+    with trace.span("plan.tile_edge"):
+        if tile_size is card_tile_size:
+            t_best, t_det = card_tile_size(
+                a, b, config,
+                cutoff=element_bounds(expansion_products(a, b), config)[1])
+        else:
+            t_best, t_det = tile_size(a, b, config)
     t_tile = min(v["t_est"] for v in t_det.values())
     elem = estimate_element_time(a, b, config, tile_t=t_tile)
     choice = "element" if elem["t_est"] < t_tile else "tile"

@@ -23,6 +23,7 @@ from spada_tpu_torch.ops.worklist import build_worklist
 from spada_tpu_torch.plan.planner import ExecutionPlan, PanelSpec
 from spada_tpu_torch.sparse.bsr import BsrMatrix
 from spada_tpu_torch.sparse.csr import CsrMatrix
+from spada_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -118,11 +119,13 @@ def iter_plan_segments(a: CsrMatrix, b_bsr: BsrMatrix, plan: ExecutionPlan):
     for p in plan.panels:
         by_tm.setdefault(p.tm, []).append(p)
     for tm, panels in sorted(by_tm.items()):
-        sub, bases = _slice_rows_padded(a, panels, tm)
-        if sub.nnz == 0:
-            continue
-        a_bsr = BsrMatrix.from_csr(sub, tm, plan.tile_k, dtype=np.float32)
-        wl = build_worklist(a_bsr, b_bsr, order="row")
+        with trace.span("layout.structure", tm=tm) as attrs:
+            sub, bases = _slice_rows_padded(a, panels, tm)
+            if sub.nnz == 0:
+                continue
+            a_bsr = BsrMatrix.from_csr(sub, tm, plan.tile_k, dtype=np.float32)
+            wl = build_worklist(a_bsr, b_bsr, order="row")
+            attrs.update(items=wl.n_items, c_tiles=wl.n_c_tiles)
         if wl.n_items == 0:
             continue
         yield tm, panels, bases, a_bsr, wl
@@ -184,7 +187,6 @@ def execute_plan(a: CsrMatrix, b: CsrMatrix, plan: ExecutionPlan,
     keeps each launch's host worklist and f32 tiles in ``host_state``
     (``{"segments": [(wl, a_tiles, b_tiles, tm)], "tk", "tn"}``) so a
     timing can rerun exactly these launches."""
-    from spada_tpu_torch.utils import trace
     from spada_tpu_torch.convert import bsr_to_torch, c_tiles_to_numpy, check_device
     from spada_tpu_torch.ops.engine import run_worklist
     from spada_tpu_torch.ops.spgemm import (SpGemmResult, _count_useful_flops,
@@ -205,15 +207,12 @@ def execute_plan(a: CsrMatrix, b: CsrMatrix, plan: ExecutionPlan,
     t0 = time.perf_counter()
     for tm, panels, bases, a_bsr, wl in iter_plan_segments(a, b_bsr, plan):
         host_segs.append((wl, a_bsr.tiles, b_bsr.tiles, tm))
-        t_seg = time.perf_counter()
-        c_tiles = c_tiles_to_numpy(run_worklist(
-            wl, bsr_to_torch(a_bsr, dev, dtype), b_t,
-            precision=config.precision, engine=engine))
         # per-segment cost attribution (simulator.rs:589-603 analog)
-        trace.emit(
-            "segment", tm=tm, n_panels=len(panels), work_items=wl.n_items,
-            c_tiles=wl.n_c_tiles, dur_s=time.perf_counter() - t_seg,
-        )
+        with trace.span("segment", tm=tm, n_panels=len(panels),
+                        work_items=wl.n_items, c_tiles=wl.n_c_tiles):
+            c_tiles = c_tiles_to_numpy(run_worklist(
+                wl, bsr_to_torch(a_bsr, dev, dtype), b_t,
+                precision=config.precision, engine=engine))
         res = SpGemmResult(
             shape=(a_bsr.shape[0], b.shape[1]), tm=tm, tn=plan.tile_n,
             c_tiles=c_tiles, c_tile_row=wl.c_tile_row,

@@ -12,7 +12,7 @@ jit/shard_map friendly (static shapes, int32 index vectors).
 
 Copy of :mod:`spada_tpu.sparse.bsr`
 for spada_tpu_torch, held equal to it by ``tests/test_torch_host.py``; only
-the imports differ.
+the imports and the trace spans of ``BsrValueMap`` differ.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Tuple
 import numpy as np
 
 from spada_tpu_torch.sparse.csr import CsrMatrix
+from spada_tpu_torch.utils.trace import spanned
 
 
 def tiles_of_csr(m: CsrMatrix, tm: int, tn: int):
@@ -66,6 +67,7 @@ class BsrValueMap:
     dtype: object = np.float32
 
     @classmethod
+    @spanned("layout.structure")
     def from_structure(cls, m: CsrMatrix, tm: int, tn: int,
                        dtype=np.float32) -> "BsrValueMap":
         n_tile_rows = -(-m.shape[0] // tm)
@@ -94,6 +96,7 @@ class BsrValueMap:
                    (rows % tm).astype(np.int32), (cols % tn).astype(np.int32),
                    tile_col, tile_rowptr, counts, dtype)
 
+    @spanned("layout.fill", lambda self, data: {"tiles": self.n_tiles})
     def fill(self, data: np.ndarray) -> np.ndarray:
         """Scatter one CSR data array into a fresh [n_tiles, tm, tn] tile
         payload (duplicates accumulate, matching CSR semantics)."""
