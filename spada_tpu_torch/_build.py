@@ -43,10 +43,11 @@ build_log: Optional[str] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c, tm, tk, tn,
-    # block (int* out: the block the launch ran on), stream
-    "tile_spgemm_f32": [_P] * 6 + [_I] * 4 + [_P, _P],
-    "tile_spgemm_bf16": [_P] * 6 + [_I] * 4 + [_P, _P],
+    # a_tiles, b_tiles, a_tid, b_tid, tile_ptr, mask (null: every slice),
+    # c_tiles, n_c, tm, tk, tn, block (int* out: the block the launch ran
+    # on), stream
+    "tile_spgemm_f32": [_P] * 7 + [_I] * 4 + [_P, _P],
+    "tile_spgemm_bf16": [_P] * 7 + [_I] * 4 + [_P, _P],
     # bf16, tm, tk, tn, block (int* out), blocks per SM (int* out)
     "tile_spgemm_occupancy": [_I] * 4 + [_P, _P],
     # a, b, out, n, stream

@@ -24,6 +24,20 @@
 // f32 or rounded once to bf16; or Add: added into f32), gives the range's C
 // tiles that have no items as zeros, and starts again from zero.
 //
+// With a mask (tile_spgemm.cu alone; ops.engine.thin_slice_mask builds it
+// from A's values once per prepared launch) the sequence holds only the
+// slices whose BM x BK block of the item's A tile has a nonzero: one 32-bit
+// word per item and piece row, bit s for slice s, read beside a_tid and
+// b_tid.  The producer copies the set slices in ascending s, still as one
+// flat sequence; the consumer runs popcount(word) slice steps per item, so
+// an item with an empty word costs neither a copy nor a step, and a C tile
+// whose items all have one is written as zeros.  A skipped slice would
+// have added +0 to every d, so C is the unmasked C bit for bit where B is
+// finite.  With every bit set the masked loop took 1.3-6.3% longer than
+// the unmasked one (its word, popcount and lowest-bit search per item), so
+// the engine passes no mask where it would skip less than 1/16 of the
+// slice steps (ops.engine.MASK_MIN_SKIP).
+//
 // Arithmetic: tile_mma.cuh's, fragment for fragment.  f32 tiles 3xTF32 on
 // mma.sync.m16n8k8 (each operand split after its shared-memory read, small
 // terms first), bf16 tiles mma.sync.m16n8k16 with f32 sums; the mmas of one
@@ -54,7 +68,12 @@
 // What bounds it on an H100.  A thin item moves its B tile whole (tk x 128
 // per piece) and a fraction BM / 128 of a 128-row item's A rows and
 // products, so at tm <= 32 it is bound by reading B tiles (from L2 where
-// neighbouring row panels share them), not by the tensor cores.
+// neighbouring row panels share them), not by the tensor cores.  A masked
+// item moves only its set slices' B rows (BK x 128 each), so its bytes and
+// mmas scale with popcount(word).  On 32 x 32 block-pruned weights (1.15
+// slices per tm-32 item) a slice step took 6.23 ns against 5.60 unmasked:
+// the item's word, ids and the shorter stretch of slices between them add
+// about a tenth (PERF.md).
 //
 // Warp layout and ring depth, picked by measurement: 4 warps along the
 // columns (each BM x 32), a ring of 2 stages for f32 tiles and 3 for bf16
@@ -74,6 +93,13 @@
 //   bf16  16        0.737 0.714 0.716         0.740 0.716 0.751
 //   bf16  32        0.431 0.422 0.433         0.443 0.445 0.471
 //   bf16  64        0.301 0.301 0.307         0.320 0.317 0.334
+//
+// Masked, on the same card, one build of each f32 depth in one run:
+// the sweep's tile_spgemm cases, where the band's edge tiles skip a few
+// slices, f32 tm 8 / 16 / 32 / 64: 2.660 / 1.370 / 1.059 / 0.981 ms at 2
+// stages, 2.642 / 1.434 / 1.074 / 0.978 at 3; the benchmark's prefill-16k
+// tile (tm 32 x 128 x 128, 182,784 items, 28.68% of slices set): 1.306 ms
+// at 2 stages, 1.315 at 3 (4.092 and 4.053 unmasked).  2 stages stay.
 //
 // 8 warps (BM x 16 each, half the A-fragment reuse) lose on f32 tiles,
 // where the split's conversions count; fewer stages leave shared memory
@@ -277,12 +303,19 @@ __device__ __forceinline__ void slice_sums(
 // consecutive items with one o, added once.  A tiles are
 // [tm][tk], or with A_T k-transposed [tk][tm]; B tiles [tk][tn].  smem
 // holds STAGES stages of Shape<T, BM, A_T>.
-template <typename T, int BM, int STAGES, bool A_T, class OTile, class Out>
+//
+// MASKED: mask[w * (tm / BM) + row0 / BM] is item w's word for this piece
+// row, bit s set where slice s of its A rows holds a nonzero; only the set
+// slices are copied and multiplied, in ascending s.  An item with no bit
+// costs nothing, and a C tile whose items have none is written as zeros.
+template <typename T, int BM, int STAGES, bool A_T, bool MASKED = false,
+          class OTile, class Out>
 __device__ __forceinline__ void piece(
     const T* __restrict__ a_tiles, const T* __restrict__ b_tiles,
     const int32_t* __restrict__ a_tid, const int32_t* __restrict__ b_tid,
     OTile o_of, int lo, int hi, int c_first, int c_end, const Out& out,
-    int tm, int tk, int tn, int row0, int col0, unsigned char* smem) {
+    int tm, int tk, int tn, int row0, int col0, unsigned char* smem,
+    const uint32_t* __restrict__ mask = nullptr) {
   using S = Shape<T, BM, A_T>;
   constexpr int MT = S::kMT, NT = S::kNT, NTH = S::kThreads;
   static_assert(STAGES >= 2, "ring depth");
@@ -293,20 +326,34 @@ __device__ __forceinline__ void piece(
   const size_t a_size = (size_t)tm * tk, b_size = (size_t)tk * tn;
   // the piece's first A row: row0 of [tm][tk], or column row0 of [tk][tm]
   const size_t a_row0 = A_T ? (size_t)row0 : (size_t)row0 * tk;
+  // MASKED: item w's word is m_row[w * m_pitch]
+  const uint32_t* m_row = MASKED ? mask + row0 / BM : nullptr;
+  const size_t m_pitch = (size_t)(tm / BM);
 
-  // the next slice to copy: k-slice ik of item iw, whose piece rows of A
+  // the next slice to copy: k-slice ik of item iw (MASKED: the lowest bit
+  // of `bits`, the item's slices not yet copied), whose piece rows of A
   // start at a_w and columns of B at b_w
   int iw = lo, ik = 0;
+  uint32_t bits = 0;
   const T* a_w = a_tiles;
   const T* b_w = b_tiles;
-  if (lo < hi) {
-    a_w += (size_t)a_tid[lo] * a_size + a_row0;
-    b_w += (size_t)b_tid[lo] * b_size + col0;
-  }
+  // move iw to the next item with a slice to copy (MASKED) and point a_w,
+  // b_w at it
+  auto seek = [&]() {
+    if constexpr (MASKED) {
+      for (; iw < hi; ++iw)
+        if ((bits = m_row[iw * m_pitch]) != 0u) break;
+    }
+    if (iw < hi) {
+      a_w = a_tiles + (size_t)a_tid[iw] * a_size + a_row0;
+      b_w = b_tiles + (size_t)b_tid[iw] * b_size + col0;
+    }
+  };
+  seek();
   auto issue_next = [&](int stage) {
     if (iw < hi) {
       T* st = ring + stage * S::kElems;
-      const int k0 = ik * S::BK;
+      const int k0 = (MASKED ? __ffs((int)bits) - 1 : ik) * S::BK;
       // A: kRows x BK (natural) or BK x kRows (A_T) in 16-byte pieces
       constexpr int per_a = (A_T ? S::kRows : S::BK) / S::E;
       constexpr int n_a = (A_T ? S::BK : S::kRows) * per_a;
@@ -329,12 +376,16 @@ __device__ __forceinline__ void piece(
         cp_async16(st + S::kA + k * S::kBPitch + n,
                    b_w + (size_t)(k0 + k) * tn + n);
       }
-      if (++ik == k_steps) {
-        ik = 0;
-        if (++iw < hi) {
-          a_w = a_tiles + (size_t)a_tid[iw] * a_size + a_row0;
-          b_w = b_tiles + (size_t)b_tid[iw] * b_size + col0;
+      if constexpr (MASKED) {
+        bits &= bits - 1u;
+        if (bits == 0u) {
+          ++iw;
+          seek();
         }
+      } else if (++ik == k_steps) {
+        ik = 0;
+        ++iw;
+        seek();
       }
     }
     cp_async_commit();  // one group per slice, empty past the end
@@ -366,13 +417,19 @@ __device__ __forceinline__ void piece(
   int next_c = c_first;  // the first C tile not yet written
   for (int w = lo, k = 0; w < hi;) {
     const int o = o_of(w);
-    do {  // the slices of o's run
-      slice();
-      if (++k == k_steps) {
-        k = 0;
-        ++w;
-      }
-    } while (k != 0 || (w < hi && o_of(w) == o));
+    if constexpr (MASKED) {
+      do {  // the set slices of each item of o's run
+        for (int n = __popc(m_row[w * m_pitch]); n > 0; --n) slice();
+      } while (++w < hi && o_of(w) == o);
+    } else {
+      do {  // the slices of o's run
+        slice();
+        if (++k == k_steps) {
+          k = 0;
+          ++w;
+        }
+      } while (k != 0 || (w < hi && o_of(w) == o));
+    }
     for (; next_c < o; ++next_c)
       out.template put<true, S::kHalf>(next_c, row0, n0, lane, acc);
     out.template put<false, S::kHalf>(o, row0, n0, lane, acc);

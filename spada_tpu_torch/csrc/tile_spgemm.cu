@@ -48,7 +48,10 @@
 // Launch: tile_spgemm_f32 / tile_spgemm_bf16 (plain C interface for ctypes)
 // enqueue one kernel on the given stream, write the block it runs on to
 // *block (tile_pipe.cuh's kBlock*: 0 mma, 1 thin, 2 wide, 3 narrow) and
-// return cudaGetLastError().  tile_spgemm_occupancy launches nothing: it
+// return cudaGetLastError().  `mask`, null or the thin block's slice words
+// (uint32 [items][tm / BM], bit s: slice s of that piece row of the item's A
+// tile has a nonzero), skips the k-slices of A that are all zero; another
+// block with a mask is an invalid value.  tile_spgemm_occupancy launches nothing: it
 // reports the block a shape runs on and how many of it one SM holds at once.
 
 #include "tile_mma.cuh"
@@ -85,22 +88,25 @@ __global__ void __launch_bounds__(spada::mma::kThreads, 1)
 }
 
 // ---- thin: BM x 128 of one C tile per block, tensor cores -----------------
-template <typename T, int BM>
+// MASKED: only the k-slices that item w's words of `mask` set
+// (tile_mma_thin.cuh's piece)
+template <typename T, int BM, bool MASKED>
 __global__ void __launch_bounds__(32 * spada::thin::kWarpsN)
     tile_spgemm_thin(const T* __restrict__ a_tiles,
                      const T* __restrict__ b_tiles,
                      const int32_t* __restrict__ a_tid,
                      const int32_t* __restrict__ b_tid,
                      const int32_t* __restrict__ tile_ptr,
+                     const uint32_t* __restrict__ mask,
                      float* __restrict__ c_tiles, int tm, int tk, int tn) {
   extern __shared__ __align__(16) unsigned char smem[];
   const spada::mma::Place p = spada::thin::place<BM>(tm, tn);
   const int c = p.unit;
-  spada::thin::piece<T, BM, spada::thin::kStages<T>, false>(
+  spada::thin::piece<T, BM, spada::thin::kStages<T>, false, MASKED>(
       a_tiles, b_tiles, a_tid, b_tid, [c](int) { return c; }, tile_ptr[c],
       tile_ptr[c + 1], c, c + 1,
       spada::mma::Store<float>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn,
-      p.row0, p.col0, smem);
+      p.row0, p.col0, smem, mask);
 }
 
 // ---- wide: 128 x 128 of one C tile per block, 256 threads -----------------
@@ -195,10 +201,13 @@ __global__ void __launch_bounds__((BM / RM) * (kNarrowBN / kNarrowTN))
   }
 }
 
+// mask: null, or the thin block's slice words (tile_mma_thin.cuh's piece),
+// one per item and piece row; the other blocks take no mask.
 template <typename T>
 int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
-           const void* b_tid, const void* tile_ptr, void* c_tiles, int n_c,
-           int tm, int tk, int tn, int* block, void* stream) {
+           const void* b_tid, const void* tile_ptr, const void* mask,
+           void* c_tiles, int n_c, int tm, int tk, int tn, int* block,
+           void* stream) {
   if (n_c <= 0 || tm <= 0 || tk <= 0 || tn <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -207,7 +216,12 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
   const int32_t* ai = static_cast<const int32_t*>(a_tid);
   const int32_t* bi = static_cast<const int32_t*>(b_tid);
   const int32_t* tp = static_cast<const int32_t*>(tile_ptr);
+  const uint32_t* m = static_cast<const uint32_t*>(mask);
   float* c = static_cast<float*>(c_tiles);
+  // a word holds the slices of one item's piece row
+  if (m && (!spada::thin::takes<T>(tm, tk, tn) ||
+            tk / spada::mma::Op<T>::BK > 32))
+    return (int)cudaErrorInvalidValue;
   if (spada::mma::takes<T>(tm, tk, tn)) {
     *block = kBlockMma;
     const size_t smem = kStages * spada::mma::Stage<T>::kBytes;
@@ -223,12 +237,15 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
       constexpr int BM = decltype(rows)::value;
       using S = spada::thin::Shape<T, BM>;
       const size_t smem = spada::thin::kStages<T> * S::kBytes;
-      const int err = spada::allow_smem(tile_spgemm_thin<T, BM>, smem);
-      if (err) return err;
-      tile_spgemm_thin<T, BM>
-          <<<spada::thin::grid(n_c, tm, tn), S::kThreads, smem, s>>>(
-              a, b, ai, bi, tp, c, tm, tk, tn);
-      return (int)cudaGetLastError();
+      auto run = [&](auto kernel) {
+        const int err = spada::allow_smem(kernel, smem);
+        if (err) return err;
+        kernel<<<spada::thin::grid(n_c, tm, tn), S::kThreads, smem, s>>>(
+            a, b, ai, bi, tp, m, c, tm, tk, tn);
+        return (int)cudaGetLastError();
+      };
+      return m ? run(tile_spgemm_thin<T, BM, true>)
+               : run(tile_spgemm_thin<T, BM, false>);
     });
   }
   if (tm % kWide == 0 && tn % kWide == 0 && tk % kWideBK == 0) {
@@ -293,7 +310,7 @@ int occupancy(int tm, int tk, int tn, int* block, int* per_sm) {
     return spada::thin::with_rows(tm, [&](auto rows) {
       constexpr int BM = decltype(rows)::value;
       using S = spada::thin::Shape<T, BM>;
-      return resident(tile_spgemm_thin<T, BM>, S::kThreads,
+      return resident(tile_spgemm_thin<T, BM, false>, S::kThreads,
                       spada::thin::kStages<T> * S::kBytes, per_sm);
     });
   }
@@ -324,20 +341,20 @@ int occupancy(int tm, int tk, int tn, int* block, int* per_sm) {
 
 extern "C" int tile_spgemm_f32(const void* a_tiles, const void* b_tiles,
                                const void* a_tid, const void* b_tid,
-                               const void* tile_ptr, void* c_tiles, int n_c,
-                               int tm, int tk, int tn, int* block,
-                               void* stream) {
-  return launch<float>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr, c_tiles, n_c,
-                       tm, tk, tn, block, stream);
+                               const void* tile_ptr, const void* mask,
+                               void* c_tiles, int n_c, int tm, int tk, int tn,
+                               int* block, void* stream) {
+  return launch<float>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr, mask,
+                       c_tiles, n_c, tm, tk, tn, block, stream);
 }
 
 extern "C" int tile_spgemm_bf16(const void* a_tiles, const void* b_tiles,
                                 const void* a_tid, const void* b_tid,
-                                const void* tile_ptr, void* c_tiles, int n_c,
-                                int tm, int tk, int tn, int* block,
-                                void* stream) {
+                                const void* tile_ptr, const void* mask,
+                                void* c_tiles, int n_c, int tm, int tk,
+                                int tn, int* block, void* stream) {
   return launch<__nv_bfloat16>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr,
-                               c_tiles, n_c, tm, tk, tn, block, stream);
+                               mask, c_tiles, n_c, tm, tk, tn, block, stream);
 }
 
 // occupancy() of (tm, tk, tn) f32 (bf16 0) or bf16 (bf16 1) tiles.

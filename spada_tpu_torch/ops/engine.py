@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -181,16 +181,104 @@ def prepare_worklist(wl, a_tiles: torch.Tensor, b_tiles: torch.Tensor,
 
 
 def prepare_cached(a_tiles: torch.Tensor, b_tiles: torch.Tensor, a_ids,
-                   b_ids, o_ids, n_c_tiles: int
+                   b_ids, o_ids, n_c_tiles: int, a_fixed: bool = True
                    ) -> Callable[..., torch.Tensor]:
     """The ``'cached'`` engine's launch (:func:`tile_spgemm`) of a row-major
     worklist given as host id arrays, as a call: the ids are checked and
     uploaded here, once.  The call takes, in place of ``b_tiles``, other B
     tiles of the same shape, dtype and device (a halo round's received
-    tiles, whose values arrive later)."""
+    tiles, whose values arrive later).
+
+    On the thin block the call skips the k-slices of A that are all zero,
+    where they are enough to pay: their mask (:func:`thin_slice_mask`) is
+    built here, once, from A's values, and kept on the call as
+    ``call.mask`` (None off the thin block), with its counts ``slices``
+    and ``slices_run``.  So A's tiles
+    are fixed under a prepared call.  A caller that rewrites them in place
+    passes ``a_fixed=False``, and every slice then runs.  The call passes
+    :func:`tile_spgemm` its five operands alone: the mask rides on the
+    uploaded item ids, as ``slice_mask``."""
     a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
     ids = _on(a_tiles.device, a, b, tile_ptr_of(o, n_c_tiles))
-    return lambda b_now=b_tiles: tile_spgemm(a_tiles, b_now, *ids)
+    mask = (thin_slice_mask(a_tiles, ids[0], b_tiles.shape[2]) if a_fixed
+            else None)
+    if mask is not None:
+        ids[0].slice_mask = mask
+
+    def call(b_now=b_tiles):
+        return tile_spgemm(a_tiles, b_now, *ids)
+
+    call.mask = mask
+    return call
+
+
+class SliceMask(NamedTuple):
+    """The k-slices of A that :func:`tile_spgemm`'s thin block runs.
+
+    ``words`` int32 [W, tm // BM] (BM = ``min(tm, 64)``, the thin block's
+    piece rows; tm = 8 takes its 8 rows): bit s of item w's word for piece
+    row r is set where rows [r * BM, (r + 1) * BM) x columns [s * BK,
+    (s + 1) * BK) of A's tile ``a_tid[w]`` hold a nonzero (BK = 32 for f32
+    tiles, 64 for bf16; NaN and Inf count as nonzero); None where every
+    slice runs.  ``slices``: the slice steps of the launch without the
+    mask, W x (tk // BK) x pieces (:func:`thin_pieces`); ``slices_run``:
+    the steps it runs."""
+    words: Optional[torch.Tensor]
+    slices: int
+    slices_run: int
+
+
+#: elements of A one step of :func:`thin_slice_mask` reads: its temporaries
+#: stay a few MiB
+_MASK_CHUNK = 1 << 22
+
+#: the least share of a launch's slice steps the mask must skip to be used.
+#: With every bit set the masked block took 1.3-6.3% longer than the
+#: unmasked one (f32 tm 8 the most), and its time falls about as the steps
+#: it skips (PERF.md), so below this share it would not pay.
+MASK_MIN_SKIP = 1 / 16
+
+
+def thin_slice_mask(a_tiles: torch.Tensor, a_tid: torch.Tensor,
+                    tn: int) -> Optional[SliceMask]:
+    """The :class:`SliceMask` of the items ``a_tid`` (int32 [W], on the
+    tiles' device) over ``a_tiles`` [nA, tm, tk], built on the tiles'
+    device with one wait for it (the count).  Its ``words`` are None, and
+    every slice runs, where they would skip less than
+    :data:`MASK_MIN_SKIP` of the slice steps.  None where the launch does not run on the thin block
+    (:func:`tile_block`) or a word cannot hold an item's tk // BK slices
+    (more than 32)."""
+    tm, tk = a_tiles.shape[1], a_tiles.shape[2]
+    try:
+        if tile_block(tm, tk, tn, a_tiles.dtype) != "mma_thin":
+            return None
+    except ValueError:
+        return None
+    bk = 64 if a_tiles.dtype == torch.bfloat16 else 32
+    k_steps, bm = tk // bk, min(tm, 64)
+    if k_steps > 32:
+        return None
+    rows, dev = tm // bm, a_tiles.device
+    bit = torch.tensor([1 << s for s in range(k_steps)], dtype=torch.int64,
+                       device=dev)
+    # per tile: the word of each piece row, and its set bits
+    word = torch.empty((a_tiles.shape[0], rows), dtype=torch.int64,
+                       device=dev)
+    count = torch.empty_like(word)
+    chunk = max(1, _MASK_CHUNK // (tm * tk))
+    for s in range(0, a_tiles.shape[0], chunk):
+        hit = (a_tiles[s:s + chunk] != 0).view(
+            -1, rows, bm, k_steps, bk).any(4).any(2)
+        word[s:s + chunk] = (hit * bit).sum(2)
+        count[s:s + chunk] = hit.sum(2)
+    # bit 31 is int32's sign bit
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word)
+    ids = a_tid.long()
+    slices = int(ids.shape[0]) * k_steps * thin_pieces(tm, tn)
+    run = int(count.sum(1)[ids].sum()) * (tn // 128)
+    if slices - run < MASK_MIN_SKIP * slices:
+        return SliceMask(None, slices, slices)
+    return SliceMask(word.to(torch.int32)[ids], slices, run)
 
 
 def run_worklist_streaming(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
@@ -445,7 +533,8 @@ def tile_grid_reference(a_tiles, b_tiles, a_tid, b_tid, o_tid,
 
 def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                 a_tid: torch.Tensor, b_tid: torch.Tensor,
-                tile_ptr: torch.Tensor) -> torch.Tensor:
+                tile_ptr: torch.Tensor,
+                mask: Optional[SliceMask] = None) -> torch.Tensor:
     """C tiles [nC, tm, tn] f32 of an o-sorted worklist.
 
     ``a_tiles`` [nA, tm, tk] and ``b_tiles`` [nB, tk, tn] (f32 or bf16),
@@ -459,14 +548,32 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     counts as ``"tile_spgemm"`` in ``_build.launches``, and a launch of
     the thin block also as ``"tile_spgemm_thin"``: the kernel reports the
     block it ran on, and a block other than :func:`tile_block`'s raises.
+
+    ``mask`` (:func:`thin_slice_mask` of these A tiles and items; thin
+    block only) skips the k-slices of A that are all zero where its
+    ``words`` are given; None takes the
+    mask :func:`prepare_cached` left on ``a_tid`` (``a_tid.slice_mask``),
+    and where there is none every slice runs.  A skipped slice adds exactly
+    +0 to C where B is finite, so C is the same bit for bit; where B holds
+    an Inf or NaN, a skipped slice no longer turns it into NaN, as the
+    sparse product would not.  The plain version ignores the mask.  The
+    ``launch`` span carries the mask's ``slices`` and ``slices_run``.
     """
-    t = (trace.launch("tile_spgemm", items=int(a_tid.shape[0]))
+    if mask is None:
+        mask = getattr(a_tid, "slice_mask", None)
+    t = (trace.launch("tile_spgemm", items=int(a_tid.shape[0]),
+                      **({} if mask is None else
+                         {"slices": mask.slices,
+                          "slices_run": mask.slices_run}))
          if trace.active() else None)
     try:
         _check_tile_args("tile_spgemm", a_tiles, b_tiles, 2, a_tid=a_tid,
                          b_tid=b_tid, tile_ptr=tile_ptr)
         tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
         n_c = int(tile_ptr.shape[0]) - 1
+        words = None if mask is None else mask.words
+        if words is not None:
+            _check_mask(words, a_tiles, a_tid, tn)
         if a_tiles.device.type == "cpu":
             if t is not None:
                 t.step("launch.call", block="plain")
@@ -489,7 +596,9 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
         _launch_reporting("tile_spgemm", block, (tm, tk, tn), a_tiles, fn,
                           a_tiles.data_ptr(), b_tiles.data_ptr(),
                           a_tid.data_ptr(), b_tid.data_ptr(),
-                          tile_ptr.data_ptr(), c.data_ptr(), n_c, tm, tk, tn)
+                          tile_ptr.data_ptr(),
+                          None if words is None else words.data_ptr(),
+                          c.data_ptr(), n_c, tm, tk, tn)
         return c
     finally:
         if t is not None:
@@ -743,6 +852,20 @@ def _launch_reporting(kernel: str, block: str, shape: tuple, like, fn,
                            f"{got} block, tile_block names {block}")
     if block == "mma_thin":
         _build.launches[f"{kernel}_thin"] += 1
+
+
+def _check_mask(words, a_tiles, a_tid, tn: int) -> None:
+    """Raise where ``words`` is not a slice mask the thin block can read
+    for these items (:class:`SliceMask`)."""
+    tm, tk = a_tiles.shape[1], a_tiles.shape[2]
+    if tile_block(tm, tk, tn, a_tiles.dtype) != "mma_thin":
+        raise ValueError(f"tile_spgemm: a slice mask is for the thin block; "
+                         f"tm={tm} tk={tk} tn={tn} does not run on it")
+    want = (a_tid.shape[0], tm // min(tm, 64))
+    if (words.dtype != torch.int32 or tuple(words.shape) != want
+            or words.device != a_tiles.device or not words.is_contiguous()):
+        raise ValueError(f"tile_spgemm: the slice mask must be contiguous "
+                         f"int32 {list(want)} on {a_tiles.device}")
 
 
 def _check_tile_args(kernel: str, a_tiles, b_tiles, a_k_dim: int,

@@ -75,8 +75,9 @@ class TileRefresh:
         self.wl = wl = build_worklist(a_bsr, b_bsr, order="row")
         self.a_t = bsr_to_torch(a_bsr, dev, dtype)
         self.b_t = bsr_to_torch(b_bsr, dev, dtype)
+        # upload() rewrites A's tiles under the call: no slice mask
         self.launch = prepare_cached(self.a_t, self.b_t, wl.a_tid, wl.b_tid,
-                                     wl.o_tid, wl.n_c_tiles)
+                                     wl.o_tid, wl.n_c_tiles, a_fixed=False)
 
     def fill(self, a_data: np.ndarray, b_data: np.ndarray) -> tuple:
         """The host tile payloads of new values (f32)."""

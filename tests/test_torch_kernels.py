@@ -87,6 +87,106 @@ def test_tile_kernel_matches_plain(cuda_device, tm, tk, tn, dtype, runs):
     assert bool((got[dev(runs == 0)] == 0).all())
 
 
+# items per C tile for the masked launch: empty runs (C tiles 1 and 6), C
+# tiles whose every item has an empty mask (2 and 4), a 64-item run (7)
+MASK_RUNS = [3, 0, 1, 5, 2, 4, 0, 64, 1]
+
+
+def _masked_and_unmasked(a, b, ai, bi, o_ids, n_c, dev):
+    """tile_spgemm of the worklist with and without the slice mask of A
+    (kept whatever share it skips), each one launch of the thin block; and
+    the mask."""
+    tp = dev(tile_ptr_of(o_ids, n_c))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine, "MASK_MIN_SKIP", 0)
+        mask = engine.thin_slice_mask(a, ai, b.shape[2])
+    before = _build.launches.copy()
+    got = tile_spgemm(a, b, ai, bi, tp, mask=mask)
+    full = tile_spgemm(a, b, ai, bi, tp)
+    torch.cuda.synchronize()
+    assert _build.launches - before == collections.Counter(
+        {"tile_spgemm": 2, "tile_spgemm_thin": 2})
+    return got, full, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kept", [0.4, 1.0])
+@pytest.mark.parametrize("tk", [128, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tm", [8, 16, 32, 64, 192])
+def test_masked_thin_launch_equals_unmasked(cuda_device, tm, dtype, tk,
+                                            kept):
+    """The thin block with the slice mask of A skips the k-slices that are
+    all zero and gives the unmasked launch's C bit for bit (a skipped
+    slice adds exactly +0): A's BM x BK blocks kept at random (``kept``
+    0.4) or all (1.0), a tile that is all zero (its items' masks empty), C
+    tiles whose every item has an empty mask, empty runs and a 64-item
+    run; tn 256, two column pieces."""
+    bk, bm = (64 if dtype == torch.bfloat16 else 32), min(tm, 64)
+    rng = np.random.default_rng(tm * 3 + tk)
+    runs = np.array(MASK_RUNS)
+    n_c, w, n_a = len(runs), int(runs.sum()), 6
+    o_ids = np.repeat(np.arange(n_c), runs).astype(np.int32)
+    a = rng.standard_normal((n_a, tm // bm, bm, tk // bk, bk)).astype(
+        np.float32)
+    a *= rng.random((n_a, tm // bm, 1, tk // bk, 1)) < kept
+    a = a.reshape(n_a, tm, tk)
+    a[0] = 0
+    a_ids = rng.integers(1, n_a, w).astype(np.int32)
+    a_ids[np.isin(o_ids, [2, 4])] = 0
+
+    def dev(x, dt=None):
+        return torch.from_numpy(x).to(cuda_device, dt)
+
+    a, ai = dev(a, dtype), dev(a_ids)
+    b = dev(rng.standard_normal((3, tk, 256), np.float32), dtype)
+    bi = dev(rng.integers(0, 3, w).astype(np.int32))
+    got, full, mask = _masked_and_unmasked(a, b, ai, bi, o_ids, n_c, dev)
+    assert 0 < mask.slices_run < mask.slices
+    assert torch.equal(got, full)
+    assert bool((got[dev(np.isin(np.arange(n_c), [1, 2, 4, 6]))] == 0).all())
+    ref = run_worklist_reference(a, b, ai, bi, dev(o_ids), n_c)
+    assert _relerr(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_launch_on_block_pruned_weights(cuda_device, dtype):
+    """A 1024 x 4096 weight pruned in 32 x 32 blocks (10% kept, as the
+    benchmark's W2) in 32 x 128 tiles times dense 128 x 128 tiles of H: the
+    masked launch runs the kept blocks' slices only and gives the unmasked
+    launch's C."""
+    rng = np.random.default_rng(1301)
+    keep = rng.random((32, 128)) < 0.1
+    w2 = rng.random((1024, 4096), np.float32) - 0.5
+    w2 *= np.kron(keep, np.ones((32, 32), np.float32))
+    tiles = w2.reshape(32, 32, 32, 128).swapaxes(1, 2)   # [row, k, 32, 128]
+    nz = np.argwhere(tiles.any(axis=(2, 3)))
+    n_cols = 4                                           # C tile columns
+    items = [(t, k * n_cols + c, r * n_cols + c)
+             for t, (r, k) in enumerate(nz) for c in range(n_cols)]
+    items.sort(key=lambda x: x[2])
+    a_ids, b_ids, o_ids = (np.array(x, np.int32) for x in zip(*items))
+
+    def dev(x, dt=None):
+        return torch.from_numpy(x).to(cuda_device, dt)
+
+    a = dev(np.ascontiguousarray(tiles[nz[:, 0], nz[:, 1]]), dtype)
+    b = dev(rng.random((32 * n_cols, 128, 128), np.float32), dtype)
+    n_c = 32 * n_cols
+    got, full, mask = _masked_and_unmasked(a, b, dev(a_ids), dev(b_ids),
+                                           o_ids, n_c, dev)
+    bk = 64 if dtype == torch.bfloat16 else 32
+    kept = keep.reshape(32, 32, 128 // bk, bk // 32).any(3)[nz[:, 0],
+                                                           nz[:, 1]]
+    assert mask.slices == len(items) * (128 // bk)
+    assert mask.slices_run == int(kept.sum()) * n_cols
+    assert torch.equal(got, full)
+    ref = run_worklist_reference(a, b, dev(a_ids), dev(b_ids), dev(o_ids),
+                                 n_c)
+    assert _relerr(got, ref) <= 1e-5
+
+
 @pytest.mark.cuda
 def test_tile_kernel_rejects_what_it_cannot_take(cuda_device):
     a = torch.zeros((1, 24, 64), device=cuda_device)

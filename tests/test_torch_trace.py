@@ -124,6 +124,26 @@ def test_a_prepared_launch_records_only_while_tracing(fresh, kind, on):
     assert len(new) == 3
 
 
+def test_a_thin_launch_span_carries_its_slices(fresh):
+    """The prepared ``'cached'`` launch of thin tiles (tm 32 x tk 32 x tn
+    128, one slice each) builds its slice mask; every item's one slice
+    holds a nonzero, so every slice runs.  Its ``launch`` span carries the
+    mask's counts, and a launch with no mask carries none."""
+    call = _prepared("cached")
+    mask = call.mask
+    assert mask.words is None
+    assert mask.slices_run == mask.slices > 0
+    trace.enable(True)
+    call()
+    (launch,) = trace.spans("launch")
+    assert launch.attrs["slices"] == mask.slices
+    assert launch.attrs["slices_run"] == mask.slices_run
+    trace.clear()
+    _prepared("streaming")()
+    (launch,) = trace.spans("launch")
+    assert "slices" not in launch.attrs and "slices_run" not in launch.attrs
+
+
 def test_top_level_spans_show_in_the_profiler_on_its_clock(fresh):
     call = _prepared("cached")
     # the first profiler range of a process sets up the profiler's state
