@@ -557,11 +557,13 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     +0 to C where B is finite, so C is the same bit for bit; where B holds
     an Inf or NaN, a skipped slice no longer turns it into NaN, as the
     sparse product would not.  The plain version ignores the mask.  The
-    ``launch`` span carries the mask's ``slices`` and ``slices_run``.
+    ``launch`` span carries the mask's ``slices`` and ``slices_run``, and
+    ``macs`` (:func:`launch_macs`).
     """
     if mask is None:
         mask = getattr(a_tid, "slice_mask", None)
     t = (trace.launch("tile_spgemm", items=int(a_tid.shape[0]),
+                      macs=launch_macs(a_tiles, b_tiles, a_tid, mask),
                       **({} if mask is None else
                          {"slices": mask.slices,
                           "slices_run": mask.slices_run}))
@@ -603,6 +605,20 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     finally:
         if t is not None:
             t.end()
+
+
+def launch_macs(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
+                a_tid: torch.Tensor, mask: Optional[SliceMask] = None) -> int:
+    """The multiply-adds a tile launch of the items ``a_tid`` runs: tm x tk
+    x tn per item (``a_tiles`` [nA, tm, tk], or k-transposed, ``b_tiles``
+    [nB, tk, tn]), scaled by the slice steps ``mask`` runs of its
+    ``slices`` where it skips A's all-zero k-slices.  The ``launch`` span's
+    ``macs``: the wrappers count it only while spans are recorded."""
+    macs = (int(a_tid.shape[0]) * a_tiles.shape[1] * a_tiles.shape[2]
+            * b_tiles.shape[2])
+    if mask is not None and mask.words is not None:
+        macs = macs * mask.slices_run // mask.slices
+    return macs
 
 
 def tile_resident_blocks(tm: int, tk: int, tn: int, dtype,
@@ -651,7 +667,8 @@ def tile_stream(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     tensor-core blocks); a launch of the thin block also counts as
     ``"tile_stream_thin"``, from the block the kernel reports.
     """
-    t = (trace.launch("tile_stream", items=int(a_tid.shape[0]))
+    t = (trace.launch("tile_stream", items=int(a_tid.shape[0]),
+                      macs=launch_macs(a_tiles, b_tiles, a_tid))
          if trace.active() else None)
     try:
         _check_tile_args("tile_stream", a_tiles, b_tiles, 2, a_tid=a_tid,
@@ -709,7 +726,8 @@ def tile_panel(a_tiles_t: torch.Tensor, b_tiles: torch.Tensor,
     the tensor-core blocks); a launch of the thin block also counts as
     ``"tile_panel_thin"``, from the block the kernel reports.
     """
-    t = (trace.launch("tile_panel", items=int(a_tid.shape[0]))
+    t = (trace.launch("tile_panel", items=int(a_tid.shape[0]),
+                      macs=launch_macs(a_tiles_t, b_tiles, a_tid))
          if trace.active() else None)
     try:
         _check_tile_args("tile_panel", a_tiles_t, b_tiles, 1, a_tid=a_tid,
@@ -774,7 +792,8 @@ def _tile_grid_launch(a_tiles, b_tiles, a_tid, b_tid, o_tid, n_c_tiles: int,
     """:func:`tile_grid` with the thin path's G given (``chunk``; None:
     :func:`grid_chunk`'s), for the tests and the sweep that measure the
     rule."""
-    t = (trace.launch("tile_grid", items=int(a_tid.shape[0]))
+    t = (trace.launch("tile_grid", items=int(a_tid.shape[0]),
+                      macs=launch_macs(a_tiles, b_tiles, a_tid))
          if trace.active() else None)
     try:
         _check_tile_args("tile_grid", a_tiles, b_tiles, 2, a_tid=a_tid,
