@@ -46,10 +46,14 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    (its T = 512 plan runs the tensor-core block at full width whatever the
    fit picks; the run fails if neither plan reaches that block): each
    dispatched to the tile kernel, gated against scipy/numpy on its first
-   2048 rows (max|d|/max|ref| < 1e-4), on every plan segment kernel and
-   plain version compared (<= 1e-5) and timed, each labelled with the block
-   it runs on; ``measure_device_perf`` on the run's ``host_state`` within
-   10% of the sum of those kernel times, its shares at most 100%; then (4b) ``spgemm_csr`` on the pair in 4 output slabs of
+   2048 rows (max|d|/max|ref| < 1e-4), on every plan segment the direct
+   ``tile_spgemm`` launch (the kernels line's ``tile_spgemm`` row), the
+   main path's prepared launch (on the warpgroup block where it takes the
+   segment) and the plain version compared (<= 1e-5) and timed, each
+   labelled with the block it runs on; ``measure_device_perf`` on the
+   run's ``host_state`` within 10% of the sum of the prepared launches'
+   times, its shares at most 100%; then (4b) ``spgemm_csr`` on the pair in
+   4 output slabs of
    64 MB of C tiles, one ``tile_spgemm`` launch each, gated the same way,
    its peak device memory beside a one-shot ``spgemm``'s; then (4c) the
    thin-panel sweep (``tools/sweep_thin``): the banded 32768^2 pair
@@ -59,10 +63,17 @@ the port's main path, ``spgemm(dataflow="spada")`` through the CLI and
    ``tile_panel``, f32 output; ``tile_grid``), one launch per case, each
    against its plain version (<= 1e-5) and scipy (f32 < 1e-4, bf16 <
    1e-2), ``tile_stream`` at ogroup 1 and ``tile_panel`` bit for bit
-   ``tile_spgemm``'s C, printed with its block, ms, W, ns per item, bound,
-   and one ``torch.bmm`` of 16384 gathered item pairs as ns per item (for
-   the f32 tm-64 case of the kernels line also one of all W pairs, in
-   ms);
+   ``tile_spgemm``'s C on their block (the direct launch's where the
+   prepared one runs on the warpgroup block), printed with its block, ms,
+   W, ns per item, bound, and one ``torch.bmm`` of 16384 gathered item
+   pairs as ns per item (for the f32 tm-64 case of the kernels line also
+   one of all W pairs, in ms); then (4d) ``tools/sweep_wgmma``: the
+   expert cell's tile shape (8 experts of about 4096 rows, tm 64, T 256,
+   8 k-tiles x 28 columns, panels that straddle two experts), the thin
+   block and the warpgroup block each against the plain version and the
+   float64 product (<= 1e-5 of max|C|) and timed, beside the bound, the
+   plain version and one batched ``torch.matmul`` (the kernels line's
+   ``tile_spgemm_wg`` row);
 5. the localized power-law pair (65536^2, degree 32): dispatched to the
    element side, one grouped launch per multiply and no per-class launch,
    gated against scipy on 2048 rows (< 1e-3); on every class the per-class
@@ -671,16 +682,19 @@ def plan_blocks(run) -> str:
 
 def nn_segments(dev, run, kind, errs: dict, label: str) -> tuple:
     """Phase 4's tile_spgemm against its plain version on every segment of
-    ``run``'s plan, each timed beside it.  Returns (kernel s, plain s,
-    [(bound s, by)])."""
+    ``run``'s plan, each timed beside it: the direct launch (on
+    tile_block's block) and the main path's prepared one.  Returns (direct
+    s, plain s, prepared s, [(bound s, by)])."""
     import torch
 
     from spada_tpu_torch.config import roofline_bound, tile_work
     from spada_tpu_torch.convert import worklist_to_torch
-    from spada_tpu_torch.ops.engine import (run_worklist_reference,
+    from spada_tpu_torch.ops.engine import (prepare_cached,
+                                            run_worklist_reference,
                                             tile_block, tile_spgemm)
+    from spada_tpu_torch.utils.timing import cuda_time
 
-    t_kernel = t_plain = 0.0
+    t_kernel = t_plain = t_main = 0.0
     bounds = []
     a_sp, b_sp = run.a.to_scipy(), run.b.to_scipy()
     tk, tn = run.result.host_state["tk"], run.result.host_state["tn"]
@@ -688,22 +702,33 @@ def nn_segments(dev, run, kind, errs: dict, label: str) -> tuple:
         a_t = torch.from_numpy(a_np).to(dev)
         b_t = torch.from_numpy(b_np).to(dev)
         dwl = worklist_to_torch(wl, dev)
+        block = tile_block(tm, tk, tn, a_np.dtype)
 
         def kernel():
             return tile_spgemm(a_t, b_t, dwl.a_tid, dwl.b_tid, dwl.tile_ptr)
+
+        # the main path's launch: on the warpgroup block where it takes
+        # the segment
+        main = prepare_cached(a_t, b_t, wl.a_tid, wl.b_tid, wl.o_tid,
+                              wl.n_c_tiles)
 
         def plain():
             return run_worklist_reference(a_t, b_t, dwl.a_tid, dwl.b_tid,
                                           dwl.o_tid, dwl.n_c_tiles)
 
-        g, r = kernel(), plain()
-        e = relerr(g.cpu().numpy(), r.cpu().numpy())
-        require(e <= 1e-5, f"nn [{label}] segment tm={tm}: kernel vs plain "
-                f"{e:.3e}")
-        errs["tile_spgemm"] = max(errs["tile_spgemm"],
-                                  float((g - r).abs().max()))
-        del g, r
+        r = plain()
+        for name, call in (("tile_spgemm", kernel), (
+                "tile_spgemm_wg" if main.block == "mma_wg"
+                else "tile_spgemm", main)):
+            g = call()
+            e = relerr(g.cpu().numpy(), r.cpu().numpy())
+            require(e <= 1e-5, f"nn [{label}] segment tm={tm}: {name} vs "
+                    f"plain {e:.3e}")
+            errs[name] = max(errs[name], float((g - r).abs().max()))
+            del g
+        del r
         tk_s, tp_s = time_pair(kernel, plain)
+        tm_s = cuda_time(main, warmup=1, reps=10)[0]
         tile_flops = 2 * wl.n_items * tm * tk * tn
         seg_rows = np.concatenate([np.arange(p.row_start, p.row_end)
                                    for p in run.plan.panels if p.tm == tm])
@@ -713,17 +738,19 @@ def nn_segments(dev, run, kind, errs: dict, label: str) -> tuple:
                                  matmul=True)
         bounds.append((b_s, by))
         log(f"  [{label}] segment tm={tm} tk=tn={tk} on the "
-            f"{tile_block(tm, tk, tn, a_np.dtype)} block: W={wl.n_items} "
+            f"{block} block: W={wl.n_items} "
             f"nC={wl.n_c_tiles}, {flops / 1e9:.1f} GFLOP of products in "
             f"{tile_flops / 1e9:.1f} of whole tiles, {nbytes / 1e9:.3f} GB"
             f"  kernel {tk_s * 1e3:.3f} ms ({tile_flops / tk_s / 1e12:.2f} "
             f"tile TFLOP/s)  plain {tp_s * 1e3:.3f} ms "
             f"({tile_flops / tp_s / 1e12:.2f})  bound {b_s * 1e3:.3f} ms "
-            f"({by})  kernel vs plain max|d|/max|ref| {e:.2e}")
+            f"({by})  prepared on the {main.block} block {tm_s * 1e3:.3f} "
+            f"ms")
         t_kernel += tk_s
         t_plain += tp_s
-        del a_t, b_t, dwl
-    return t_kernel, t_plain, bounds
+        t_main += tm_s
+        del a_t, b_t, dwl, main
+    return t_kernel, t_plain, t_main, bounds
 
 
 def run_nn(dev, kind: str, totals: dict, errs: dict, times: dict,
@@ -774,15 +801,17 @@ def run_nn(dev, kind: str, totals: dict, errs: dict, times: dict,
         log(f"  [{label}] gate vs scipy/numpy f64, rows [0, {rows}): "
             f"max|d|/max|ref| = {err:.2e} (limit 1e-4)")
         require(err < 1e-4, f"nn [{label}] gate failed: relerr {err:.3e}")
-        t_kernel, t_plain, bounds = nn_segments(dev, run, kind, errs, label)
+        t_kernel, t_plain, t_main, bounds = nn_segments(dev, run, kind, errs,
+                                                        label)
         perf = measure_device_perf(run.a, run.b, run.config, "spada",
                                    plan=run.plan,
                                    host_state=run.result.host_state,
                                    device=dev)
-        gap = abs(perf["engine_s"] - t_kernel) / t_kernel
+        gap = abs(perf["engine_s"] - t_main) / t_main
         log(f"  [{label}] measure_device_perf: engine "
-            f"{perf['engine_s'] * 1e3:.3f} ms (the segments' tile_spgemm "
-            f"times sum to {t_kernel * 1e3:.3f} ms, {gap:.1%} apart), "
+            f"{perf['engine_s'] * 1e3:.3f} ms (the segments' prepared "
+            f"launches' times sum to {t_main * 1e3:.3f} ms, {gap:.1%} "
+            f"apart), "
             f"{perf['flops_per_s'] / 1e12:.2f} TFLOP/s of whole tiles, "
             f"{perf['mxu_util_pct']:.1f}% of the tensor-core peak, "
             f"{perf['pct_hbm_sol']:.1f}% of HBM SoL ({perf['hbm_gbps']:.0f} "
@@ -873,19 +902,23 @@ def run_spgemm_csr(dev, run, ref_rows, totals: dict,
 #: blocks: cari's panel height (T = 128, tm 64) and the main path's tile
 #: dtype
 THIN_LINE_CASE = ("float32", 64)
-#: the kernels line's thin rows: kernel -> the sweep case it reads
-THIN_LINE_ROWS = {"tile_spgemm_thin": "tile_spgemm",
-                  "tile_stream_thin": "tile_stream og=1",
-                  "tile_panel_thin": "tile_panel",
-                  "tile_grid_thin": "tile_grid"}
+#: the kernels line's thin rows: kernel -> the sweep cases it reads, on
+#: the thin block (tile_spgemm's direct case where the prepared one runs
+#: on the warpgroup block)
+THIN_LINE_ROWS = {"tile_spgemm_thin": ("tile_spgemm", "tile_spgemm direct"),
+                  "tile_stream_thin": ("tile_stream og=1",),
+                  "tile_panel_thin": ("tile_panel",),
+                  "tile_grid_thin": ("tile_grid",)}
 
 
 def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
                    extra: dict) -> None:
     """tools/sweep_thin on the banded 32768^2 pair at T = 128, every tile
     kernel on each (dtype, tm)'s operands: one launch per case, each gated
-    and timed; every tm below 128 on the thin block, tm 128 on the wide
-    one."""
+    and timed; every tm below 128 on the thin block (tile_spgemm's
+    prepared f32 tm-64 case on the warpgroup block where no slice mask is
+    kept, its direct case beside it), tm 128 on the wide one."""
+    from spada_tpu_torch.ops.engine import EXTRA_COUNT
     from spada_tpu_torch.tools import sweep_thin
 
     def say(text):
@@ -900,24 +933,30 @@ def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
                               engines=sweep_thin.ENGINES, ab=ab, log=say)
     # phase 10 (f) reads the tile_spgemm cases' item overheads
     extra["thin_sweep"] = (rows, ab)
+    # the warpgroup block takes tile_spgemm's prepared f32 tm-64 case
+    # where no slice mask is kept
     require(all(r["block"] == ("mma_thin" if r["tm"] < 128 else "mma")
+                or (r["block"] == "mma_wg" and r["engine"] == "tile_spgemm"
+                    and (r["dtype"], r["tm"]) == ("float32", 64))
                 for r in rows),
             f"phase 4c: blocks "
             f"{[(r['engine'], r['tm'], r['block']) for r in rows]}")
     want = {}
     for r in rows:
         want[r["kernel"]] = want.get(r["kernel"], 0) + 1
-        if r["block"] == "mma_thin":
-            key = r["kernel"] + "_thin"
+        if r["block"] in EXTRA_COUNT:
+            key = r["kernel"] + EXTRA_COUNT[r["block"]]
             want[key] = want.get(key, 0) + 1
     require(counts == want, f"phase 4c: launches {counts}, one per case "
             f"expected: {want}")
     require(all(r["same_bits"] for r in rows
                 if r["engine"] in sweep_thin.BITWISE),
             "phase 4c: a case is not tile_spgemm's C bit for bit")
-    for name, engine in THIN_LINE_ROWS.items():
-        thin = [r for r in rows
-                if r["engine"] == engine and r["block"] == "mma_thin"]
+    errs["tile_spgemm_wg"] = max([errs["tile_spgemm_wg"]] + [
+        r["plain_abs_err"] for r in rows if r["block"] == "mma_wg"])
+    for name, engines in THIN_LINE_ROWS.items():
+        thin = [r for r in rows if r["engine"] in engines
+                and r["block"] == "mma_thin"]
         errs[name] = max(errs[name], max(r["plain_abs_err"] for r in thin))
         r = next(r for r in thin if (r["dtype"], r["tm"]) == THIN_LINE_CASE)
         times[name] = (r["ms"] * 1e-3, r["plain_ms"] * 1e-3)
@@ -926,6 +965,37 @@ def run_thin_sweep(dev, totals: dict, errs: dict, times: dict,
                                    "gathered item pairs")}
     log(f"  phase 4c: launches {counts}, {time.perf_counter() - t0:.1f} s, "
         f"on {smi_name_power()}")
+
+
+def run_wgmma_sweep(dev, totals: dict, errs: dict, times: dict,
+                    extra: dict) -> None:
+    """tools/sweep_wgmma at the expert cell's tile shape: the thin block's
+    direct launch and the main path's prepared launch on the warpgroup
+    block, each gated (<= 1e-5 of max|C| against the plain version and
+    float64, in the tool) and timed; the kernels line's tile_spgemm_wg
+    row."""
+    from spada_tpu_torch.tools import sweep_wgmma
+
+    t0 = time.perf_counter()
+    with main_path(totals) as counts:
+        rows = sweep_wgmma.run(device=dev, log=lambda s: log("  " + s))
+    require([(r["kernel"], r["block"]) for r in rows]
+            == [("thin", "mma_thin"), ("wg", "mma_wg")]
+            and rows[1]["launches"] == {"tile_spgemm": 1,
+                                        "tile_spgemm_wg_thin": 1},
+            f"phase 4d: blocks and launches {rows}")
+    require(counts == {"tile_spgemm": 2, "tile_spgemm_thin": 1,
+                       "tile_spgemm_wg_thin": 1},
+            f"phase 4d: launches {counts}")
+    r = rows[1]
+    errs["tile_spgemm_wg"] = max(errs["tile_spgemm_wg"], r["plain_abs_err"])
+    times["tile_spgemm_wg"] = (r["ms"] * 1e-3, r["plain_ms"] * 1e-3)
+    extra["tile_spgemm_wg"] = {
+        "bound": (r["bound_ms"] * 1e-3, r["bound_by"]),
+        "library": (r["lib_ms"] * 1e-3, "torch.matmul of the dense expert "
+                    "blocks")}
+    log(f"  phase 4d: {time.perf_counter() - t0:.1f} s, on "
+        f"{smi_name_power()}")
 
 
 # --------------------------------------------------------------------------
@@ -2127,7 +2197,8 @@ def sweep_points(thin_sweep) -> list:
     bt = BTileStructure(b, 128, 128)      # phase 4c's T
     counts, points = {}, []
     for r in rows:
-        if r["engine"] != "tile_spgemm":
+        # the blocks the planner prices
+        if r["kernel"] != "tile_spgemm" or r["block"] == "mma_wg":
             continue
         tm, dt = r["tm"], r["dtype"]
         if tm not in counts:
@@ -2324,7 +2395,8 @@ def main() -> int:
             log("    " + line.strip())
     check_tensor_cores()
 
-    errs = dict.fromkeys(("tile_spgemm", "tile_spgemm_thin", "tile_stream",
+    errs = dict.fromkeys(("tile_spgemm", "tile_spgemm_thin",
+                          "tile_spgemm_wg", "tile_stream",
                           "tile_stream_thin", "tile_panel", "tile_panel_thin",
                           "tile_grid", "tile_grid_thin", "esc_stream_mul",
                           "esc_stream_red",
@@ -2352,6 +2424,8 @@ def main() -> int:
     log("== phase 4c: the thin-panel sweep (the four tile kernels, T = 128, "
         "tm 8-128)")
     run_thin_sweep(dev, totals, errs, times, extra)
+    log("== phase 4d: the warpgroup block at the expert cell's tile shape")
+    run_wgmma_sweep(dev, totals, errs, times, extra)
     log("== phase 5: locpl pair, element side")
     run_locpl(dev, cfg, totals, errs, times, extra)
     log("== phase 6: nn pair under each engine override, phase 4's plans")
@@ -2388,6 +2462,9 @@ def main() -> int:
                "tile_spgemm_thin": ("spada_tpu_torch/csrc/tile_spgemm.cu",
                                     "spada_tpu/ops/engine.py:726",
                                     "tile_spgemm_thin"),
+               "tile_spgemm_wg": ("spada_tpu_torch/csrc/tile_wgmma.cuh",
+                                  "spada_tpu/ops/engine.py:726",
+                                  "tile_spgemm_wg"),
                "tile_stream": ("spada_tpu_torch/csrc/tile_stream.cu",
                                "spada_tpu/ops/engine.py:363", "nn"),
                "tile_stream_thin": ("spada_tpu_torch/csrc/tile_stream.cu",
@@ -2429,13 +2506,16 @@ def main() -> int:
                    "spada_tpu_torch/csrc/tile_probe_mma.cuh",
                    "tools/probe_kernel.py:153, tools/probe_manual.py:375",
                    "tile_probe")}
+    # a kernel's launches, where they count under another name
+    counted_as = {"tile_spgemm_wg": "tile_spgemm_wg_thin"}
     kernels = []
     for name, (src, replaces, key) in sources.items():
-        require(totals.get(name, 0) > 0, f"{name} never ran on the main path")
+        launches = totals.get(counted_as.get(name, name), 0)
+        require(launches > 0, f"{name} never ran on the main path")
         (b_s, by), (lib_s, _) = extra[key]["bound"], extra[key]["library"]
         require(lib_s is not None, f"{name}: no library time")
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": totals[name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": errs[name],
                         "ms": times[name][0] * 1e3,
                         "plain_ms": times[name][1] * 1e3,

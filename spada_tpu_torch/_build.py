@@ -48,6 +48,10 @@ _SIGNATURES = {
     # on), stream
     "tile_spgemm_f32": [_P] * 7 + [_I] * 4 + [_P, _P],
     "tile_spgemm_bf16": [_P] * 7 + [_I] * 4 + [_P, _P],
+    # a_tiles, b_tiles, a_tid, b_tid, tile_ptr, units (the warpgroup
+    # block's schedule), n_units, c_tiles, n_a, n_b, tm, tk, tn, block (as
+    # tile_spgemm's), stream
+    "tile_spgemm_wg_f32": [_P] * 6 + [_I, _P] + [_I] * 5 + [_P, _P],
     # bf16, tm, tk, tn, block (int* out), blocks per SM (int* out)
     "tile_spgemm_occupancy": [_I] * 4 + [_P, _P],
     # a, b, out, n, stream

@@ -139,8 +139,15 @@ int with_geo(int tm, int tk, int tn, F f) {
 // The block a launch ran on, as tile_spgemm.cu, tile_stream.cu and
 // tile_panel.cu report it through their int* out-parameter
 // (ops.engine._BLOCKS names them in this order): the tensor-core blocks of
-// tile_mma.cuh and tile_mma_thin.cuh, the wide SIMT block, the narrow ones.
-enum : int { kBlockMma = 0, kBlockThin = 1, kBlockWide = 2, kBlockNarrow = 3 };
+// tile_mma.cuh and tile_mma_thin.cuh, the wide SIMT block, the narrow ones,
+// and tile_spgemm.cu's warpgroup block (tile_wgmma.cuh).
+enum : int {
+  kBlockMma = 0,
+  kBlockThin = 1,
+  kBlockWide = 2,
+  kBlockNarrow = 3,
+  kBlockWg = 4
+};
 
 // What a launch on the SIMT block shape G reports.
 template <class G>

@@ -44,10 +44,16 @@
 //   narrow (every other tm in {8, 16, 32} or a multiple of 64, tn a multiple
 //          of 64, tk of 16): BM = min(tm, 64) rows x 64 columns per block,
 //          RM x 4 per thread, BK = 16, one stage, f32 FMAs.
+// and a fifth that no shape picks by itself:
+//   wg     (f32 tiles, tm a multiple of 64, tn of 128, tk of 32): the
+//          warpgroup block of tile_wgmma.cuh (TMA, an mbarrier ring, wgmma),
+//          persistent, over a schedule of 64-row pieces paired by their B
+//          runs.  tile_spgemm_wg_f32 launches it; ops.engine routes a
+//          prepared launch of dense f32 runs of 64-row panels to it.
 //
 // Launch: tile_spgemm_f32 / tile_spgemm_bf16 (plain C interface for ctypes)
 // enqueue one kernel on the given stream, write the block it runs on to
-// *block (tile_pipe.cuh's kBlock*: 0 mma, 1 thin, 2 wide, 3 narrow) and
+// *block (tile_pipe.cuh's kBlock*: 0 mma, 1 thin, 2 wide, 3 narrow, 4 wg) and
 // return cudaGetLastError().  `mask`, null or the thin block's slice words
 // (uint32 [items][tm / BM], bit s: slice s of that piece row of the item's A
 // tile has a nonzero), skips the k-slices of A that are all zero; another
@@ -56,6 +62,7 @@
 
 #include "tile_mma.cuh"
 #include "tile_mma_thin.cuh"
+#include "tile_wgmma.cuh"
 #include "tile_wide.cuh"
 
 namespace {
@@ -63,6 +70,7 @@ namespace {
 using spada::kBlockMma;
 using spada::kBlockNarrow;
 using spada::kBlockThin;
+using spada::kBlockWg;
 using spada::kBlockWide;
 using spada::to_f32;
 
@@ -107,6 +115,20 @@ __global__ void __launch_bounds__(32 * spada::thin::kWarpsN)
       tile_ptr[c + 1], c, c + 1,
       spada::mma::Store<float>{c_tiles, (size_t)tm * tn, tn}, tm, tk, tn,
       p.row0, p.col0, smem, mask);
+}
+
+// ---- wg: 128 x 128 of a pair of 64-row pieces per work item, persistent ---
+__global__ void __launch_bounds__(spada::wg::kThreads, 1)
+    tile_spgemm_wg(const __grid_constant__ CUtensorMap a_map,
+                   const __grid_constant__ CUtensorMap b_map,
+                   const int32_t* __restrict__ a_tid,
+                   const int32_t* __restrict__ b_tid,
+                   const int32_t* __restrict__ tile_ptr,
+                   const int32_t* __restrict__ units, int n_work,
+                   float* __restrict__ c_tiles, int tm, int tk, int tn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  spada::wg::block(&a_map, &b_map, a_tid, b_tid, tile_ptr, units, n_work,
+                   c_tiles, tm, tk, tn, smem);
 }
 
 // ---- wide: 128 x 128 of one C tile per block, 256 threads -----------------
@@ -284,6 +306,41 @@ int launch(const void* a_tiles, const void* b_tiles, const void* a_tid,
   return (int)cudaGetLastError();
 }
 
+// The wg block over the schedule `units` (int32 [n_units][2], tile_wgmma.cuh's
+// block) of n_a A tiles and n_b B tiles, f32.
+int launch_wg(const void* a_tiles, const void* b_tiles, const void* a_tid,
+              const void* b_tid, const void* tile_ptr, const void* units,
+              int n_units, void* c_tiles, int n_a, int n_b, int tm, int tk,
+              int tn, int* block, void* stream) {
+  namespace W = spada::wg;
+  if (n_units <= 0 || n_a <= 0 || n_b <= 0 || !W::takes(tm, tk, tn) ||
+      (long long)n_a * tm >= (1LL << 31) || (long long)n_b * tk >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  *block = kBlockWg;
+  CUtensorMap a_map, b_map;
+  int err = W::tensor_map(&a_map, static_cast<const float*>(a_tiles), tk,
+                          (uint64_t)n_a * tm, W::kRows);
+  if (err) return err;
+  err = W::tensor_map(&b_map, static_cast<const float*>(b_tiles), tn,
+                      (uint64_t)n_b * tk, W::kBK);
+  if (err) return err;
+  err = spada::allow_smem(tile_spgemm_wg, W::kSmem);
+  if (err) return err;
+  int dev = 0, sms = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  const int n_work = n_units * (tn / W::kBN);
+  tile_spgemm_wg<<<n_work < sms ? n_work : sms, W::kThreads, W::kSmem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      a_map, b_map, static_cast<const int32_t*>(a_tid),
+      static_cast<const int32_t*>(b_tid), static_cast<const int32_t*>(tile_ptr),
+      static_cast<const int32_t*>(units), n_work, static_cast<float*>(c_tiles),
+      tm, tk, tn);
+  return (int)cudaGetLastError();
+}
+
 // The blocks of `kernel` (threads, dynamic shared memory smem) that stay
 // resident on one SM at once.
 template <class Kernel>
@@ -355,6 +412,17 @@ extern "C" int tile_spgemm_bf16(const void* a_tiles, const void* b_tiles,
                                 int tn, int* block, void* stream) {
   return launch<__nv_bfloat16>(a_tiles, b_tiles, a_tid, b_tid, tile_ptr,
                                mask, c_tiles, n_c, tm, tk, tn, block, stream);
+}
+
+// launch_wg(): f32 tiles on the wg block over a schedule of 64-row pieces
+extern "C" int tile_spgemm_wg_f32(const void* a_tiles, const void* b_tiles,
+                                  const void* a_tid, const void* b_tid,
+                                  const void* tile_ptr, const void* units,
+                                  int n_units, void* c_tiles, int n_a,
+                                  int n_b, int tm, int tk, int tn, int* block,
+                                  void* stream) {
+  return launch_wg(a_tiles, b_tiles, a_tid, b_tid, tile_ptr, units, n_units,
+                   c_tiles, n_a, n_b, tm, tk, tn, block, stream);
 }
 
 // occupancy() of (tm, tk, tn) f32 (bf16 0) or bf16 (bf16 1) tiles.

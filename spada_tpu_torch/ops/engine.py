@@ -36,9 +36,10 @@ bf16) run on tensor cores (``csrc/tile_mma.cuh``): f32 tiles as 3xTF32
 small terms first), bf16 tiles as bf16 ``mma`` with f32 sums; all four
 run the planner's thin row panels (tm 8-64) the same way
 (``csrc/tile_mma_thin.cuh``).  :func:`tile_block` names the block a shape
-runs on.  The other shapes widen bf16 and run FP32 FMAs; the plain
-versions run f32 ``bmm``
-(TF32 off).  On a CUDA device an engine runs its kernel or raises: none
+runs on; a prepared ``'cached'`` launch of dense f32 runs of 64-row panels
+runs on ``tile_spgemm``'s warpgroup block instead (``csrc/tile_wgmma.cuh``,
+:func:`wg_schedule`).  The other shapes widen bf16 and run FP32 FMAs; the
+plain versions run f32 ``bmm`` (TF32 off).  On a CUDA device an engine runs its kernel or raises: none
 falls back to another engine or to the CPU.  The reference's TPU reroutes
 (``precision='highest'`` to XLA, large ids to streaming) and its item
 splits are not copied.
@@ -62,7 +63,12 @@ _ENGINES = ("cached", "streaming", "panel", "pallas_grid", "xla")
 _TILE_DTYPES = (torch.float32, torch.bfloat16)
 #: the block a launch of tile_spgemm, tile_stream or tile_panel reports,
 #: by its number (csrc/tile_pipe.cuh's kBlock*)
-_BLOCKS = ("mma", "mma_thin", "wide_simt", "narrow_simt")
+_BLOCKS = ("mma", "mma_thin", "wide_simt", "narrow_simt", "mma_wg")
+#: what a launch on a block also counts as in ``_build.launches``, after
+#: its kernel's name: ``_thin`` (the thin block) or ``_wg_thin`` (the
+#: warpgroup block, which runs thin panels); the benchmark's launch count
+#: leaves out the names that end in ``_thin``
+EXTRA_COUNT = {"mma_thin": "_thin", "mma_wg": "_wg_thin"}
 #: the kernels that run thin row panels on the thin tensor-core block
 _THIN_KERNELS = ("tile_spgemm", "tile_stream", "tile_panel", "tile_grid")
 #: tile_grid's thin path: the most items one block takes (G), and the
@@ -195,21 +201,122 @@ def prepare_cached(a_tiles: torch.Tensor, b_tiles: torch.Tensor, a_ids,
     ``call.mask`` (None off the thin block), with its counts ``slices``
     and ``slices_run``.  So A's tiles
     are fixed under a prepared call.  A caller that rewrites them in place
-    passes ``a_fixed=False``, and every slice then runs.  The call passes
-    :func:`tile_spgemm` its five operands alone: the mask rides on the
-    uploaded item ids, as ``slice_mask``."""
+    passes ``a_fixed=False``, and every slice then runs.  Where no mask is
+    kept and the launch's runs are dense f32 runs of 64-row panels, the
+    call runs on the warpgroup block instead, over the schedule
+    :func:`wg_schedule` builds here, kept as ``call.schedule`` (None
+    elsewhere).  ``call.block`` names the block the call launches on a
+    card: ``"mma_wg"`` under a schedule, else :func:`tile_block`'s (None
+    where nothing is launched or no block takes the shape).  The call
+    passes :func:`tile_spgemm` its five operands alone: the mask rides on
+    the uploaded item ids as ``slice_mask``, the schedule as
+    ``wg_schedule``."""
     a, b, o = _host_ids(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles)
-    ids = _on(a_tiles.device, a, b, tile_ptr_of(o, n_c_tiles))
+    tile_ptr = tile_ptr_of(o, n_c_tiles)
+    ids = _on(a_tiles.device, a, b, tile_ptr)
     mask = (thin_slice_mask(a_tiles, ids[0], b_tiles.shape[2]) if a_fixed
             else None)
     if mask is not None:
         ids[0].slice_mask = mask
+    schedule = wg_schedule(a_tiles, b_tiles, b, tile_ptr, mask)
+    if schedule is not None:
+        ids[0].wg_schedule = schedule
 
     def call(b_now=b_tiles):
         return tile_spgemm(a_tiles, b_now, *ids)
 
     call.mask = mask
+    call.schedule = schedule
+    if schedule is not None:
+        call.block = "mma_wg"
+    else:
+        try:
+            call.block = _has_work("tile_spgemm", n_c_tiles, len(a),
+                                   a_tiles.shape[1], a_tiles.shape[2],
+                                   b_tiles.shape[2], a_tiles.dtype)
+        except ValueError:
+            call.block = None   # the launch raises
     return call
+
+
+class WgSchedule(NamedTuple):
+    """The warpgroup block's work (``csrc/tile_wgmma.cuh``).
+
+    ``units`` int32 [U, 2] on the tiles' device: two piece ids ``o * (tm
+    // 64) + r`` (rows [64 r, 64 r + 64) of C tile o) whose runs read the
+    same B tiles in the same order, or one piece and -1 where it pairs with
+    none; every piece of every C tile once, units of one B run together.
+    ``pairs`` and ``singles`` count the two kinds, ``pieces`` the pieces
+    of the launch it was built for (its C tiles times tm / 64)."""
+    units: torch.Tensor
+    pairs: int
+    singles: int
+    pieces: int
+
+
+def wg_units(tile_ptr: np.ndarray, b_ids: np.ndarray, pieces: int
+             ) -> np.ndarray:
+    """The units of :class:`WgSchedule` (int32 [U, 2], on the host) of the
+    C tiles whose runs are ``tile_ptr`` over the items' B ids ``b_ids``,
+    ``pieces`` 64-row pieces per C tile.  C tiles are grouped by their run
+    of B ids (its length and every id, in order; an empty run is one
+    group), groups ordered by that run, pieces by id inside a group; each
+    group's pieces pair in that order, and an odd last one runs alone."""
+    tile_ptr = np.asarray(tile_ptr, np.int64)
+    b_ids = np.asarray(b_ids)
+    n_c = len(tile_ptr) - 1
+    lengths = np.diff(tile_ptr)
+    group = np.zeros(n_c, np.int64)
+    n_groups = 0
+    for length in np.unique(lengths):
+        tiles = np.flatnonzero(lengths == length)
+        runs = b_ids[tile_ptr[tiles, None] + np.arange(length)]
+        _, inv = np.unique(runs.reshape(len(tiles), length), axis=0,
+                           return_inverse=True)
+        inv = inv.reshape(-1)
+        group[tiles] = n_groups + inv
+        n_groups += int(inv.max()) + 1
+    piece = np.arange(n_c * pieces)
+    of = np.repeat(group, pieces)
+    order = np.lexsort((piece, of))
+    sorted_of = of[order]
+    starts = np.r_[True, sorted_of[1:] != sorted_of[:-1]]
+    pos = np.arange(len(order)) - np.maximum.accumulate(
+        np.where(starts, np.arange(len(order)), 0))
+    lead = np.flatnonzero(pos % 2 == 0)
+    has_next = np.r_[sorted_of[1:] == sorted_of[:-1], False][lead]
+    second = np.where(has_next, order[np.minimum(lead + 1, len(order) - 1)],
+                      -1)
+    return np.stack([order[lead], second], 1).astype(np.int32)
+
+
+def wg_schedule(a_tiles: torch.Tensor, b_tiles: torch.Tensor, b_ids,
+                tile_ptr, mask: Optional[SliceMask] = None
+                ) -> Optional[WgSchedule]:
+    """The :class:`WgSchedule` of a prepared ``tile_spgemm`` launch, on the
+    tiles' device, or None where the launch stays on its own block.  It is
+    built for f32 tiles of a shape the thin block takes with tm a multiple
+    of 64 (the 64-row panels, tn a multiple of 128, tk of 32), where no
+    slice mask is kept (``mask`` None or without ``words``: where the mask
+    pays, the masked thin block runs), with items to run and tile ids that
+    the block's 32-bit tensor coordinates reach."""
+    tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
+    tile_ptr = np.asarray(tile_ptr, np.int64)
+    if (a_tiles.dtype != torch.float32 or tm % 64
+            or (mask is not None and mask.words is not None)
+            or len(tile_ptr) < 2 or tile_ptr[-1] == 0
+            or max(a_tiles.shape[0] * tm, b_tiles.shape[0] * tk) >= 1 << 31):
+        return None
+    try:
+        if tile_block(tm, tk, tn, a_tiles.dtype) != "mma_thin":
+            return None
+    except ValueError:
+        return None
+    pieces = tm // 64
+    units = wg_units(tile_ptr, b_ids, pieces)
+    singles = int((units[:, 1] < 0).sum())
+    return WgSchedule(_on(a_tiles.device, units)[0], len(units) - singles,
+                      singles, (len(tile_ptr) - 1) * pieces)
 
 
 class SliceMask(NamedTuple):
@@ -559,9 +666,18 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
     sparse product would not.  The plain version ignores the mask.  The
     ``launch`` span carries the mask's ``slices`` and ``slices_run``, and
     ``macs`` (:func:`launch_macs`).
+
+    The schedule :func:`prepare_cached` left on ``a_tid``
+    (``a_tid.wg_schedule``, :func:`wg_schedule` of these items) runs the
+    launch on the warpgroup block (``csrc/tile_wgmma.cuh``, block
+    ``"mma_wg"``, counted also as ``"tile_spgemm_wg_thin"``): 3xTF32 with
+    f32 sums as the thin block, in another order, so within f32 rounding of
+    its C and not bit for bit.  Without one the launch runs on
+    :func:`tile_block`'s block.  The plain version ignores it.
     """
     if mask is None:
         mask = getattr(a_tid, "slice_mask", None)
+    schedule = getattr(a_tid, "wg_schedule", None)
     t = (trace.launch("tile_spgemm", items=int(a_tid.shape[0]),
                       macs=launch_macs(a_tiles, b_tiles, a_tid, mask),
                       **({} if mask is None else
@@ -576,6 +692,8 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
         words = None if mask is None else mask.words
         if words is not None:
             _check_mask(words, a_tiles, a_tid, tn)
+        if schedule is not None:
+            _check_schedule(schedule, a_tiles, b_tiles, words, n_c)
         if a_tiles.device.type == "cpu":
             if t is not None:
                 t.step("launch.call", block="plain")
@@ -584,6 +702,8 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
                 _run_o_ids(tile_ptr, a_tid.shape[0]), n_c)
         block = _has_work("tile_spgemm", n_c, a_tid.shape[0], tm, tk, tn,
                           a_tiles.dtype)
+        if block is not None and schedule is not None:
+            block = "mma_wg"
         if t is not None:
             t.step("launch.alloc", block=block)
         c = torch.empty((n_c, tm, tn), dtype=torch.float32,
@@ -593,6 +713,15 @@ def tile_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
         if t is not None:
             t.step("launch.call")
         lib = _build.load()
+        if block == "mma_wg":
+            _launch_reporting("tile_spgemm", block, (tm, tk, tn), a_tiles,
+                              lib.tile_spgemm_wg_f32, a_tiles.data_ptr(),
+                              b_tiles.data_ptr(), a_tid.data_ptr(),
+                              b_tid.data_ptr(), tile_ptr.data_ptr(),
+                              schedule.units.data_ptr(),
+                              int(schedule.units.shape[0]), c.data_ptr(),
+                              a_tiles.shape[0], b_tiles.shape[0], tm, tk, tn)
+            return c
         fn = (lib.tile_spgemm_f32 if a_tiles.dtype == torch.float32
               else lib.tile_spgemm_bf16)
         _launch_reporting("tile_spgemm", block, (tm, tk, tn), a_tiles, fn,
@@ -858,8 +987,9 @@ def _launch_reporting(kernel: str, block: str, shape: tuple, like, fn,
                       *args) -> None:
     """Launch ``fn(*args, &ran, stream)``, a kernel that reports the block
     it ran on in ``ran``, on the current stream of ``like``'s device; raise
-    where that block is not ``block`` (:func:`tile_block`'s), and count a
-    launch of the thin block also as ``kernel + "_thin"``."""
+    where that block is not ``block`` (:func:`tile_block`'s, or the
+    warpgroup block's), and count a launch of the thin or the warpgroup
+    block also under its :data:`EXTRA_COUNT` name."""
     ran = ctypes.c_int(-1)
     _launched(kernel, fn(*args, ctypes.byref(ran),
                          _build.current_stream(like)))
@@ -869,8 +999,33 @@ def _launch_reporting(kernel: str, block: str, shape: tuple, like, fn,
         tm, tk, tn = shape
         raise RuntimeError(f"{kernel}: tm={tm} tk={tk} tn={tn} ran on the "
                            f"{got} block, tile_block names {block}")
-    if block == "mma_thin":
-        _build.launches[f"{kernel}_thin"] += 1
+    if block in EXTRA_COUNT:
+        _build.launches[kernel + EXTRA_COUNT[block]] += 1
+
+
+def _check_schedule(schedule: WgSchedule, a_tiles, b_tiles, words,
+                    n_c: int) -> None:
+    """Raise where ``schedule`` is not a warpgroup schedule the kernel can
+    run for these tiles and ``n_c`` C tiles (:class:`WgSchedule`); the
+    piece ids themselves are checked where the schedule is built."""
+    tm, tk, tn = a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2]
+    if (a_tiles.dtype != torch.float32 or tm % 64 or tn % 128 or tk % 32
+            or words is not None):
+        raise ValueError(f"tile_spgemm: the warpgroup block takes f32 tiles "
+                         f"with tm a multiple of 64, tn of 128 and tk of 32, "
+                         f"and no slice mask; got {a_tiles.dtype} tm={tm} "
+                         f"tk={tk} tn={tn}"
+                         + (" with a mask" if words is not None else ""))
+    units = schedule.units
+    if (units.dtype != torch.int32 or units.dim() != 2 or units.shape[1] != 2
+            or units.device != a_tiles.device or not units.is_contiguous()
+            or schedule.pieces != n_c * (tm // 64)
+            or not 0 < units.shape[0] <= schedule.pieces):
+        raise ValueError(f"tile_spgemm: the schedule's units must be "
+                         f"contiguous int32 [U, 2] on {a_tiles.device}, "
+                         f"0 < U <= {n_c * (tm // 64)}, built for "
+                         f"{n_c * (tm // 64)} pieces; it was built for "
+                         f"{schedule.pieces}")
 
 
 def _check_mask(words, a_tiles, a_tid, tn: int) -> None:

@@ -386,7 +386,10 @@ def measure_device_perf(a: CsrMatrix, b: CsrMatrix,
     the median device seconds of one multiply (CUDA events,
     :func:`spada_tpu_torch.utils.timing.cuda_time`; operands, tiles and ids
     uploaded once before, C's readback excluded), beside the modelled HBM
-    bytes over it (``hbm_gbps``, ``pct_hbm_sol``), the tile products' share
+    bytes over it (``hbm_gbps``, ``pct_hbm_sol``; on the tile side the
+    least bytes, each tile the launches read once and C written once, as
+    :func:`~spada_tpu_torch.config.tile_work` counts them, where the
+    reference counts every item's tiles), the tile products' share
     of the tensor-core peak the kernels run at (``mxu_util_pct``, None on
     the element side) and ``flops_per_s``.  Peaks and bandwidth are the
     card's datasheet values (:func:`~spada_tpu_torch.config.datasheet_peaks`),
@@ -506,14 +509,13 @@ def _time_segments(segments, tk: int, tn: int, config: SpadaConfig,
         return on_dev[id(x)][1]
 
     calls = []
-    mxu_flops = bytes_model = 0
+    mxu_flops = 0
     for wl, a_np, b_np, tm in segments:
         calls.append(prepare_worklist(wl, upload(a_np), upload(b_np),
                                       precision=config.precision,
                                       engine=engine))
         mxu_flops += 2 * wl.n_items * tm * tk * tn
-        bytes_model += (wl.n_items * (tm * tk + tk * tn) * dtype.itemsize
-                        + wl.n_c_tiles * tm * tn * 4)
+    bytes_model = _least_tile_bytes(segments, tn, dtype.itemsize)
 
     el, _ = cuda_time(lambda: [call() for call in calls])
     hbm = datasheet_peaks(name)["hbm_bytes_per_s"]
@@ -524,6 +526,22 @@ def _time_segments(segments, tk: int, tn: int, config: SpadaConfig,
         "mxu_util_pct": 100.0 * mxu_flops / el / _peak_flops(name, dtype),
         "flops_per_s": mxu_flops / el,
     }
+
+
+def _least_tile_bytes(segments, tn: int, itemsize: int) -> int:
+    """The HBM bytes of a multiply's tile launches (``segments`` as
+    :func:`_time_segments` takes them) at the least: each tile that an
+    item reads, read once (one host array shared by segments counted
+    once), of ``itemsize`` bytes an element, and the f32 C tiles written
+    once."""
+    read = {}         # host tile array -> (it, the ids its items read)
+    c_bytes = 0
+    for wl, a_np, b_np, tm in segments:
+        for x, ids in ((a_np, wl.a_tid), (b_np, wl.b_tid)):
+            read.setdefault(id(x), (x, []))[1].append(np.asarray(ids))
+        c_bytes += wl.n_c_tiles * tm * tn * 4
+    return c_bytes + sum(len(np.unique(np.concatenate(ids))) * x[0].size
+                         * itemsize for x, ids in read.values())
 
 
 # the reference's name: the rate the tile kernels multiply tiles of a dtype

@@ -259,15 +259,17 @@ def thin_points(rows, a, b, card: Optional[str],
                 T: int = THIN_T) -> Dict[str, dict]:
     """{dtype: {(tm, T): (overhead s, item s)}} of the timed
     ``tile_spgemm`` cases of ``tools/sweep_thin`` rows on the pair ``a``,
-    ``b`` at tk = tn = ``T``: (elapsed - :func:`panel_model_s`) / W, and
-    elapsed / W, under ``h100_config(card)``'s rates."""
+    ``b`` at tk = tn = ``T`` on the blocks the planner prices (not the
+    warpgroup block): (elapsed - :func:`panel_model_s`) / W, and elapsed /
+    W, under ``h100_config(card)``'s rates."""
     from spada_tpu_torch.config import h100_config
     from spada_tpu_torch.plan.estimator import BTileStructure
 
     bt = BTileStructure(b, T, T)
     out: Dict[str, dict] = {}
     for r in rows:
-        if r["engine"] != "tile_spgemm" or r["ms"] is None:
+        if (r["kernel"] != "tile_spgemm" or r["block"] == "mma_wg"
+                or r["ms"] is None):
             continue
         cfg = h100_config(card, engine_dtype=r["dtype"])
         W, model = panel_model_s(a, bt, r["tm"], cfg)

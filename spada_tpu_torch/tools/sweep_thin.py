@@ -15,13 +15,18 @@ case is one launch, gated against its plain version (1e-5 of max|C|) and
 against scipy on C's first 2048 rows (f32 tiles 1e-4, bf16 1e-2); on a card
 ``tile_stream`` at ogroup 1 and ``tile_panel`` must also give
 ``tile_spgemm``'s C bit for bit, so asking for either runs ``tile_spgemm``
-too, first.  ``grid_chunks`` adds, on the thin block, a ``tile_grid`` case
-for each G given to its C entry point (``tile_grid G=g``), beside
-``tile_grid``'s own case at the G of ``ops.engine.grid_chunk``: the
-measurement behind that rule.  Then it is timed on CUDA events
+too, first.  Where the prepared ``tile_spgemm`` launch runs on the
+warpgroup block (dense f32 runs of 64-row panels), which sums in another
+order, a ``tile_spgemm direct`` case follows it: the direct launch, on
+:func:`~spada_tpu_torch.ops.engine.tile_block`'s block, whose C the
+others must equal.  ``grid_chunks`` adds, on the thin block,
+a ``tile_grid`` case for each G given to its C entry point (``tile_grid
+G=g``), beside ``tile_grid``'s own case at the G of
+``ops.engine.grid_chunk``: the measurement behind that rule.  Then it is timed on CUDA events
 (``utils.timing.cuda_time``) beside:
 
-- the block it ran on (:func:`~spada_tpu_torch.ops.engine.tile_block`);
+- the block it ran on (the prepared call's ``block``, else
+  :func:`~spada_tpu_torch.ops.engine.tile_block`'s);
 - W, the ns per item, and the bound (``config.roofline_bound`` on
   ``config.tile_work``: the pair's useful products, each tile read once, C
   written once);
@@ -107,8 +112,8 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
     chunk (``tile_grid``'s G on the thin block: the one given, or on a card
     the rule's; else None),
     plain_err (of max|C|), plain_abs_err, gate_err, same_bits (whether C
-    equals ``tile_spgemm``'s bit for bit; None for ``tile_spgemm`` and
-    where it did not run)."""
+    equals the C of the ``tile_spgemm`` case on the same block bit for bit;
+    None for ``tile_spgemm`` and where it did not run)."""
     from spada_tpu_torch.config import roofline_bound, tile_work
     from spada_tpu_torch.convert import (bsr_to_torch, check_device,
                                          worklist_to_torch)
@@ -172,12 +177,12 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
                 lib_ns = bmm_s(k) / k * 1e9
                 if (dt, tm) in lib_whole:
                     lib_ms = bmm_s(W) * 1e3
-            c_spgemm = None
+            c_spgemm = {}      # block -> tile_spgemm's C on it
             thin = tile_block(tm, T, T, tdt, "tile_grid") == "mma_thin"
             rule_g = (grid_chunk(W, thin_pieces(tm, T), sm_count(dev))
                       if thin and dev.type == "cuda" else None)
             chunks = tuple(grid_chunks) if thin else ()
-            for label, kernel, call, plain, g in _cases(
+            for label, kernel, block, call, plain, g in _cases(
                     engines, a_t, b_t, wl, dwl, dev, chunks, rule_g):
                 c, p = call(), plain()
                 p_err, p_abs = relerr(c, p), float((c - p).abs().max())
@@ -190,9 +195,9 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
                              f"{label}, {dt} tiles, tm={tm}")
                 same = None
                 if kernel == "tile_spgemm":
-                    c_spgemm = c
-                elif c_spgemm is not None:
-                    same = bool(torch.equal(c, c_spgemm))
+                    c_spgemm[block] = c
+                elif block in c_spgemm:
+                    same = bool(torch.equal(c, c_spgemm[block]))
                     if (dev.type == "cuda" and label in BITWISE
                             and not same):
                         raise RuntimeError(f"{dt} tm={tm}: {label} is not "
@@ -200,7 +205,7 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
                 del c
                 row = {"engine": label, "kernel": kernel, "dtype": dt,
                        "tm": tm, "W": W, "n_c": int(wl.n_c_tiles),
-                       "block": tile_block(tm, T, T, tdt, kernel),
+                       "block": block,
                        "ms": None, "ns_item": None, "plain_ms": None,
                        "bound_ms": bound_s * 1e3, "bound_by": by,
                        "lib_ns_item": lib_ns, "lib_ms": lib_ms,
@@ -221,33 +226,48 @@ def run(n: int = 32768, band: int = 384, T: int = 128,
 
 
 def _cases(engines, a_t, b_t, wl, dwl, dev, grid_chunks=(), rule_g=None):
-    """(label, kernel, call, plain, G) of each engine case on one operand
-    set: the calls the engines' ``run_worklist_*`` make (``tile_stream``
-    with their nbuf, once per ogroup of :data:`OGROUPS`; ``tile_grid`` at
-    the rule's G, ``rule_g``, and at each G of ``grid_chunks``)."""
+    """(label, kernel, block, call, plain, G) of each engine case on one
+    operand set: the calls the engines' ``run_worklist_*`` make
+    (``tile_stream`` with their nbuf, once per ogroup of :data:`OGROUPS`;
+    ``tile_grid`` at the rule's G, ``rule_g``, and at each G of
+    ``grid_chunks``), and ``tile_spgemm direct`` where the prepared call
+    runs on the warpgroup block; block is the block each launches on a
+    card."""
     from spada_tpu_torch.convert import item_ptr_of
     from spada_tpu_torch.ops import engine as E
 
     ai, bi, oi, tp, n_c = (dwl.a_tid, dwl.b_tid, dwl.o_tid, dwl.tile_ptr,
                            dwl.n_c_tiles)
+    tm, tk, tn = a_t.shape[1], a_t.shape[2], b_t.shape[2]
+
+    def block(kernel):
+        return E.tile_block(tm, tk, tn, a_t.dtype, kernel)
+
+    def plain_spgemm():
+        return E.run_worklist_reference(a_t, b_t, ai, bi, oi, n_c)
+
     cases = []
     for eng in engines:
         if eng == "tile_spgemm":
-            cases.append((eng, eng, E.prepare_cached(
-                a_t, b_t, wl.a_tid, wl.b_tid, wl.o_tid, n_c),
-                lambda: E.run_worklist_reference(a_t, b_t, ai, bi, oi, n_c),
-                None))
+            call = E.prepare_cached(a_t, b_t, wl.a_tid, wl.b_tid, wl.o_tid,
+                                    n_c)
+            cases.append((eng, eng, call.block, call, plain_spgemm, None))
+            if call.block != block(eng):
+                cases.append(("tile_spgemm direct", eng, block(eng),
+                              lambda: E.tile_spgemm(a_t, b_t, ai, bi, tp),
+                              plain_spgemm, None))
         elif eng == "tile_stream":
             for og in OGROUPS:
                 ip = torch.from_numpy(item_ptr_of(wl.o_tid, n_c, og)).to(dev)
                 args = (a_t, b_t, ai, bi, oi, ip, n_c, og, NBUF)
-                cases.append((f"tile_stream og={og}", eng,
+                cases.append((f"tile_stream og={og}", eng, block(eng),
                               lambda args=args: E.tile_stream(*args),
                               lambda args=args: E.tile_stream_reference(
                                   *args), None))
         elif eng == "tile_panel":
             args = (a_t.transpose(1, 2).contiguous(), b_t, ai, bi, tp)
-            cases.append((eng, eng, lambda args=args: E.tile_panel(*args),
+            cases.append((eng, eng, block(eng),
+                          lambda args=args: E.tile_panel(*args),
                           lambda args=args: E.tile_panel_reference(*args),
                           None))
         else:
@@ -256,10 +276,11 @@ def _cases(engines, a_t, b_t, wl, dwl, dev, grid_chunks=(), rule_g=None):
             def plain(args=args):
                 return E.tile_grid_reference(*args)
 
-            cases.append((eng, eng, lambda args=args: E.tile_grid(*args),
-                          plain, rule_g))
+            cases.append((eng, eng, block(eng),
+                          lambda args=args: E.tile_grid(*args), plain,
+                          rule_g))
             for g in grid_chunks:
-                cases.append((f"tile_grid G={g}", eng,
+                cases.append((f"tile_grid G={g}", eng, block(eng),
                               lambda args=args, g=g: E._tile_grid_launch(
                                   *args, chunk=g), plain, g))
     return cases

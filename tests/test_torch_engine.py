@@ -169,7 +169,7 @@ def test_block_numbers_match_the_kernels_report():
                      _csrc("tile_pipe.cuh")).group(1)
     pairs = re.findall(r"kBlock(\w+) = (\d+)", enum)
     names = {"Mma": "mma", "Thin": "mma_thin", "Wide": "wide_simt",
-             "Narrow": "narrow_simt"}
+             "Narrow": "narrow_simt", "Wg": "mma_wg"}
     assert sorted((int(v), names[k]) for k, v in pairs) == list(
         enumerate(engine._BLOCKS))
 

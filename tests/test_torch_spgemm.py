@@ -379,6 +379,27 @@ def test_measure_device_perf_is_none_on_cpu(cari_workload):
                                device="cpu") is None
 
 
+def test_the_device_report_counts_each_tile_once(cari_workload):
+    """measure_device_perf's tile-side bytes are the least: each tile an
+    item reads, once (B's array shared by the segments once), and C
+    written once, so its HBM share is a share of a bound."""
+    from spada_tpu_torch.ops.spgemm import _least_tile_bytes
+
+    a, b = P(cari_workload.a), P(cari_workload.b)
+    res = spgemm(a, b, h100_config(), dataflow="rowwise", device="cpu")
+    (wl, a_t, b_t, tm), = res.host_state["segments"]
+    tn = res.host_state["tn"]
+    assert wl.n_items > len(np.unique(wl.b_tid))     # B tiles read again
+    want = ((len(np.unique(wl.a_tid)) * a_t[0].size
+             + len(np.unique(wl.b_tid)) * b_t[0].size) * 4
+            + wl.n_c_tiles * tm * tn * 4)
+    assert _least_tile_bytes([(wl, a_t, b_t, tm)], tn, 4) == want
+    # a second segment on the same B adds its A tiles and C, not B again
+    a2 = a_t.copy()
+    two = _least_tile_bytes([(wl, a_t, b_t, tm), (wl, a2, b_t, tm)], tn, 4)
+    assert two == 2 * want - len(np.unique(wl.b_tid)) * b_t[0].size * 4
+
+
 def test_peak_flops_is_the_rate_the_tiles_run_at():
     """f32 tiles run 3xTF32: a third of dense TF32 (495 TFLOP/s on an H100
     SXM), not the 67 TFLOP/s FP32 rate; bf16 tiles the dense bf16 rate."""

@@ -132,3 +132,22 @@ def test_sweep_grid_chunks_and_cari_pair():
     with pytest.raises(ValueError, match="unknown pair"):
         sweep_thin.run(n=512, band=48, tms=(8,), device="cpu",
                        pair="rmat", log=lambda s: None)
+
+
+def test_a_warpgroup_case_brings_the_direct_launch_beside_it():
+    """Where the prepared tile_spgemm launch takes the warpgroup block (f32
+    tm-64 panels dense along k: no slice mask kept), a ``tile_spgemm
+    direct`` case follows it on the thin block, and the bitwise cases are
+    held to that one's C; the bf16 tiles keep the prepared case alone."""
+    rows = sweep_thin.run(n=1024, band=384, T=128, tms=(64,), device="cpu",
+                          gate_rows=256, engines=sweep_thin.ENGINES,
+                          log=lambda s: None)
+    got = [(r["dtype"], r["engine"], r["block"]) for r in rows
+           if r["kernel"] == "tile_spgemm"]
+    assert got == [("float32", "tile_spgemm", "mma_wg"),
+                   ("float32", "tile_spgemm direct", "mma_thin"),
+                   ("bfloat16", "tile_spgemm", "mma_thin")]
+    assert all(r["same_bits"] for r in rows
+               if r["engine"] in sweep_thin.BITWISE)
+    assert all(r["block"] == "mma_thin" for r in rows
+               if r["kernel"] != "tile_spgemm")
